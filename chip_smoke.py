@@ -7,17 +7,28 @@ Phases (any failure exits non-zero; no phase is caught):
   1. card    — print the card's name and power limit (nvidia-smi); TF32 off.
   2. build   — compile the CUDA kernels from src/repro_torch/kernels/csrc.
   3. kernels — each kernel against its plain PyTorch version at Qwen3-8B
-               shapes in bf16 (packed attention also in f32), with its time, the plain version's time, the
-               time of one PyTorch library call of the same function (where
-               there is one) and the card's bound for the same work.
+               shapes in bf16 (the packed-attention variants also in f32),
+               with its time, the plain version's time, the time of one
+               PyTorch library call of the same function (where there is
+               one) and the card's bound for the same work.  The four
+               packed-attention variants: contiguous, int8 KV, block-table
+               (shuffled table, block 16) and block-table + int8.
   4. forward — ``forward_packed`` at full width, 4 layers, through the
                kernels and through the plain versions: logits must agree.
   5. serve   — Qwen3-8B at full width and all 36 layers (seeded random bf16
-               weights) serves 8 requests; both kernels must have launched,
-               and the greedy tokens must agree with a teacher-forced
-               forward through the plain versions.
+               weights) serves 8 requests; contiguous packed attention and
+               SwiGLU must have launched, and the greedy tokens must agree
+               with a teacher-forced forward through the plain versions.
   6. profile — the same requests again under torch.profiler: device busy
                share and the kernels that take the device time.
+  7. shared-prefix — the same model serves one request with a 600-token
+               prompt prefix, then seven more that share it, in each of the
+               four KV modes (prefix caching off/on x bf16/int8 KV): every
+               run launches its own attention variant; the prefix runs hit
+               4200 cached tokens with 7 copy-on-write block copies and
+               agree with the runs without prefix caching; an int8 request
+               agrees with a teacher-forced plain forward through an int8
+               cache.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -47,6 +58,16 @@ LIB_TOL = (2e-2, 2e-2)      # the SDPA yardstick may round in bf16 inside
 FWD_LOGIT_ATOL = 0.1    # whole forward, kernels vs plain, bf16 logits
 FWD_ARGMAX_MIN = 0.9    # share of tokens whose greedy argmax agrees
 SERVE_AGREE_MIN = 0.9   # served tokens vs teacher-forced plain forward
+# packed-attention kernel -> (block tables, int8 KV), the TPU kernel it
+# replaces (the function that reaches pl.pallas_call, or its kernel body)
+_TPU_PA = "src/repro/kernels/packed_attention.py"
+ATTENTION = {
+    "packed_attention": ((False, False), f"{_TPU_PA}:135"),
+    "packed_attention_quant": ((False, True), f"{_TPU_PA}:111"),
+    "packed_attention_block": ((True, False), f"{_TPU_PA}:240"),
+    "packed_attention_block_quant": ((True, True), f"{_TPU_PA}:126"),
+}
+KV_BLOCK = 16           # block size of the block-table cases and serves
 
 
 def log(msg: str) -> None:
@@ -135,6 +156,38 @@ def attention_case(torch, cfg, bucket: int, seed: int, dtype):
     return (q, k, v, slot_t, lens_t), nbytes, flops
 
 
+def variant_case(torch, cfg, seed: int, q_dtype, blocked: bool, quant: bool):
+    """``attention_case``'s mixed stream at bucket 1024 for one variant:
+    int8 caches with f32 scales (quantized from the random caches) for the
+    int8 variants, and for the block-table variants a shuffled table over
+    the 10 x 1024 rows in blocks of 16, so a wrong table or scale index
+    reads another slot's rows.  Returns (args, kwargs, bytes, flops); the
+    bytes count each attended row, scale and table entry once."""
+    from repro_torch.serving.kvquant import quantize_kv
+    args, _, flops = attention_case(torch, cfg, 1024, seed, torch.float32)
+    q, k, v, slot, lens = args
+    kw = {}
+    if quant:
+        k, kw["k_scale"] = quantize_kv(k)
+        v, kw["v_scale"] = quantize_kv(v)
+    else:
+        k, v = k.to(q_dtype), v.to(q_dtype)
+    q = q.to(q_dtype)
+    n, s, kv, hd = k.shape
+    if blocked:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        kw["block_tables"] = torch.randperm(
+            n * s // KV_BLOCK, generator=gen, device="cuda"
+        ).to(torch.int32).view(n, s // KV_BLOCK)
+    rows = {}
+    for sl, ln in zip(slot.tolist(), lens.tolist()):
+        rows[sl] = max(rows.get(sl, 0), ln)
+    row_bytes = kv * hd * 2 * k.element_size() + (kv * 2 * 4 if quant else 0)
+    nbytes = (sum(rows.values()) * row_bytes + 2 * q.numel() * q.element_size()
+              + 2 * q.shape[0] * 4 + (n * s // KV_BLOCK * 4 if blocked else 0))
+    return (q, k, v, slot, lens), kw, nbytes, flops
+
+
 def sdpa_inputs(torch, args, bucket: int):
     """The same attention as one ``scaled_dot_product_attention`` call: all
     slots' bucket rows as one key sequence, with a boolean mask that lets
@@ -199,6 +252,48 @@ def phase_kernels(torch, cfg, timer, bw, peak):
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=lib_ms)
+
+    # ---- the int8, block-table and block-table + int8 variants --------------
+    for kname, ((blocked, quant), _) in ATTENTION.items():
+        if not (blocked or quant):
+            continue
+        # f32 q (and f32 caches, or the same int8 caches): a table, scale or
+        # masking error shows far above the f32 tolerance
+        args32, kw32, _, _ = variant_case(torch, cfg, 1024, torch.float32,
+                                          blocked, quant)
+        err32 = check_close(f"{kname} f32",
+                            packed_attention_cuda(*args32, kv_bucket=1024,
+                                                  **kw32),
+                            packed_attention_ref(*args32, kv_bucket=1024,
+                                                 **kw32), F32_TOL)
+        del args32, kw32
+        args, kw, nbytes, flops = variant_case(torch, cfg, 1024,
+                                               torch.bfloat16, blocked, quant)
+        got = packed_attention_cuda(*args, kv_bucket=1024, **kw)
+        want = packed_attention_ref(*args, kv_bucket=1024, **kw)
+        torch.cuda.synchronize()
+        err = check_close(f"{kname} bf16", got, want)
+        ms = timer(lambda: packed_attention_cuda(*args, kv_bucket=1024, **kw))
+        plain_ms = timer(lambda: packed_attention_ref(*args, kv_bucket=1024,
+                                                      **kw))
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+        log(f"{kname} T={args[0].shape[0]} bucket=1024: max_abs_err f32 "
+            f"{err32:.3e} (tol {F32_TOL[0]} + {F32_TOL[1]}·|ref|), bf16 q "
+            f"{err:.3e} (tol {BF16_TOL[0]} + {BF16_TOL[1]}·|ref|)  kernel_ms "
+            f"{ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms "
+            f"{max(t_bytes, t_ops):.4f} ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+        record[kname] = dict(
+            shape=f"T={args[0].shape[0]} (8 decode + 200 + 37 prefill), H=32 "
+                  f"KV=8 D=128, kv_bucket=1024, bf16 q, "
+                  + ("int8 K/V + f32 scales" if quant else "bf16 K/V")
+                  + (f", shuffled block table (block {KV_BLOCK})"
+                     if blocked else ""),
+            max_abs_err=err, max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None)
+        del args, kw, got, want
 
     # ---- SwiGLU ------------------------------------------------------------
     d, ff = cfg.d_model, cfg.d_ff
@@ -276,9 +371,22 @@ def phase_forward(torch, cfg):
     torch.cuda.empty_cache()
 
 
-def phase_serve(torch, cfg):
+def zero_counts() -> None:
+    """Set every kernel's launch count to 0 (before a main-path run)."""
     from repro_torch.kernels.packed_attention import packed_attention_cuda
     from repro_torch.kernels.swiglu import swiglu_cuda
+    for kname in packed_attention_cuda.launches:
+        packed_attention_cuda.launches[kname] = 0
+    swiglu_cuda.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels.packed_attention import packed_attention_cuda
+    from repro_torch.kernels.swiglu import swiglu_cuda
+    return dict(packed_attention_cuda.launches, swiglu=swiglu_cuda.launches)
+
+
+def phase_serve(torch, cfg):
     from repro_torch.models import model
     from repro_torch.models.param import count_params
     from repro_torch.serving.config import EngineConfig
@@ -297,14 +405,13 @@ def phase_serve(torch, cfg):
     prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
                for n in lens]
     # the main path's run: counts from 0
-    packed_attention_cuda.launches = 0
-    swiglu_cuda.launches = 0
+    zero_counts()
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=32))
     done = eng.run()
     torch.cuda.synchronize()
-    launches = {"packed_attention": packed_attention_cuda.launches,
-                "swiglu": swiglu_cuda.launches}
+    counts = read_counts()
+    launches = {k: counts[k] for k in ("packed_attention", "swiglu")}
     s = eng.stats
     log(f"serve: prompts {lens.tolist()}, {len(done)}/8 finished, "
         f"{s.iterations} iterations, {s.total_tokens} tokens in "
@@ -330,15 +437,8 @@ def phase_serve(torch, cfg):
 
     # reference: teacher-forced plain forward of request 0's whole stream
     r0 = min(done, key=lambda r: r.rid)
-    seq = r0.prompt + r0.output[:-1]
-    n = len(seq)
-    pos = torch.arange(n, dtype=torch.int32, device="cuda")
-    cache = model.init_cache(cfg, 1, 1024, device="cuda")
-    lg, _ = model.forward_packed(
-        cfg, params, torch.tensor([seq], dtype=torch.int32, device="cuda"),
-        cache, torch.zeros(n, dtype=torch.int32, device="cuda"), pos, pos,
-        kv_bucket=1024, impl="plain")
-    ref = lg[0, r0.prompt_len - 1:].argmax(-1).tolist()
+    lg = teacher_forced(torch, cfg, params, r0.prompt + r0.output[:-1])
+    ref = lg[r0.prompt_len - 1:].argmax(-1).tolist()
     agree = float(np.mean(np.asarray(ref) == np.asarray(r0.output)))
     log(f"serve: request 0 ({r0.prompt_len} prompt tokens) greedy tokens vs "
         f"teacher-forced plain forward: agreement {agree:.4f} "
@@ -386,6 +486,141 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float):
             f"{e.key[:90]}")
 
 
+def teacher_forced(torch, cfg, params, seq: list, kv_dtype=None):
+    """Plain-version forward of one whole token stream through a fresh
+    one-slot cache (int8 for ``kv_dtype="int8"``): logits (len(seq), V)."""
+    from repro_torch.models import model
+    n = len(seq)
+    pos = torch.arange(n, dtype=torch.int32, device="cuda")
+    cache = model.init_cache(cfg, 1, 1024, device="cuda", kv_dtype=kv_dtype)
+    lg, _ = model.forward_packed(
+        cfg, params, torch.tensor([seq], dtype=torch.int32, device="cuda"),
+        cache, torch.zeros(n, dtype=torch.int32, device="cuda"), pos, pos,
+        kv_bucket=1024, impl="plain")
+    return lg[0].float()
+
+
+def context_agreement(a: dict, b: dict):
+    """Two runs' greedy tokens per request: (agreement over the positions
+    whose earlier tokens agree in both runs, agreement over all positions,
+    first differing position per request or None).  The first is the
+    per-token agreement given the same context; after one flipped near-tie
+    the runs decode different contexts, which the second counts too."""
+    same = total = same_ctx = n_ctx = 0
+    first = {}
+    for rid in sorted(a):
+        first[rid] = None
+        for i, (x, y) in enumerate(zip(a[rid], b[rid])):
+            same += x == y
+            total += 1
+            if first[rid] is None:
+                n_ctx += 1
+                same_ctx += x == y
+                if x != y:
+                    first[rid] = i
+    return same_ctx / n_ctx, same / total, first
+
+
+def phase_shared_prefix(torch, cfg, params) -> dict:
+    """A shared system prompt, in each of the four KV modes: wave 1 is one
+    request (600 shared tokens + a 10-token suffix); wave 2, after it
+    finished, is seven requests with the same 600 tokens and their own
+    suffixes (first suffix tokens all distinct), 32 greedy tokens each.
+    With prefix caching each wave-2 request finds 37 full blocks of 16
+    cached and 8 more tokens in wave 1's 38th block, which it copies:
+    7 x 600 = 4200 hit tokens and 7 copies.  Returns each attention
+    variant's launches in the run of its KV mode."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(5)
+    shared = [int(x) for x in rng.integers(0, cfg.vocab_size, 600)]
+    firsts = rng.choice(cfg.vocab_size, 8, replace=False)
+    prompts = [shared + [int(f)] + [int(x) for x in
+                                    rng.integers(0, cfg.vocab_size, 9)]
+               for f in firsts]
+    outs, launches = {}, {}
+    for (blocked, quant) in ((False, False), (False, True), (True, False),
+                             (True, True)):
+        kv_dtype = "int8" if quant else "bf16"
+        kname = next(k for k, (mode, _) in ATTENTION.items()
+                     if mode == (blocked, quant))
+        eng = ServeEngine(cfg, params, EngineConfig(
+            max_slots=8, max_len=1024, kv_block_size=KV_BLOCK,
+            async_depth=0, prefix_caching=blocked, kv_dtype=kv_dtype))
+        zero_counts()
+        eng.submit(Request(rid=0, prompt=prompts[0], max_new_tokens=32))
+        done = eng.run()
+        for i in range(1, 8):
+            eng.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=32))
+        done += eng.run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        s, kvs = eng.stats, eng.kv.stats
+        tag = (f"shared-prefix [prefix caching {'on' if blocked else 'off'}, "
+               f"{kv_dtype} KV]")
+        served = sum(r.prompt_len + len(r.output) for r in done)
+        log(f"{tag}: {len(done)}/8 finished, {s.iterations} iterations, "
+            f"{s.total_tokens} tokens through the model in {s.wall_time:.3f} s "
+            f"= {s.throughput:.1f} tok/s ({served / s.wall_time:.1f} prompt + "
+            f"generated tok/s), {s.dispatches_per_iter} dispatch/iter, "
+            f"{s.syncs_per_iter} sync/iter, KV {eng.kv.bytes_per_token} "
+            f"B/token, {kvs.device_pages_total} pages, prefix hits "
+            f"{kvs.prefix_hit_tokens} tokens, copy-on-write {kvs.cow_copies}")
+        log(f"{tag}: wall split: host {s.host_time:.3f} s, step enqueue "
+            f"{s.dispatch_time:.3f} s, blocked on the payload copy "
+            f"{s.blocked_sync_time:.3f} s ({s.blocking_syncs} blocking syncs);"
+            f" launches {counts}")
+        if len(done) != 8 or any(len(r.output) != 32 for r in done):
+            raise AssertionError(f"{tag}: not every request finished 32 tokens")
+        if s.dispatches_per_iter != 1.0 or s.syncs_per_iter != 1.0:
+            raise AssertionError(f"{tag}: not one dispatch and one sync per iter")
+        if counts[kname] <= 0 or counts["swiglu"] <= 0:
+            raise AssertionError(f"{tag}: {kname} or swiglu never launched")
+        if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
+            raise AssertionError(f"{tag}: token id out of range")
+        if blocked and (kvs.prefix_hit_tokens != 4200 or kvs.cow_copies != 7):
+            raise AssertionError(f"{tag}: expected 4200 hit tokens and 7 "
+                                 "copy-on-write copies")
+        launches[kname] = counts[kname]
+        outs[(blocked, quant)] = {r.rid: r.output for r in done}
+        del eng
+        torch.cuda.empty_cache()
+
+    for quant in (False, True):
+        same_ctx, raw, first = context_agreement(outs[(True, quant)],
+                                                 outs[(False, quant)])
+        log(f"shared-prefix: {'int8' if quant else 'bf16'} KV, tokens with "
+            f"prefix caching vs without: agreement {same_ctx:.4f} at the "
+            f"positions whose earlier tokens agree (tol >= {SERVE_AGREE_MIN})"
+            f"; {raw:.4f} at all positions (no bound: one flipped near-tie "
+            f"changes every later context); first differing position per "
+            f"request {first}")
+        if same_ctx < SERVE_AGREE_MIN:
+            raise AssertionError("shared-prefix: prefix caching changed the "
+                                 "tokens")
+    out = outs[(True, True)][1]
+    seq = prompts[1] + out[:-1]
+    lg8 = teacher_forced(torch, cfg, params, seq, "int8")
+    ref = lg8[len(prompts[1]) - 1:].argmax(-1).tolist()
+    agree = float(np.mean(np.asarray(ref) == np.asarray(out)))
+    log(f"shared-prefix: request 1 (int8 KV, prefix caching) vs a "
+        f"teacher-forced plain forward through an int8 cache: agreement "
+        f"{agree:.4f} (tol >= {SERVE_AGREE_MIN})")
+    if agree < SERVE_AGREE_MIN:
+        raise AssertionError("shared-prefix: int8 tokens disagree with the "
+                             "plain forward")
+    lg16 = teacher_forced(torch, cfg, params, seq)
+    drift = (lg8 - lg16).abs()
+    log(f"shared-prefix: teacher-forced logit drift, int8 vs bf16 KV, over "
+        f"{len(seq)} positions: max {float(drift.max()):.4f}, mean "
+        f"{float(drift.mean()):.5f} (|logits| max "
+        f"{float(lg16.abs().max()):.3f}; no bound)")
+    if not bool(lg8.isfinite().all()):
+        raise AssertionError("shared-prefix: non-finite int8 logits")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -419,12 +654,16 @@ def main() -> int:
     phase_forward(torch, cfg)
     launches, params, prompts, serve_wall = phase_serve(torch, cfg)
     phase_profile(torch, cfg, params, prompts, serve_wall)
+    # the serve phase's counts stand for the kernels it drives; the
+    # shared-prefix runs give those of the other variants
+    for kname, n in phase_shared_prefix(torch, cfg, params).items():
+        launches.setdefault(kname, n)
 
-    sources = {"packed_attention": ("src/repro_torch/kernels/csrc/"
-                                    "packed_attention.cu",
-                                    "src/repro/kernels/packed_attention.py:135"),
-               "swiglu": ("src/repro_torch/kernels/csrc/swiglu.cu",
-                          "src/repro/kernels/swiglu.py:45")}
+    sources = {kname: ("src/repro_torch/kernels/csrc/packed_attention.cu",
+                       replaces)
+               for kname, (_, replaces) in ATTENTION.items()}
+    sources["swiglu"] = ("src/repro_torch/kernels/csrc/swiglu.cu",
+                         "src/repro/kernels/swiglu.py:45")
     kernels = []
     for kname, (src, replaces) in sources.items():
         rec = record[kname]

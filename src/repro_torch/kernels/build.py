@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds),
-keyed by a hash of the sources and the flags, under
-``build/repro_torch_kernels/`` at the repository root.  All sources compile
-in parallel, one ``nvcc`` each, at first use; later calls in the process
-reuse the loaded libraries.  A missing ``nvcc`` or a failed build raises —
-there is no other path for a CUDA tensor.
+Each target compiles one ``csrc/*.cu`` source with ``nvcc`` (plus the
+target's ``-D`` switches) into its own shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), keyed by a hash
+of the source and the flags, under ``build/repro_torch_kernels/`` at the
+repository root.  All targets compile in parallel, one ``nvcc`` each, at
+first use; later calls in the process reuse the loaded libraries.  A
+missing ``nvcc`` or a failed build raises — there is no other path for a
+CUDA tensor.
 """
 from __future__ import annotations
 
@@ -22,14 +23,29 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("packed_attention", "swiglu")
+
+
+# target -> (source, its compile-time switches).  The four packed-attention
+# variants are one source built with two switches (csrc/packed_attention.cu).
+def _pa(quant: int, block_table: int) -> tuple[str, tuple[str, ...]]:
+    return ("packed_attention", (f"-DREPRO_PA_QUANT={quant}",
+                                 f"-DREPRO_PA_BLOCK_TABLE={block_table}"))
+
+
+TARGETS = {
+    "packed_attention": _pa(0, 0),
+    "packed_attention_quant": _pa(1, 0),
+    "packed_attention_block": _pa(0, 1),
+    "packed_attention_block_quant": _pa(1, 1),
+    "swiglu": ("swiglu", ()),
+}
 
 _c = ctypes
 _void_p, _int, _ll, _float = _c.c_void_p, _c.c_int, _c.c_longlong, _c.c_float
-# argtypes of each library's one C entry point
+# argtypes of each source's one C entry point
 SIGNATURES = {
     "packed_attention": ("repro_packed_attention",
-                         [_void_p] * 6 + [_int] * 7 + [_ll] * 4
+                         [_void_p] * 9 + [_int] * 10 + [_ll] * 6
                          + [_float, _void_p]),
     "swiglu": ("repro_swiglu", [_void_p] * 4 + [_int] * 4 + [_void_p]),
 }
@@ -37,7 +53,7 @@ SIGNATURES = {
 
 class KernelLibs:
     """The loaded kernel libraries: ``fn(name)`` is the ctypes function of
-    source ``name``; ``build_seconds`` and ``ptxas_log`` record the build."""
+    target ``name``; ``build_seconds`` and ``ptxas_log`` record the build."""
 
     def __init__(self, fns: dict, build_seconds: float, ptxas_log: str):
         self._fns = fns
@@ -62,9 +78,9 @@ def _nvcc() -> str:
                        "src/repro_torch/kernels/csrc at first use")
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+def _digest(source: str, defines: tuple[str, ...]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
+    h.update((CSRC / f"{source}.cu").read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -76,13 +92,16 @@ def build() -> KernelLibs:
     t0 = time.perf_counter()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    targets = {n: BUILD_ROOT / f"lib{n}-{_digest(n)}.so" for n in SOURCES}
+    targets = {n: BUILD_ROOT / f"lib{n}-{_digest(*TARGETS[n])}.so"
+               for n in TARGETS}
     procs = {}
     for name, so in targets.items():
         if so.exists():
             continue
+        source, defines = TARGETS[name]
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / f"{source}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, so)
@@ -90,7 +109,7 @@ def build() -> KernelLibs:
     failed = []
     for name, (proc, tmp, so) in procs.items():
         out, _ = proc.communicate()
-        logs.append(f"--- {name}.cu\n{out}")
+        logs.append(f"--- {name}\n{out}")
         if proc.returncode != 0:
             failed.append(name)
             tmp.unlink(missing_ok=True)
@@ -101,7 +120,7 @@ def build() -> KernelLibs:
     fns = {}
     for name, so in targets.items():
         lib = ctypes.CDLL(str(so))
-        sym, argtypes = SIGNATURES[name]
+        sym, argtypes = SIGNATURES[TARGETS[name][0]]
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

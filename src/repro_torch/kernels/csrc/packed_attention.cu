@@ -2,30 +2,45 @@
 // (sm_90a), with a plain C interface loaded through ctypes.
 //
 // Replaces the TPU kernel src/repro/kernels/packed_attention.py
-// `packed_attention` (`_kernel` / `_flash_step`), contiguous mode: token t
-// attends rows [0, min(lengths[t], kv_bucket)) of its own slot
-// `token_slot[t]`, with an online softmax; query head h reads KV head
-// h // group.  Same constants as the TPU kernel: q is scaled by `scale`
-// (the wrapper passes d ** -0.5), masked scores are NEG_INF = -1e30, and the softmax
-// denominator is clamped to 1e-30.
+// `packed_attention` (`_flash_step` and its four bodies): token t attends
+// rows [0, min(lengths[t], kv_bucket)) of its own slot `token_slot[t]`, with
+// an online softmax; query head h reads KV head h // group.  Same constants
+// as the TPU kernel: q is scaled by `scale` (the wrapper passes
+// d ** -0.5), masked scores are NEG_INF = -1e30, and the softmax denominator
+// is clamped to 1e-30.
+//
+// One source, two compile-time switches (-D flags; kernels/build.py builds
+// each of the four variants into its own library, in parallel):
+//   REPRO_PA_BLOCK_TABLE (`_kernel_block`): the caches are physical block
+//     storage, and logical row r of the token's slot lives at flat row
+//     bt[slot * nb_cols + r / bs] * bs + r % bs of the N·S row space
+//     (DESIGN.md §12).  The loop stops at the token's length, so table
+//     entries past it are never read.
+//   REPRO_PA_QUANT (`_kernel_quant`): K and V rows are int8 with one f32
+//     scale per (row, KV head), read in place from the (N, S, KV) scale
+//     leaves; each row dequantizes in registers as float(x) * scale, the
+//     TPU kernel's `k * ks` (DESIGN.md §15), before the same f32 math.
+// Both together are `_kernel_block_quant`.
 //
 // What bounds it on the card: bytes.  A decode token reads its slot's K and V
-// rows once (2 * len * head_dim * 2 bytes per KV head in bf16) and does ~4
-// flops per byte read, far below the ~295 flops/byte at which an H100 turns
-// compute-bound.
+// rows once (2 * len * head_dim bytes per KV head in int8, twice that in
+// bf16, plus 8 bytes of scales per int8 row) and does ~4 flops per byte
+// read, far below the ~295 flops/byte at which an H100 turns compute-bound.
 //
 // What the design does about it:
 //   * The cache is read in its stored (N, S, KV, D) layout through strides;
-//     no transposed copy of the cache is made (the TPU wrapper's (N, KV, S, D)
-//     transpose would cost one pass over the cache per layer per step).
+//     no transposed copy of the cache or of the scales is made (the TPU
+//     wrapper's (N, KV, S, D) and (N, KV, S) transposes would cost one pass
+//     over the cache per layer per step).
 //   * One block per (token, KV head): the `group` query heads that share a KV
 //     head are all scored against each K row while it is in registers, so a
 //     row is read once per block, not once per query head.
 //   * Each warp owns a strided share of the rows and keeps its own online
 //     softmax state (m, l, acc) in f32 registers; each lane holds head_dim/32
-//     contiguous elements, loaded with one vector load per row, and each warp
-//     keeps ROWS K and V rows in flight.  The warps' states are merged once at
-//     the end through shared memory, in a fixed order (deterministic).
+//     contiguous elements, loaded with one vector load per row (4 bytes of
+//     int8 at head_dim 128), and each warp keeps ROWS K and V rows in flight.
+//     The warps' states are merged once at the end through shared memory, in
+//     a fixed order (deterministic).
 //   * Rows past the token's length are never loaded: the ragged tail is
 //     masked by the loop bound itself.
 // Left for a later change (ROADMAP B1): one q tile per prefill segment so a
@@ -35,14 +50,46 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#ifndef REPRO_PA_QUANT
+#define REPRO_PA_QUANT 0
+#endif
+#ifndef REPRO_PA_BLOCK_TABLE
+#define REPRO_PA_BLOCK_TABLE 0
+#endif
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int NUM_WARPS = 8;
+constexpr bool QUANT = REPRO_PA_QUANT != 0;
+constexpr bool BLOCK_TABLE = REPRO_PA_BLOCK_TABLE != 0;
+
+// Everything a launch needs besides its compile-time shape; strides are in
+// elements.  k_scale/v_scale share strides (s_sn, s_ss) and have unit stride
+// over KV heads.
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* k_scale;
+  const float* v_scale;
+  const int32_t* token_slot;
+  const int32_t* lengths;
+  const int32_t* block_tables;
+  void* out;
+  int n_kv, n_slots, sweep, nb_cols, block_size;
+  long long k_sn, k_ss, v_sn, v_ss, s_sn, s_ss;
+  float scale;
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -73,28 +120,24 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// G: query heads per KV head; DPL: head_dim / 32 (elements per lane).
-template <typename T, int G, int DPL>
+// T: q/out type; KV: cache type (T, or int8_t when QUANT); G: query heads per
+// KV head; DPL: head_dim / 32 (elements per lane).
+template <typename T, typename KV, int G, int DPL>
 __global__ void __launch_bounds__(NUM_WARPS * 32)
-packed_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const int32_t* __restrict__ token_slot,
-                        const int32_t* __restrict__ lengths,
-                        T* __restrict__ out, int n_kv, int n_slots, int sweep,
-                        long long k_stride_n, long long k_stride_s,
-                        long long v_stride_n, long long v_stride_s,
-                        float scale) {
+packed_attention_kernel(const Params p) {
   constexpr int D = DPL * 32;
   constexpr int ROWS = DPL <= 4 ? 8 : 4;   // K/V rows in flight per warp
   const int kvh = blockIdx.x;
   const int t = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n_heads = n_kv * G;
+  const int n_heads = p.n_kv * G;
+  const T* __restrict__ q = static_cast<const T*>(p.q);
+  T* __restrict__ out = static_cast<T*>(p.out);
 
-  const int slot = token_slot[t];
-  int len = min(lengths[t], sweep);
-  if (slot < 0 || slot >= n_slots || len < 0) len = 0;
+  const int slot = p.token_slot[t];
+  int len = min(p.lengths[t], p.sweep);
+  if (slot < 0 || slot >= p.n_slots || len < 0) len = 0;
 
   float qf[G][DPL];
 #pragma unroll
@@ -102,7 +145,7 @@ packed_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_vec<T, DPL>(q + ((long long)t * n_heads + kvh * G + g) * D + lane * DPL,
                      qf[g]);
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) qf[g][i] *= scale;
+    for (int i = 0; i < DPL; ++i) qf[g][i] *= p.scale;
   }
 
   float m[G], l[G], acc[G][DPL];
@@ -114,16 +157,40 @@ packed_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
   }
 
-  const T* kb = k + (long long)slot * k_stride_n + kvh * D + lane * DPL;
-  const T* vb = v + (long long)slot * v_stride_n + kvh * D + lane * DPL;
+  // Row r is at `base + row(r) * row_stride`: row(r) = r within the slot's
+  // rows in contiguous mode, the physical flat row in block-table mode.
+  const long long slot_k = BLOCK_TABLE ? 0 : (long long)slot * p.k_sn;
+  const long long slot_v = BLOCK_TABLE ? 0 : (long long)slot * p.v_sn;
+  const long long slot_s = BLOCK_TABLE ? 0 : (long long)slot * p.s_sn;
+  const KV* __restrict__ kb =
+      static_cast<const KV*>(p.k) + slot_k + kvh * D + lane * DPL;
+  const KV* __restrict__ vb =
+      static_cast<const KV*>(p.v) + slot_v + kvh * D + lane * DPL;
+  const float* __restrict__ ksb = QUANT ? p.k_scale + slot_s + kvh : nullptr;
+  const float* __restrict__ vsb = QUANT ? p.v_scale + slot_s + kvh : nullptr;
+  const int32_t* __restrict__ bt =
+      BLOCK_TABLE ? p.block_tables + (long long)slot * p.nb_cols : nullptr;
+
   for (int base = warp * ROWS; base < len; base += NUM_WARPS * ROWS) {
     float kf[ROWS][DPL], vf[ROWS][DPL];
 #pragma unroll
     for (int u = 0; u < ROWS; ++u) {
       const int r = base + u;
       if (r < len) {
-        load_vec<T, DPL>(kb + r * k_stride_s, kf[u]);
-        load_vec<T, DPL>(vb + r * v_stride_s, vf[u]);
+        long long row = r;
+        if (BLOCK_TABLE)
+          row = (long long)bt[r / p.block_size] * p.block_size + r % p.block_size;
+        load_vec<KV, DPL>(kb + row * p.k_ss, kf[u]);
+        load_vec<KV, DPL>(vb + row * p.v_ss, vf[u]);
+        if (QUANT) {
+          const float ks = ksb[row * p.s_ss];
+          const float vs = vsb[row * p.s_ss];
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) {
+            kf[u][i] *= ks;
+            vf[u][i] *= vs;
+          }
+        }
       } else {
 #pragma unroll
         for (int i = 0; i < DPL; ++i) kf[u][i] = vf[u][i] = 0.f;
@@ -202,87 +269,76 @@ packed_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int G, int DPL>
-void launch(const void* q, const void* k, const void* v, const void* slot,
-            const void* lengths, void* out, int n_tokens, int n_kv,
-            int n_slots, int sweep, long long ksn, long long kss,
-            long long vsn, long long vss, float scale, cudaStream_t stream) {
-  dim3 grid(n_kv, n_tokens);
-  packed_attention_kernel<T, G, DPL><<<grid, NUM_WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int32_t*>(slot),
-      static_cast<const int32_t*>(lengths), static_cast<T*>(out), n_kv,
-      n_slots, sweep, ksn, kss, vsn, vss, scale);
-}
-
-template <typename T, int G>
-int launch_d(int head_dim, const void* q, const void* k, const void* v,
-             const void* slot, const void* lengths, void* out, int n_tokens,
-             int n_kv, int n_slots, int sweep, long long ksn, long long kss,
-             long long vsn, long long vss, float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64:
-      launch<T, G, 2>(q, k, v, slot, lengths, out, n_tokens, n_kv, n_slots,
-                      sweep, ksn, kss, vsn, vss, scale, stream);
-      return 0;
-    case 128:
-      launch<T, G, 4>(q, k, v, slot, lengths, out, n_tokens, n_kv, n_slots,
-                      sweep, ksn, kss, vsn, vss, scale, stream);
-      return 0;
-    case 256:
-      launch<T, G, 8>(q, k, v, slot, lengths, out, n_tokens, n_kv, n_slots,
-                      sweep, ksn, kss, vsn, vss, scale, stream);
-      return 0;
-  }
-  return -1;
-}
-
 template <typename T>
-int launch_g(int group, int head_dim, const void* q, const void* k,
-             const void* v, const void* slot, const void* lengths, void* out,
-             int n_tokens, int n_kv, int n_slots, int sweep, long long ksn,
-             long long kss, long long vsn, long long vss, float scale,
-             cudaStream_t stream) {
-#define REPRO_PA_CASE(G)                                                      \
-  case G:                                                                     \
-    return launch_d<T, G>(head_dim, q, k, v, slot, lengths, out, n_tokens,    \
-                          n_kv, n_slots, sweep, ksn, kss, vsn, vss, scale,    \
-                          stream);
-  switch (group) {
-    REPRO_PA_CASE(1)
-    REPRO_PA_CASE(2)
-    REPRO_PA_CASE(4)
-    REPRO_PA_CASE(8)
+int launch(int group, int head_dim, int n_tokens, const Params& p,
+           cudaStream_t stream) {
+  using KV = typename std::conditional<QUANT, int8_t, T>::type;
+  const dim3 grid(p.n_kv, n_tokens);
+#define REPRO_PA_CASE(G, DPL)                                                 \
+  if (group == G && head_dim == DPL * 32) {                                   \
+    packed_attention_kernel<T, KV, G, DPL><<<grid, NUM_WARPS * 32, 0, stream>>>(p); \
+    return 0;                                                                 \
   }
+#define REPRO_PA_CASES(G) REPRO_PA_CASE(G, 2) REPRO_PA_CASE(G, 4) REPRO_PA_CASE(G, 8)
+  REPRO_PA_CASES(1)
+  REPRO_PA_CASES(2)
+  REPRO_PA_CASES(4)
+  REPRO_PA_CASES(8)
+#undef REPRO_PA_CASES
 #undef REPRO_PA_CASE
   return -1;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q (T, H, D) and out (T, H, D) are
+// dtype: 0 = float32, 1 = bfloat16 (q and out).  kv_int8 must equal this
+// build's REPRO_PA_QUANT, and block_tables must be non-null exactly when it
+// is built with REPRO_PA_BLOCK_TABLE.  q (T, H, D) and out (T, H, D) are
 // contiguous; k/v are (N, S, KV, D) with unit stride over (KV, D) and the
-// given element strides over N and S.  Returns -1 for a shape this build
-// does not instantiate, else cudaGetLastError() after the launch.
+// given element strides over N and S; scales are (N, S, KV) f32 with unit
+// stride over KV; block_tables is (N, nb_cols) int32, contiguous.  Returns -1
+// for a shape this build does not instantiate, -2 for a variant it was not
+// built as, else cudaGetLastError() after the launch.
 extern "C" int repro_packed_attention(
-    const void* q, const void* k, const void* v, const void* token_slot,
-    const void* lengths, void* out, int dtype, int n_tokens, int n_heads,
-    int n_kv, int head_dim, int n_slots, int sweep, long long k_stride_n,
-    long long k_stride_s, long long v_stride_n, long long v_stride_s,
-    float scale, void* stream) {
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* token_slot, const void* lengths,
+    const void* block_tables, void* out, int dtype, int kv_int8, int n_tokens,
+    int n_heads, int n_kv, int head_dim, int n_slots, int sweep, int nb_cols,
+    int block_size, long long k_stride_n, long long k_stride_s,
+    long long v_stride_n, long long v_stride_s, long long s_stride_n,
+    long long s_stride_s, float scale, void* stream) {
+  if ((kv_int8 != 0) != QUANT || (block_tables != nullptr) != BLOCK_TABLE)
+    return -2;
   if (n_tokens == 0) return 0;
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
+  p.token_slot = static_cast<const int32_t*>(token_slot);
+  p.lengths = static_cast<const int32_t*>(lengths);
+  p.block_tables = static_cast<const int32_t*>(block_tables);
+  p.out = out;
+  p.n_kv = n_kv;
+  p.n_slots = n_slots;
+  p.sweep = sweep;
+  p.nb_cols = nb_cols;
+  p.block_size = block_size;
+  p.k_sn = k_stride_n;
+  p.k_ss = k_stride_s;
+  p.v_sn = v_stride_n;
+  p.v_ss = v_stride_s;
+  p.s_sn = s_stride_n;
+  p.s_ss = s_stride_s;
+  p.scale = scale;
   const int group = n_heads / n_kv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (dtype == 0)
-    rc = launch_g<float>(group, head_dim, q, k, v, token_slot, lengths, out,
-                         n_tokens, n_kv, n_slots, sweep, k_stride_n,
-                         k_stride_s, v_stride_n, v_stride_s, scale, s);
+    rc = launch<float>(group, head_dim, n_tokens, p, s);
   else if (dtype == 1)
-    rc = launch_g<__nv_bfloat16>(group, head_dim, q, k, v, token_slot,
-                                 lengths, out, n_tokens, n_kv, n_slots, sweep,
-                                 k_stride_n, k_stride_s, v_stride_n,
-                                 v_stride_s, scale, s);
+    rc = launch<__nv_bfloat16>(group, head_dim, n_tokens, p, s);
   else
     rc = -1;
   if (rc != 0) return rc;

@@ -31,12 +31,18 @@ def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
 
 def packed_attention(q, k_cache, v_cache, token_slot, lengths, *,
                      kv_bucket: Optional[int] = None,
+                     block_tables: Optional[torch.Tensor] = None,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
                      impl: Optional[str] = None) -> torch.Tensor:
     """Segment-masked attention over a token-packed stream (DESIGN.md §8):
     token t attends rows [0, lengths[t]) of slot ``token_slot[t]``'s cache;
-    ``kv_bucket`` bounds the swept rows (DESIGN.md §9)."""
+    ``kv_bucket`` bounds the swept rows (DESIGN.md §9).  ``block_tables``
+    reads the caches as physical blocks through per-slot tables (§12);
+    ``k_scale``/``v_scale`` mark int8 caches with per-row scales (§15)."""
     fn = packed_attention_cuda if _use_kernel(q, impl) else packed_attention_ref
-    return fn(q, k_cache, v_cache, token_slot, lengths, kv_bucket=kv_bucket)
+    return fn(q, k_cache, v_cache, token_slot, lengths, kv_bucket=kv_bucket,
+              block_tables=block_tables, k_scale=k_scale, v_scale=v_scale)
 
 
 def swiglu(x, w_gate, w_up, *, impl: Optional[str] = None) -> torch.Tensor:

@@ -4,10 +4,11 @@ wrapper and its plain PyTorch version.
 Token t of a packed ``(T,)`` stream attends rows ``[0, lengths[t])`` of
 its own slot ``token_slot[t]`` in the slot caches, and nothing else.  The
 kernel (``csrc/packed_attention.cu``) replaces the TPU kernel
-``src/repro/kernels/packed_attention.py:packed_attention`` in contiguous
-mode; ``packed_attention_ref`` ports ``src/repro/kernels/ref.py:
-packed_attention_ref`` and is what the CPU runs and what the card's kernel
-is held against.
+``src/repro/kernels/packed_attention.py:packed_attention`` in its four
+variants: contiguous or block-table caches (DESIGN.md §12), each with
+native or int8 K/V (DESIGN.md §15).  ``packed_attention_ref`` ports
+``src/repro/kernels/ref.py:packed_attention_ref`` and is what the CPU runs
+and what the card's kernel is held against.
 """
 from __future__ import annotations
 
@@ -16,35 +17,98 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.serving.kvquant import dequantize_kv
 
 NEG_INF = -1e30
 GROUPS = (1, 2, 4, 8)          # query heads per KV head the kernel is built for
 HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (block tables, int8 K/V) -> the kernel variant's build target
+VARIANTS = {(False, False): "packed_attention",
+            (False, True): "packed_attention_quant",
+            (True, False): "packed_attention_block",
+            (True, True): "packed_attention_block_quant"}
 
 
-def _kv_bucket_view(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                    kv_bucket: Optional[int]):
+def _kv_bucket_view(cache: torch.Tensor,
+                    kv_bucket: Optional[int]) -> torch.Tensor:
     """Rows at or beyond the bucket are never attended, so slicing them off
     is exact (DESIGN.md §9)."""
-    if kv_bucket is not None and kv_bucket < k_cache.shape[1]:
-        k_cache = k_cache[:, :kv_bucket]
-        v_cache = v_cache[:, :kv_bucket]
-    return k_cache, v_cache
+    if kv_bucket is not None and kv_bucket < cache.shape[1]:
+        cache = cache[:, :kv_bucket]
+    return cache
+
+
+def _block_sweep(s: int, nb_cols: int, kv_bucket: Optional[int]):
+    """(block size, rows swept) of a block-table cache with S rows per slot
+    and ``nb_cols`` table columns."""
+    if nb_cols < 1 or s % nb_cols:
+        raise ValueError(f"block tables of {nb_cols} columns do not divide "
+                         f"{s} rows per slot")
+    bs = s // nb_cols
+    sweep = s if kv_bucket is None or kv_bucket > s else kv_bucket
+    if sweep % bs:
+        raise ValueError(f"kv sweep {sweep} is not a multiple of the block "
+                         f"size {bs}")
+    return bs, sweep
+
+
+def _block_gather_view(cache: torch.Tensor, block_tables: torch.Tensor,
+                       kv_bucket: Optional[int]) -> torch.Tensor:
+    """Per-slot contiguous view of a block-table cache (DESIGN.md §12):
+    ``cache`` (N, S, ...) is physical storage whose flat N·S row space is
+    carved into blocks; ``block_tables`` (N, S // bs) names the physical
+    block behind each slot's logical block.  Gathers the first ``kv_bucket``
+    logical rows of every slot into (N, kv_bucket, ...)."""
+    n, s = cache.shape[:2]
+    bs, sweep = _block_sweep(s, block_tables.shape[1], kv_bucket)
+    nbk = sweep // bs
+    flat = cache.reshape((n * block_tables.shape[1], bs) + cache.shape[2:])
+    view = flat[block_tables[:, :nbk].long()]            # (N, nbk, bs, ...)
+    return view.reshape((n, nbk * bs) + cache.shape[2:])
+
+
+def _dequant_views(k_cache, v_cache, k_scale, v_scale, block_tables,
+                   kv_bucket):
+    """Apply the bucket or block-table view to the caches (and to the scale
+    leaves when quantized), then dequantize to f32."""
+    leaves = [k_cache, v_cache] + ([k_scale, v_scale]
+                                   if k_scale is not None else [])
+    if block_tables is not None:
+        leaves = [_block_gather_view(x, block_tables, kv_bucket)
+                  for x in leaves]
+    else:
+        leaves = [_kv_bucket_view(x, kv_bucket) for x in leaves]
+    if k_scale is None:
+        return leaves
+    k_cache, v_cache, k_scale, v_scale = leaves
+    return (dequantize_kv(k_cache, k_scale, torch.float32),
+            dequantize_kv(v_cache, v_scale, torch.float32))
 
 
 def packed_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, token_slot: torch.Tensor,
                          lengths: torch.Tensor, *,
-                         kv_bucket: Optional[int] = None) -> torch.Tensor:
+                         kv_bucket: Optional[int] = None,
+                         block_tables: Optional[torch.Tensor] = None,
+                         k_scale: Optional[torch.Tensor] = None,
+                         v_scale: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Plain version.  q: (T, H, D); k_cache/v_cache: (N_slots, S, KV,
     D/Dv); token_slot, lengths: (T,) int.  Returns (T, H, Dv) in q's dtype;
     scores are scaled by ``D ** -0.5``.
 
+    ``block_tables`` ((N_slots, S // block_size) int): the caches are
+    physical block storage, read through each slot's table; the sweep
+    (``kv_bucket`` or S) is a multiple of the block size.
+    ``k_scale``/``v_scale`` ((N_slots, S, KV) f32): the caches are int8 and
+    dequantize as ``row * scale`` in f32.
+
     Scores are computed in f32 against *all* slots over the bucket rows and
     selected per token (N_slots is small, and each cache is then read once
     per einsum instead of once per token)."""
-    k_cache, v_cache = _kv_bucket_view(k_cache, v_cache, kv_bucket)
+    k_cache, v_cache = _dequant_views(k_cache, v_cache, k_scale, v_scale,
+                                      block_tables, kv_bucket)
     t, h, d = q.shape
     n, s, kv, _ = k_cache.shape
     dv = v_cache.shape[-1]
@@ -72,19 +136,34 @@ def _check(cond: bool, what: str) -> None:
 def packed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, token_slot: torch.Tensor,
                           lengths: torch.Tensor, *,
-                          kv_bucket: Optional[int] = None) -> torch.Tensor:
+                          kv_bucket: Optional[int] = None,
+                          block_tables: Optional[torch.Tensor] = None,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Launch the CUDA kernel (same contract as ``packed_attention_ref``).
-    The caches are read in place through their (slot, row) strides; each
-    row's (KV, D) block must be contiguous.  Raises on any input the kernel
-    does not take and on a failed launch."""
+    The caches and scales are read in place through their (slot, row)
+    strides; each row's (KV, D) block must be contiguous, and in
+    block-table mode each leaf's flat row space must be uniform.  Raises on
+    any input the kernel does not take and on a failed launch; counts the
+    launches of each variant in ``packed_attention_cuda.launches``."""
     dev = q.device
     _check(dev.type == "cuda", "q is not a CUDA tensor")
-    for name, x in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("token_slot", token_slot), ("lengths", lengths)):
+    quant = k_scale is not None
+    _check((v_scale is not None) == quant, "k_scale and v_scale go together")
+    blocked = block_tables is not None
+    named = [("k_cache", k_cache), ("v_cache", v_cache),
+             ("token_slot", token_slot), ("lengths", lengths)]
+    scales = [("k_scale", k_scale), ("v_scale", v_scale)] if quant else []
+    if blocked:
+        named.append(("block_tables", block_tables))
+    for name, x in named + scales:
         _check(x.device == dev, f"{name} is on {x.device}, q on {dev}")
     _check(q.dtype in _DTYPES, f"dtype {q.dtype} (float32 or bfloat16)")
-    _check(k_cache.dtype == q.dtype and v_cache.dtype == q.dtype,
-           "q, k_cache and v_cache must share a dtype")
+    kv_dtype = torch.int8 if quant else q.dtype
+    _check(k_cache.dtype == kv_dtype and v_cache.dtype == kv_dtype,
+           f"k_cache and v_cache must be {kv_dtype} for q {q.dtype}"
+           + (" with scales" if quant else ""))
     _check(q.dim() == 3 and k_cache.dim() == 4 and v_cache.dim() == 4,
            "q (T, H, D), caches (N, S, KV, D)")
     t, h, d = q.shape
@@ -109,21 +188,48 @@ def packed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         _check(x.data_ptr() % (vec * x.element_size()) == 0,
                f"{name} is not aligned for vector loads")
+    s_strides = (0, 0)
+    if quant:
+        for name, x in scales:
+            _check(x.dtype == torch.float32 and tuple(x.shape) == (n, s, kvh),
+                   f"{name} must be float32 (N, S, KV) = {(n, s, kvh)}")
+            _check(x.stride(2) == 1 and x.data_ptr() % 4 == 0,
+                   f"{name} rows must hold contiguous, aligned KV scales")
+        _check(k_scale.stride() == v_scale.stride(),
+               "k_scale and v_scale must share strides")
+        s_strides = (k_scale.stride(0), k_scale.stride(1))
     sweep = s if kv_bucket is None else min(int(kv_bucket), s)
-    scale = d ** -0.5
+    nb_cols = bs = 0
+    if blocked:
+        _check(block_tables.dtype == torch.int32 and block_tables.dim() == 2
+               and block_tables.shape[0] == n
+               and block_tables.is_contiguous(),
+               f"block_tables must be contiguous int32 ({n}, S // bs)")
+        nb_cols = block_tables.shape[1]
+        bs, _ = _block_sweep(s, nb_cols, kv_bucket)
+        for name, x in [("k_cache", k_cache), ("v_cache", v_cache)] + scales:
+            _check(x.stride(0) == s * x.stride(1),
+                   f"{name}: block-table mode needs a uniform flat row space "
+                   "(stride(0) == S * stride(1))")
+    variant = VARIANTS[(blocked, quant)]
     out = torch.empty((t, h, d), dtype=q.dtype, device=dev)
-    fn = build.build().fn("packed_attention")
+    fn = build.build().fn(variant)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                token_slot.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], t, h, kvh, d, n, sweep,
-                k_cache.stride(0), k_cache.stride(1), v_cache.stride(0),
-                v_cache.stride(1), float(scale),
-                torch.cuda.current_stream(dev).cuda_stream)
+                ptr(k_scale), ptr(v_scale), token_slot.data_ptr(),
+                lengths.data_ptr(), ptr(block_tables), out.data_ptr(),
+                _DTYPES[q.dtype], int(quant), t, h, kvh, d, n, sweep,
+                nb_cols, bs, k_cache.stride(0), k_cache.stride(1),
+                v_cache.stride(0), v_cache.stride(1), *s_strides,
+                float(d ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"packed_attention kernel launch failed: {rc}")
-    packed_attention_cuda.launches += 1
+        raise RuntimeError(f"{variant} kernel launch failed: {rc}")
+    packed_attention_cuda.launches[variant] += 1
     return out
 
 
-packed_attention_cuda.launches = 0
+packed_attention_cuda.launches = dict.fromkeys(VARIANTS.values(), 0)

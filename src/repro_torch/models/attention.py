@@ -1,7 +1,8 @@
 """GQA attention with qk-norm on the token-packed stream (port of the
-contiguous-mode ``gqa_packed`` path of ``repro.models.attention``, tp=1).
+``gqa_packed`` path of ``repro.models.attention``, tp=1).
 
-The slot caches keep the JAX layout, ``(N_slots, S, KV, hd)`` per layer,
+The slot caches keep the JAX layout, ``(N_slots, S, KV, hd)`` per layer
+(plus ``(N_slots, S, KV)`` f32 scale leaves ``k_s``/``v_s`` for int8 KV),
 and are updated in place (the JAX function returns new arrays).
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.param import DTYPES, ParamDef
+from repro_torch.serving import kvquant
 
 
 def gqa_defs(cfg: ModelConfig) -> dict:
@@ -52,58 +54,98 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def _row_store(cache: torch.Tensor) -> torch.Tensor:
-    """The (N·S + 1, KV, hd) row view of a slot cache made by
-    ``gqa_init_cache``: the N·S rows of the cache followed by one spare row
-    that padding tokens write into.  A cache without the spare row raises
+    """The (N·S + 1, ...) row view of a cache leaf made by
+    ``gqa_init_cache``: the N·S rows of the leaf followed by one spare row
+    that padding tokens write into.  A leaf without the spare row raises
     here (``as_strided`` checks the storage bounds)."""
     n, s = cache.shape[:2]
     return cache.as_strided((n * s + 1,) + tuple(cache.shape[2:]),
                             (cache.stride(1),) + tuple(cache.stride()[2:]))
 
 
-def _scatter(cache: torch.Tensor, new: torch.Tensor, token_slot: torch.Tensor,
-             token_wpos: torch.Tensor) -> None:
-    """Write each token's row at (slot, wpos) in place.  Padding tokens carry
-    ``wpos == S`` (the JAX scatter drops them as out of bounds); here they
-    land in the spare row, so the write needs no mask and no host sync."""
-    n, s = cache.shape[:2]
+def _dst_rows(n: int, s: int, token_slot: torch.Tensor,
+              token_wpos: torch.Tensor,
+              token_dst: Optional[torch.Tensor]) -> torch.Tensor:
+    """Each token's flat row in the N·S row space: ``slot·S + wpos`` in
+    contiguous mode, ``token_dst`` in block-table mode.  Padding tokens
+    (``wpos == S``, or ``token_dst == N·S``) and any row out of range get
+    the spare row N·S, where the JAX scatter drops them."""
+    if token_dst is not None:
+        dst = token_dst.long()
+        return torch.where((dst >= 0) & (dst < n * s), dst, n * s)
     slot = token_slot.long()
     wpos = token_wpos.long()
-    dst = torch.where((wpos >= 0) & (wpos < s) & (slot >= 0) & (slot < n),
-                      slot * s + wpos, n * s)
+    return torch.where((wpos >= 0) & (wpos < s) & (slot >= 0) & (slot < n),
+                       slot * s + wpos, n * s)
+
+
+def _flat_scatter(cache: torch.Tensor, new: torch.Tensor,
+                  dst: torch.Tensor) -> None:
+    """Write each token's row at flat row ``dst[t]`` (from ``_dst_rows``)
+    in place — the port of the JAX ``_flat_scatter`` (DESIGN.md §12), whose
+    out-of-bounds drops land in the spare row here, so the write needs no
+    mask and no host sync."""
     _row_store(cache).index_copy_(0, dst, new.to(cache.dtype))
 
 
 def gqa_packed(cfg: ModelConfig, p: dict, x: torch.Tensor,
                positions: torch.Tensor, cache: dict, token_slot: torch.Tensor,
                token_wpos: torch.Tensor, kv_bucket: Optional[int] = None,
+               token_dst: Optional[torch.Tensor] = None,
+               block_tables: Optional[torch.Tensor] = None,
                impl: Optional[str] = None):
     """Token-packed step (DESIGN.md §8).  x: (1, T, D); positions: (1, T)
     int32; cache{k,v}: (N_slots, S, KV, hd).  Scatters each token's K/V at
     ``(slot, wpos)``, then token t attends rows [0, positions[t]] of its own
-    slot, reading at most ``kv_bucket`` rows (DESIGN.md §9)."""
+    slot, reading at most ``kv_bucket`` rows (DESIGN.md §9).
+
+    Block-table mode (``token_dst``/``block_tables`` set, DESIGN.md §12):
+    the leaves are physical block storage — K/V scatter at flat row
+    ``token_dst[t]`` and attention reads through the per-slot tables.
+    int8 KV (scale leaves ``k_s``/``v_s`` in the cache, DESIGN.md §15):
+    each token's K/V row quantizes at scatter time and attention
+    dequantizes after the int8 load."""
     q, k_new, v_new = _qkv(cfg, p, x, positions)
-    _scatter(cache["k"], k_new[0], token_slot, token_wpos)
-    _scatter(cache["v"], v_new[0], token_slot, token_wpos)
+    n, s = cache["k"].shape[:2]
+    dst = _dst_rows(n, s, token_slot, token_wpos,
+                    token_dst if block_tables is not None else None)
+    new = {"k": k_new[0], "v": v_new[0]}
+    if "k_s" in cache:
+        new["k"], new["k_s"] = kvquant.quantize_kv(new["k"])
+        new["v"], new["v_s"] = kvquant.quantize_kv(new["v"])
+    for name, rows in new.items():
+        _flat_scatter(cache[name], rows, dst)
     out = ops.packed_attention(q[0], cache["k"], cache["v"], token_slot,
                                positions[0] + 1, kv_bucket=kv_bucket,
-                               impl=impl)
+                               block_tables=block_tables,
+                               k_scale=cache.get("k_s"),
+                               v_scale=cache.get("v_s"), impl=impl)
     t = out.shape[0]
     y = torch.matmul(out.reshape(t, -1), p["wo"].reshape(-1, cfg.d_model))
     return y[None], cache
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int,
-                   device: torch.device) -> dict:
-    """Zeroed (batch, max_len, KV, hd) K and V caches.  Each is a view of
-    ``batch·max_len + 1`` rows: the last row (outside the view) takes the
-    writes of padding tokens (see ``_scatter``)."""
+                   device: torch.device,
+                   kv_dtype: Optional[str] = None) -> dict:
+    """Zeroed (batch, max_len, KV, hd) K and V caches in the model's dtype,
+    or, for ``kv_dtype="int8"``, int8 K and V with f32 (batch, max_len, KV)
+    scale leaves ``k_s``/``v_s``.  Each leaf is a view of ``batch·max_len +
+    1`` rows: the last row (outside the view) takes the writes of padding
+    tokens (see ``_flat_scatter``)."""
     hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
-    dt = DTYPES[cfg.dtype]
 
-    def leaf():
-        rows = torch.zeros((batch * max_len + 1, kv, hd), dtype=dt,
+    def leaf(row_shape, dt):
+        rows = torch.zeros((batch * max_len + 1,) + row_shape, dtype=dt,
                            device=device)
-        return rows[:batch * max_len].view(batch, max_len, kv, hd)
+        return rows[:batch * max_len].view((batch, max_len) + row_shape)
 
-    return {"k": leaf(), "v": leaf()}
+    if kv_dtype == "int8":
+        return {"k": leaf((kv, hd), torch.int8),
+                "v": leaf((kv, hd), torch.int8),
+                "k_s": leaf((kv,), torch.float32),
+                "v_s": leaf((kv,), torch.float32)}
+    if kv_dtype is not None:
+        raise ValueError(f"kv_dtype {kv_dtype!r} (None or 'int8')")
+    dt = DTYPES[cfg.dtype]
+    return {"k": leaf((kv, hd), dt), "v": leaf((kv, hd), dt)}

@@ -33,12 +33,16 @@ def block_packed(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cache: dict,
                  token_slot: torch.Tensor, token_wpos: torch.Tensor,
                  kv_bucket: Optional[int] = None,
+                 token_dst: Optional[torch.Tensor] = None,
+                 block_tables: Optional[torch.Tensor] = None,
                  impl: Optional[str] = None):
-    """Token-packed step for one layer (DESIGN.md §8).  Returns
+    """Token-packed step for one layer (DESIGN.md §8); ``token_dst`` and
+    ``block_tables`` switch attention to block-table mode (§12).  Returns
     (x, cache), the cache updated in place."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     y, cache = attn.gqa_packed(cfg, p["mixer"], h, positions, cache,
                                token_slot, token_wpos, kv_bucket=kv_bucket,
+                               token_dst=token_dst, block_tables=block_tables,
                                impl=impl)
     x = x + y
     h = rmsnorm(x, p["norm2"], cfg.norm_eps)
@@ -46,6 +50,7 @@ def block_packed(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
 
 
 def block_init_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
-                     max_len: int, device: torch.device) -> dict:
+                     max_len: int, device: torch.device,
+                     kv_dtype: Optional[str] = None) -> dict:
     check_spec(spec)
-    return attn.gqa_init_cache(cfg, batch, max_len, device)
+    return attn.gqa_init_cache(cfg, batch, max_len, device, kv_dtype)

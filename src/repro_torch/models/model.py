@@ -5,7 +5,8 @@
 Parameters are plain dicts of tensors in the JAX layouts, with the
 per-layer leaves unstacked into ``params["layers"]`` (a Python loop over
 layers takes the place of ``jax.lax.scan``); the cache is a list of
-per-layer ``{"k", "v"}`` dicts.
+per-layer ``{"k", "v"}`` dicts (plus ``"k_s"``/``"v_s"`` scales for int8
+KV).
 """
 from __future__ import annotations
 
@@ -50,11 +51,14 @@ def init(cfg: ModelConfig, seed: int = 0,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: Optional[str | torch.device] = None) -> list:
-    """Zeroed per-layer slot caches ``{"k", "v"}: (batch, max_len, KV, hd)``."""
+               device: Optional[str | torch.device] = None,
+               kv_dtype: Optional[str] = None) -> list:
+    """Zeroed per-layer slot caches ``{"k", "v"}: (batch, max_len, KV, hd)``;
+    ``kv_dtype="int8"`` stores int8 K/V with f32 ``{"k_s", "v_s"}: (batch,
+    max_len, KV)`` scales (DESIGN.md §15)."""
     check_config(cfg)
     dev = resolve_device(device)
-    return [blocks.block_init_cache(cfg, spec, batch, max_len, dev)
+    return [blocks.block_init_cache(cfg, spec, batch, max_len, dev, kv_dtype)
             for spec in cfg.layer_specs()]
 
 
@@ -71,6 +75,8 @@ def forward_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                    cache: list, token_slot: torch.Tensor,
                    token_pos: torch.Tensor, token_wpos: torch.Tensor,
                    kv_bucket: Optional[int] = None,
+                   token_dst: Optional[torch.Tensor] = None,
+                   block_tables: Optional[torch.Tensor] = None,
                    impl: Optional[str] = None):
     """One iteration's model work on a token-packed stream (DESIGN.md §8).
 
@@ -80,6 +86,10 @@ def forward_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     ``max_len`` for padding (whose K/V are then not written).  Each token
     attends rows [0, pos] of its own slot, so segments never attend across
     each other; ``kv_bucket`` bounds the rows read (DESIGN.md §9).
+    ``token_dst`` ((T,) int32 flat physical rows, N·S for padding) and
+    ``block_tables`` ((N_slots, max_len / block_size) int32) switch
+    attention to block-table mode (DESIGN.md §12): K/V scatter by physical
+    row and are read through the per-slot tables.
     ``impl="plain"`` runs the kernels' plain versions on any device.
 
     Returns (logits (1, T, vocab), cache), the cache updated in place."""
@@ -87,5 +97,7 @@ def forward_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     positions = token_pos[None]
     for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache):
         x, _ = blocks.block_packed(cfg, spec, p, x, positions, c, token_slot,
-                                   token_wpos, kv_bucket=kv_bucket, impl=impl)
+                                   token_wpos, kv_bucket=kv_bucket,
+                                   token_dst=token_dst,
+                                   block_tables=block_tables, impl=impl)
     return _head(cfg, params, x), cache

@@ -1,8 +1,9 @@
 """Engine configuration: the port's ``EngineConfig``, with the same fields
 as ``repro.serving.config.EngineConfig``.
 
-The port runs the packed greedy serving step at tp=1 with bf16 KV and
-``async_depth=0``.  Every value it does not implement yet raises
+The port runs the packed greedy serving step at tp=1 and
+``async_depth=0``, with native or int8 KV (``kv_dtype``) and with or
+without prefix caching.  Every value it does not implement yet raises
 ``NotImplementedError`` naming the ROADMAP item that brings it, so a
 configuration never silently runs something other than what it says.
 ``async_depth=None`` resolves to 0 here (the JAX engine's packed default is
@@ -38,9 +39,10 @@ class EngineConfig:
     # ---- KV-length bucketing (DESIGN.md §9) ---------------------------------
     kv_buckets: Optional[tuple[int, ...]] = None
     kv_bucketing: bool = True
-    # ---- features of later slices -------------------------------------------
+    # ---- block-table KV (DESIGN.md §12) and int8 KV (§15) -------------------
     prefix_caching: bool = False
     kv_dtype: str = "bf16"
+    # ---- features of later slices -------------------------------------------
     spec_k: int = 0
     drafter: Optional[str] = None
     temperature: float = 0.0
@@ -58,12 +60,8 @@ class EngineConfig:
             raise ValueError((self.prefill_mode, self.step_mode))
         if self.tp != 1:
             raise NotImplementedError("tensor parallelism is ROADMAP A11")
-        if self.prefix_caching:
-            raise NotImplementedError("prefix caching is ROADMAP A6")
-        if self.kv_dtype == "int8":
-            raise NotImplementedError("int8 KV is ROADMAP A7")
-        if self.kv_dtype != "bf16":
-            raise ValueError(self.kv_dtype)
+        if self.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype {self.kv_dtype!r} (bf16 or int8)")
         if self.spec_k > 0 or self.drafter is not None:
             raise NotImplementedError("speculative decoding is ROADMAP A8")
         if self.temperature > 0 or self.top_k is not None:
@@ -77,6 +75,10 @@ class EngineConfig:
         if self.max_slots < 1 or self.max_len < 1 or self.kv_block_size < 1:
             raise ValueError((self.max_slots, self.max_len,
                               self.kv_block_size))
+        if self.prefix_caching and self.max_len % self.kv_block_size:
+            raise ValueError(f"prefix caching needs max_len {self.max_len} "
+                             f"divisible by kv_block_size "
+                             f"{self.kv_block_size}")
 
     @property
     def resolved_step_mode(self) -> str:

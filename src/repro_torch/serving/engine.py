@@ -1,6 +1,7 @@
 """Serving engine on the token-packed single-dispatch step (port of
-``repro.serving.engine.ServeEngine`` for the packed greedy path at tp=1,
-bf16 KV, ``async_depth=0``).
+``repro.serving.engine.ServeEngine`` for the packed greedy path at tp=1 and
+``async_depth=0``, in all four KV modes: contiguous or block-table caches
+with prefix caching (DESIGN.md §12), each with native or int8 KV (§15)).
 
 One iteration = one call of the packed step: the decode tokens (one per
 decoding slot) and every scheduled prefill chunk are packed into a single
@@ -9,7 +10,9 @@ decoding slot) and every scheduled prefill chunk are packed into a single
 masked to each token's own slot), sampled greedily on the device, and the
 samples scattered into a device-resident per-slot ``last_token`` buffer
 from which the next iteration's decode inputs are gathered on the device.
-The host metadata goes up in one host-to-device copy, and the only
+The host metadata (with, under prefix caching, each token's physical
+cache row, the per-slot block tables and the rows of the iteration's
+copy-on-write block copies) goes up in one host-to-device copy, and the only
 device-to-host transfer is the ``last_token`` payload, once per iteration
 (``EngineStats.model_dispatches`` / ``host_syncs``).  ``T`` is bucketed to
 the scheduler's discrete sizes and attention sweeps only the iteration's
@@ -41,11 +44,13 @@ from repro_torch.serving.scheduler import BatchPlan, GlobalBatchScheduler
 _META_ROWS = ("tokens", "slot", "pos", "active", "from_last", "sample_slot")
 
 
-def kv_bytes_per_token(cfg: ModelConfig) -> int:
+def kv_bytes_per_token(cfg: ModelConfig,
+                       kv_dtype: Optional[str] = None) -> int:
     """Per-token KV-cache bytes, from the cache shapes themselves (built on
     the ``meta`` device, so nothing is allocated): for every layer, the
-    bytes of one sequence row of each cache leaf."""
-    cache = model_lib.init_cache(cfg, 1, 1, device="meta")
+    bytes of one sequence row of each cache leaf — int8 values plus f32
+    scales for ``kv_dtype="int8"``."""
+    cache = model_lib.init_cache(cfg, 1, 1, device="meta", kv_dtype=kv_dtype)
     return sum(int(np.prod(leaf.shape[2:])) * leaf.element_size()
                for layer in cache for leaf in layer.values())
 
@@ -70,6 +75,8 @@ class EngineStats:
     kv_bucket_hist: dict[int, int] = dataclasses.field(default_factory=dict)
     # sum of launch_tokens x kv_bucket: the attention score work launched
     packed_attn_kv_rows: int = 0
+    # cache bytes the int8 rows did not write vs the native dtype (§15)
+    kv_quant_bytes_saved: int = 0
 
     @property
     def total_tokens(self) -> int:
@@ -135,17 +142,33 @@ class ServeEngine:
         self.nano = config.nano
         self.kv_buckets = config.resolved_kv_buckets()
 
+        # KV storage (DESIGN.md §15): "bf16" keeps the model's dtype, "int8"
+        # stores int8 K/V plus f32 per-(row, KV head) scales
+        self._cache_kv_dtype = "int8" if config.kv_dtype == "int8" else None
         page_size = config.kv_block_size
-        kv_bytes = kv_bytes_per_token(cfg)
+        kv_bytes = kv_bytes_per_token(cfg, self._cache_kv_dtype)
+        self._kv_bytes_native = kv_bytes_per_token(cfg)
         if config.total_pages is not None:
             pages = config.total_pages
         elif config.kv_budget_bytes is not None and kv_bytes > 0:
             pages = max(int(config.kv_budget_bytes) // (kv_bytes * page_size), 1)
         else:
             pages = config.max_slots * config.max_len // page_size
+        # prefix caching (DESIGN.md §12): block ids are physical storage
+        # (flat slot-cache rows / block size), so the pool is capped at what
+        # the cache leaves hold, and every swept bucket is whole blocks
+        self.prefix_caching = bool(config.prefix_caching)
+        if self.prefix_caching:
+            for b in self.kv_buckets:
+                if b % page_size:
+                    raise ValueError(f"kv bucket {b} not divisible by "
+                                     f"kv_block_size {page_size}")
+            pages = min(pages, config.max_slots * config.max_len // page_size)
+        self._nb_cols = config.max_len // page_size
         self.kv = PagedKVManager(total_pages=pages, page_size=page_size,
                                  bytes_per_token=kv_bytes,
-                                 avg_decode_len=config.avg_decode_len)
+                                 avg_decode_len=config.avg_decode_len,
+                                 prefix_caching=self.prefix_caching)
         self.scheduler = GlobalBatchScheduler(
             self.kv, discrete_sizes=config.discrete_sizes,
             max_active=config.max_slots, kv_buckets=self.kv_buckets,
@@ -153,7 +176,8 @@ class ServeEngine:
 
         dev = self.device
         self.cache = model_lib.init_cache(cfg, self.max_slots, self.max_len,
-                                          device=dev)
+                                          device=dev,
+                                          kv_dtype=self._cache_kv_dtype)
         self.cache_len = torch.zeros((self.max_slots,), dtype=torch.int32,
                                      device=dev)
         # device-resident sampled-token feedback: the packed step scatters
@@ -230,30 +254,61 @@ class ServeEngine:
                 reset[r.slot] = 1
                 self._pos[r.slot] = 0
 
+        bs = self.kv.page_size
+        oob = self.max_slots * self.max_len
+        if self.prefix_caching:
+            # a decode token writes row _pos[slot]: grow its block table and
+            # make the written block private now, launch-side, so the write
+            # target exists before the commit's ``extend`` (DESIGN.md §12)
+            for seg in packed.segments:
+                if seg.is_decode:
+                    self.kv.ensure(seg.req.rid, int(self._pos[seg.req.slot]) + 1)
+
         t_total = packed.launch_tokens
         meta = np.zeros((len(_META_ROWS), t_total), np.int32)
         tokens, slot, pos, active, from_last, sample_slot = meta
         # non-sample positions scatter out of bounds -> dropped
         sample_slot[:] = self.max_slots
+        # block-table operands (prefix mode): each token's flat cache row
+        # (padding and uncovered rows: the out-of-bounds N·S) and the
+        # per-slot tables
+        token_dst = np.full((t_total,), oob, np.int32)
+        tables = np.zeros((self.max_slots, self._nb_cols), np.int32)
         sample_at: list[tuple[int, int]] = []
         t = 0
         for seg in packed.segments:
             r = seg.req
+            tbl = None
+            if self.prefix_caching:
+                tbl = np.asarray(self.kv.table(r.rid), np.int64)
+                # tables are sized by *predicted* length, which may run past
+                # max_len: only the addressable prefix is gathered
+                nb = min(len(tbl), self._nb_cols)
+                tables[r.slot, :nb] = tbl[:nb]
             if seg.is_decode:
                 # the token itself comes from last_token on the device
                 from_last[t] = 1
                 slot[t] = r.slot
-                pos[t] = self._pos[r.slot]
+                p = self._pos[r.slot]
+                pos[t] = p
                 active[t] = 1
                 sample_slot[t] = r.slot
                 sample_at.append((r.rid, r.slot))
+                if tbl is not None and p // bs < len(tbl):
+                    token_dst[t] = tbl[p // bs] * bs + p % bs
                 t += 1
             else:
                 ln = seg.length
                 tokens[t:t + ln] = r.prompt[seg.offset:seg.offset + ln]
                 slot[t:t + ln] = r.slot
-                pos[t:t + ln] = np.arange(seg.offset, seg.offset + ln)
+                qs = np.arange(seg.offset, seg.offset + ln)
+                pos[t:t + ln] = qs
                 active[t:t + ln] = 1
+                if tbl is not None and len(tbl):
+                    cov = qs // bs < len(tbl)
+                    token_dst[t:t + ln] = np.where(
+                        cov, tbl[np.minimum(qs // bs, len(tbl) - 1)] * bs
+                        + qs % bs, oob)
                 if seg.offset + ln == r.prompt_len:
                     sample_slot[t + ln - 1] = r.slot
                     sample_at.append((r.rid, r.slot))
@@ -282,11 +337,27 @@ class ServeEngine:
         self.stats.prefill_tokens += packed.tokens - n_decode
         self.stats.prefill_model_tokens += packed.tokens - n_decode
         self.stats.packed_pad_tokens += packed.padding
+        if self._cache_kv_dtype is not None:
+            # every real token scatters one quantized row per layer
+            self.stats.kv_quant_bytes_saved += packed.tokens * \
+                (self._kv_bytes_native - self.kv.bytes_per_token)
 
-        host_block = np.concatenate([meta.reshape(-1), reset])
+        parts = [meta.reshape(-1), reset]
+        n_copy_rows = 0
+        if self.prefix_caching:
+            # queued copy-on-write block copies run on the device before the
+            # forward, inside the same step: their rows ride this block
+            copies = np.asarray(self.kv.take_pending_copies(),
+                                np.int32).reshape(-1, 2)
+            rows = (copies[:, :, None] * bs
+                    + np.arange(bs, dtype=np.int32)).transpose(1, 0, 2)
+            n_copy_rows = rows.shape[1] * bs
+            parts += [token_dst, tables.reshape(-1), rows.reshape(-1)]
+        host_block = np.concatenate(parts)
         t_disp = time.perf_counter()
         self.stats.host_time += t_disp - t_host
-        payload = self._packed_core(host_block, t_total, kv_bucket)
+        payload = self._packed_core(host_block, t_total, kv_bucket,
+                                    n_copy_rows)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -297,22 +368,37 @@ class ServeEngine:
                          done=done)
 
     def _packed_core(self, host_block: np.ndarray, t_total: int,
-                     kv_bucket: int) -> torch.Tensor:
-        """The whole iteration on the device: substitute the decode
-        placeholders from ``last_token``, run the packed forward, sample
-        greedily, scatter the samples into ``last_token`` and advance
-        ``cache_len``.  Returns the new ``last_token`` (the payload)."""
+                     kv_bucket: int, n_copy_rows: int) -> torch.Tensor:
+        """The whole iteration on the device: apply the queued block copies
+        (prefix mode), substitute the decode placeholders from
+        ``last_token``, run the packed forward, sample greedily, scatter
+        the samples into ``last_token`` and advance ``cache_len``.  Returns
+        the new ``last_token`` (the payload)."""
         block = torch.from_numpy(host_block).to(self.device)
+        n_meta = len(_META_ROWS) * t_total
         tokens, slot, pos, active, from_last, sample_slot = \
-            block[:len(_META_ROWS) * t_total].view(len(_META_ROWS), t_total)
-        reset = block[len(_META_ROWS) * t_total:].bool()
+            block[:n_meta].view(len(_META_ROWS), t_total)
+        at = n_meta + self.max_slots
+        reset = block[n_meta:at].bool()
+        token_dst = block_tables = None
+        if self.prefix_caching:
+            n_tbl = self.max_slots * self._nb_cols
+            token_dst = block[at:at + t_total]
+            block_tables = block[at + t_total:at + t_total + n_tbl] \
+                .view(self.max_slots, self._nb_cols)
+            at += t_total + n_tbl
+            if n_copy_rows:
+                src, dst = block[at:at + 2 * n_copy_rows].long() \
+                    .view(2, n_copy_rows)
+                self._copy_rows(src, dst)
         active = active.bool()
         wpos = torch.where(active, pos, self.max_len)
         toks = sampling.substitute_last(tokens[None], self.last_token, slot,
                                         from_last.bool())
         logits, self.cache = model_lib.forward_packed(
             self.cfg, self.params, toks, self.cache, slot, pos, wpos,
-            kv_bucket=kv_bucket)
+            kv_bucket=kv_bucket, token_dst=token_dst,
+            block_tables=block_tables)
         next_tok = sampling.greedy(logits[0])
         new_len = torch.where(reset, 0, self.cache_len)
         self.cache_len = new_len.scatter_reduce(
@@ -320,6 +406,17 @@ class ServeEngine:
         self.last_token = sampling.scatter_last(self.last_token, sample_slot,
                                                 next_tok)
         return self.last_token
+
+    def _copy_rows(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """Copy-on-write block copies (port of the JAX ``_cow_impl``): flat
+        cache rows ``src`` to ``dst`` in every leaf of every layer, one
+        indexed copy per leaf, in stream order before the forward — no
+        host sync.  No row is both a source and a destination (a copy's
+        destination is a fresh private block)."""
+        for layer in self.cache:
+            for leaf in layer.values():
+                flat = leaf.view((-1,) + tuple(leaf.shape[2:]))
+                flat.index_copy_(0, dst, flat.index_select(0, src))
 
     def _finalize(self, r: Request) -> None:
         if r.slot >= 0:

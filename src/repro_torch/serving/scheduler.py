@@ -2,10 +2,9 @@
 prefill + discrete batching, planned from launch-side state (§5.3).
 
 The port's copy of ``repro.serving.scheduler``: the policy is the JAX
-scheduler's step for step (the engine test compares token streams), with
-the speculative-decoding and prefix-caching branches left for their slices
-(ROADMAP A6, A8) — at ``spec_k == 0`` without prefix caching those
-branches never run in the reference either.
+scheduler's step for step (the engine tests compare token streams), with
+the speculative-decoding branches left for their slice (ROADMAP A8) — at
+``spec_k == 0`` they never run in the reference either.
 
 Every iteration the scheduler emits a ``BatchPlan``:
   * all active decode requests contribute one token each;
@@ -110,13 +109,19 @@ class GlobalBatchScheduler:
         self.launched_tokens = 0
         # tokens launched for requests that finished before their commit
         self.dropped_tokens = 0
+        # prompt tokens served from shared blocks at admission (§12)
+        self.prefix_hit_tokens = 0
 
     # ---- admission ---------------------------------------------------------
     def submit(self, req: Request) -> None:
         self.waiting.append(req)
 
     def _admit(self) -> None:
-        """Eager admission under the peak-memory estimate (§4.4)."""
+        """Eager admission under the peak-memory estimate (§4.4).  With a
+        prefix-caching allocator (DESIGN.md §12) the prompt's token ids go
+        to ``allocate`` for content-hash matching, and prefill starts at
+        the cached boundary: only the uncached suffix is ever planned."""
+        prefix = self.kv.prefix_caching
         while self.waiting and len(self.active) < self.max_active:
             cand = self.waiting[0]
             if (self.max_request_len is not None
@@ -124,10 +129,15 @@ class GlobalBatchScheduler:
                 break
             if not self.kv.can_admit(cand, self.active):
                 break
-            if not self.kv.allocate(cand.rid, max(cand.prompt_len, 1)):
+            if not self.kv.allocate(cand.rid, max(cand.prompt_len, 1),
+                                    token_ids=cand.prompt if prefix else None):
                 break
             self.waiting.popleft()
             cand.state = State.PREFILL
+            if prefix:
+                cached = self.kv.cached_tokens(cand.rid)
+                cand.prefill_done = cand.prefill_launched = cached
+                self.prefix_hit_tokens += cached
             self.active.append(cand)
 
     # ---- discrete batching (§4.2) -------------------------------------------
@@ -257,11 +267,16 @@ class GlobalBatchScheduler:
         token, dropped at finalize); tokens sampled for a request that has
         already FINISHED are dropped."""
         finished = []
+        prefix = self.kv.prefix_caching
         for c in plan.prefill:
             c.req.prefill_done += c.length
             c.req.prefill_launched = max(c.req.prefill_launched,
                                          c.req.prefill_done)
-            self.kv.extend(c.req.rid, max(c.req.total_tokens, 1))
+            # committed-and-written rows are the prefilled prompt prefix:
+            # full blocks below it promote into the hash table (§12)
+            self.kv.extend(c.req.rid, max(c.req.total_tokens, 1),
+                           token_ids=(c.req.prompt[:c.req.prefill_done]
+                                      if prefix else None))
             if c.req.prefill_remaining == 0:
                 c.req.state = State.DECODE
         for r in list(plan.decode) + [c.req for c in plan.prefill
@@ -276,7 +291,12 @@ class GlobalBatchScheduler:
             if r.first_token_at is None:
                 r.first_token_at = now
             r.output.append(tok)
-            self.kv.extend(r.rid, r.total_tokens + 1)
+            # written rows are the prompt and every output but the newest
+            # (its K/V lands next launch): only blocks fully below them
+            # promote (§12)
+            self.kv.extend(r.rid, r.total_tokens + 1,
+                           token_ids=(r.prompt + r.output[:-1]
+                                      if prefix else None))
             hit_eos = (r.eos_id is not None and tok == r.eos_id)
             if r.pending_eos or len(r.output) >= r.max_new_tokens:
                 r.state = State.FINISHED

@@ -55,12 +55,77 @@ def test_packed_attention_kernel(cuda, group, d, dtype):
             for a in (q, k, v)]
     args += [torch.from_numpy(rng.integers(0, n, t).astype(np.int32)).to(cuda),
              torch.from_numpy(rng.integers(1, 258, t).astype(np.int32)).to(cuda)]
-    before = packed_attention_cuda.launches
+    before = packed_attention_cuda.launches["packed_attention"]
     out = packed_attention_cuda(*args, kv_bucket=257)
     torch.cuda.synchronize()
-    assert packed_attention_cuda.launches == before + 1
+    assert packed_attention_cuda.launches["packed_attention"] == before + 1
     want = packed_attention_ref(*args, kv_bucket=257)
     torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+
+
+def _variant_args(cuda, variant, group, d, t=33, n=4, s=320, kv=2, bs=16):
+    """f32 q over caches of ``variant`` on the card: int8 codes with f32
+    scales for the quantized variants, a shuffled physical-block table over
+    the N·S rows for the block-table ones."""
+    rng = np.random.default_rng(group * d)
+    f32 = dict(device=cuda, dtype=torch.float32)
+    q = torch.tensor(rng.normal(size=(t, kv * group, d)), **f32)
+    kw = {}
+    if "quant" in variant:
+        k, v = (torch.tensor(rng.integers(-127, 128, (n, s, kv, d)),
+                             dtype=torch.int8, device=cuda) for _ in range(2))
+        kw["k_scale"], kw["v_scale"] = (
+            torch.tensor(rng.uniform(1e-3, 2e-2, (n, s, kv)), **f32)
+            for _ in range(2))
+    else:
+        k, v = (torch.tensor(rng.normal(size=(n, s, kv, d)), **f32)
+                for _ in range(2))
+    if "block" in variant:
+        kw["block_tables"] = torch.tensor(
+            rng.permutation(n * s // bs).reshape(n, s // bs),
+            dtype=torch.int32, device=cuda)
+    slot = torch.tensor(rng.integers(0, n, t), dtype=torch.int32, device=cuda)
+    lens = torch.tensor(rng.integers(1, 289, t), dtype=torch.int32,
+                        device=cuda)
+    return (q, k, v, slot, lens), kw
+
+
+@pytest.mark.parametrize("variant", ["packed_attention_quant",
+                                     "packed_attention_block",
+                                     "packed_attention_block_quant"])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128)])
+def test_packed_attention_variant_kernels(cuda, variant, group, d):
+    """The int8, block-table and block-table + int8 kernels against the
+    plain version in f32 (dequantization is exact in f32, so only the
+    summation order differs), 33 tokens over 4 slots, bucket 288 = 18
+    blocks of 16."""
+    args, kw = _variant_args(cuda, variant, group, d)
+    before = packed_attention_cuda.launches[variant]
+    out = packed_attention_cuda(*args, kv_bucket=288, **kw)
+    torch.cuda.synchronize()
+    assert packed_attention_cuda.launches[variant] == before + 1
+    want = packed_attention_ref(*args, kv_bucket=288, **kw)
+    torch.testing.assert_close(out, want, **_tol("float32"))
+
+
+def test_packed_attention_wrapper_raises_instead_of_falling_back(cuda):
+    """A scale leaf the kernel cannot read in place (KV heads not unit
+    stride) and a block-table sweep that is not whole blocks raise, and
+    nothing launches."""
+    args, kw = _variant_args(cuda, "packed_attention_block_quant", 2, 64)
+    before = dict(packed_attention_cuda.launches)
+    ks = kw["k_scale"]
+    strided = ks.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="k_scale rows"):
+        packed_attention_cuda(*args, kv_bucket=288,
+                              **dict(kw, k_scale=strided, v_scale=strided))
+    with pytest.raises(ValueError, match="multiple of the block size"):
+        packed_attention_cuda(*args, kv_bucket=280, **kw)
+    quant = {k: kw[k] for k in ("k_scale", "v_scale")}
+    with pytest.raises(ValueError, match="must be"):
+        packed_attention_cuda(args[0], args[0].new_zeros(args[1].shape),
+                              *args[2:], kv_bucket=288, **quant)
+    assert packed_attention_cuda.launches == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -81,9 +146,13 @@ def test_swiglu_kernel(cuda, m, k, n, dtype):
                                **tol)
 
 
-def test_engine_on_card_matches_cpu(cuda):
-    """tiny-toy in f32: the engine on the card (both kernels) serves the
-    same greedy tokens as the engine on the CPU (plain versions)."""
+@pytest.mark.parametrize("prefix,kv_dtype", [(False, "bf16"),
+                                             (False, "int8"),
+                                             (True, "bf16"), (True, "int8")])
+def test_engine_on_card_matches_cpu(cuda, prefix, kv_dtype):
+    """tiny-toy in f32: the engine on the card (the KV mode's attention
+    kernel and SwiGLU) serves the same greedy tokens as the engine on the
+    CPU (plain versions), in each of the four KV modes."""
     cfg = dataclasses.replace(get_config("tiny-toy"), dtype="float32")
     params = model.init(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(0)
@@ -94,7 +163,8 @@ def test_engine_on_card_matches_cpu(cuda):
         p = _to(params, dev)
         eng = ServeEngine(cfg, p, EngineConfig(
             max_slots=4, max_len=64, discrete_sizes=(32, 16, 8),
-            avg_decode_len=4), device=dev)
+            avg_decode_len=4, kv_block_size=8, prefix_caching=prefix,
+            kv_dtype=kv_dtype), device=dev)
         for i, pr in enumerate(prompts):
             eng.submit(Request(rid=i, prompt=pr, max_new_tokens=6))
         outs[dev] = {r.rid: r.output for r in eng.run()}

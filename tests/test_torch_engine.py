@@ -77,21 +77,38 @@ def test_engine_token_exact_vs_jax():
 
 
 def test_kv_bytes_per_token_from_cache_shapes():
-    """2 leaves x KV heads x head_dim x itemsize, per attention layer."""
+    """2 leaves x KV heads x head_dim x itemsize, per attention layer; int8
+    adds one f32 scale per leaf and KV head (0.516 of bf16 at Qwen3-8B)."""
     cfg = get_config("qwen3-8b")
-    assert kv_bytes_per_token(cfg) == 36 * 2 * 8 * 128 * 2
+    assert kv_bytes_per_token(cfg) == 36 * 2 * 8 * 128 * 2 == 147_456
+    assert kv_bytes_per_token(cfg, "int8") == 36 * 2 * (8 * 128 + 8 * 4) \
+        == 76_032
     toy = dataclasses.replace(get_config("tiny-toy"), dtype="float32")
     assert kv_bytes_per_token(toy) == 4 * 2 * 2 * 64 * 4
 
 
 @pytest.mark.parametrize("field,value", [
-    ("async_depth", 1), ("tp", 2), ("prefix_caching", True),
-    ("kv_dtype", "int8"), ("spec_k", 2), ("temperature", 0.7),
+    ("async_depth", 1), ("tp", 2), ("drafter", "ngram"), ("top_k", 5),
+    ("spec_k", 2), ("temperature", 0.7),
     ("step_mode", "legacy"), ("prefill_mode", "recompute"),
 ])
 def test_config_rejects_unported_features(field, value):
     with pytest.raises(NotImplementedError):
         EngineConfig(**{field: value})
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kv_dtype="fp8"),
+    dict(prefix_caching=True, max_len=60, kv_block_size=16),
+])
+def test_config_validates_kv_modes(kw):
+    """The JAX validations: a known KV dtype, and whole blocks per slot
+    under prefix caching; the four KV modes themselves are accepted."""
+    with pytest.raises(ValueError):
+        EngineConfig(**kw)
+    for prefix in (False, True):
+        for kv_dtype in ("bf16", "int8"):
+            EngineConfig(prefix_caching=prefix, kv_dtype=kv_dtype)
 
 
 def test_sampling_feedback_matches_jax():

@@ -75,6 +75,62 @@ def test_packed_attention_ref_matches_jax(group, t, dtype):
     np.testing.assert_allclose(_f32(out), _f32(want_pallas), **_tol(dtype))
 
 
+def _variant_case(seed, group, variant, t=9, n=3, s=48, kv=2, d=32, bs=8,
+                  bucket=40):
+    """Operands of one packed-attention variant as numpy arrays: int8 codes
+    with f32 (N, S, KV) scales for the quantized variants, and for the
+    block-table variants a shuffled physical-block table over the N·S rows
+    (so a wrong table or scale index reads another request's rows)."""
+    rng = np.random.default_rng(seed)
+    q, k, v, slot, lens = _attn_case(seed, t, group, n, s, kv, d, bucket)
+    ops_kw = {}
+    if "quant" in variant:
+        k = rng.integers(-127, 128, size=k.shape).astype(np.int8)
+        v = rng.integers(-127, 128, size=v.shape).astype(np.int8)
+        ops_kw["k_scale"] = rng.uniform(1e-3, 2e-2, (n, s, kv)).astype(
+            np.float32)
+        ops_kw["v_scale"] = rng.uniform(1e-3, 2e-2, (n, s, kv)).astype(
+            np.float32)
+    if "block" in variant:
+        ops_kw["block_tables"] = rng.permutation(n * s // bs).astype(
+            np.int32).reshape(n, s // bs)
+    return (q, k, v, slot, lens), ops_kw
+
+
+@pytest.mark.parametrize("variant", ["quant", "block", "block_quant"])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_packed_attention_variants_match_jax(group, variant):
+    """The int8, block-table and block-table + int8 variants of the plain
+    version against the JAX ref and the Pallas kernels in interpret mode
+    (``_kernel_quant``, ``_kernel_block``, ``_kernel_block_quant``), f32 q,
+    bucket 40 = 5 blocks of 8."""
+    (q, k, v, slot, lens), kw = _variant_case(7 * group, group, variant)
+    jargs = [jnp.asarray(a) for a in (q, k, v, slot, lens)]
+    jkw = {name: jnp.asarray(a) for name, a in kw.items()}
+    targs = [torch.from_numpy(a) for a in (q, k, v, slot, lens)]
+    tkw = {name: torch.from_numpy(a) for name, a in kw.items()}
+    out = packed_attention_ref(*targs, kv_bucket=40, **tkw)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    torch.testing.assert_close(
+        ops.packed_attention(*targs, kv_bucket=40, **tkw), out, rtol=0, atol=0)
+    want_ref = jax_ref.packed_attention_ref(*jargs, kv_bucket=40, **jkw)
+    want_pallas = jax_pa.packed_attention(*jargs, kv_bucket=40, block_k=16,
+                                          interpret=True, **jkw)
+    np.testing.assert_allclose(_f32(out), _f32(want_ref), **_tol("float32"))
+    np.testing.assert_allclose(_f32(out), _f32(want_pallas),
+                               **_tol("float32"))
+
+
+def test_block_sweep_must_be_whole_blocks():
+    """Block-table mode sweeps whole blocks: a bucket that is not a
+    multiple of the block size raises instead of reading a partial one."""
+    (q, k, v, slot, lens), kw = _variant_case(1, 2, "block")
+    args = [torch.from_numpy(a) for a in (q, k, v, slot, lens)]
+    with pytest.raises(ValueError, match="multiple of the block size"):
+        packed_attention_ref(*args, kv_bucket=36,
+                             block_tables=torch.from_numpy(kw["block_tables"]))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,k,n", [(37, 40, 24), (8, 64, 48), (100, 24, 72)])
 def test_swiglu_ref_matches_jax(m, k, n, dtype):
@@ -100,7 +156,7 @@ def test_ops_choose_by_device():
     CUDA wrappers refuse a CPU tensor instead of running it."""
     q, k, v, slot, lens = _attn_case(0, 5, 2)
     args = [torch.from_numpy(a) for a in (q, k, v, slot, lens)]
-    launches = (packed_attention_cuda.launches, swiglu_cuda.launches)
+    launches = (dict(packed_attention_cuda.launches), swiglu_cuda.launches)
     got = ops.packed_attention(*args, kv_bucket=40)
     torch.testing.assert_close(got, packed_attention_ref(*args, kv_bucket=40),
                                rtol=0, atol=0)
