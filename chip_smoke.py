@@ -7,12 +7,14 @@ Phases (any failure exits non-zero; no phase is caught):
   1. card    — print the card's name and power limit (nvidia-smi); TF32 off.
   2. build   — compile the CUDA kernels from src/repro_torch/kernels/csrc.
   3. kernels — each kernel against its plain PyTorch version at Qwen3-8B
-               shapes in bf16 (the packed-attention variants also in f32),
+               shapes in bf16 (the attention kernels also in f32),
                with its time, the plain version's time, the time of one
                PyTorch library call of the same function (where there is
                one) and the card's bound for the same work.  The four
                packed-attention variants: contiguous, int8 KV, block-table
-               (shuffled table, block 16) and block-table + int8.
+               (shuffled table, block 16) and block-table + int8; flash
+               attention at the legacy chunk's and the recompute prefill's
+               shapes; decode attention over 8 slots of 1024 rows.
   4. forward — ``forward_packed`` at full width, 4 layers, through the
                kernels and through the plain versions: logits must agree.
   5. serve   — Qwen3-8B at full width and all 36 layers (seeded random bf16
@@ -21,7 +23,13 @@ Phases (any failure exits non-zero; no phase is caught):
                with a teacher-forced forward through the plain versions.
   6. profile — the same requests again under torch.profiler: device busy
                share and the kernels that take the device time.
-  7. shared-prefix — the same model serves one request with a 600-token
+  7. legacy  — the serve phase's requests on the legacy step, once with
+               incremental and once with recompute prefill (profiled as in
+               6): flash and decode attention launch 36 times per dispatch
+               and no packed-attention variant launches; every request
+               finishes 32 tokens; tokens agree with the packed serve's and
+               between the two prefill modes.
+  8. shared-prefix — the same model serves one request with a 600-token
                prompt prefix, then seven more that share it, in each of the
                four KV modes (prefix caching off/on x bf16/int8 KV): every
                run launches its own attention variant; the prefix runs hit
@@ -68,6 +76,16 @@ ATTENTION = {
     "packed_attention_block_quant": ((True, True), f"{_TPU_PA}:126"),
 }
 KV_BLOCK = 16           # block size of the block-table cases and serves
+# the legacy step's kernels -> (source, the TPU kernel each replaces)
+_CSRC = "src/repro_torch/kernels/csrc"
+LEGACY = {
+    "flash_attention": (f"{_CSRC}/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:73"),
+    "decode_attention": (f"{_CSRC}/packed_attention.cu",
+                         "src/repro/kernels/decode_attention.py:70"),
+}
+LEGACY_MODES = {"legacy": dict(step_mode="legacy"),
+                "recompute": dict(prefill_mode="recompute")}
 
 
 def log(msg: str) -> None:
@@ -91,7 +109,11 @@ def card_info(torch) -> tuple[str, float, float]:
 
 class Timer:
     """Median device time of one call, each call after an L2 flush (the
-    real caller finds each layer's weights and cache cold)."""
+    real caller finds each layer's weights and cache cold).  A spin kernel
+    after the flush keeps the device busy while the host enqueues the call,
+    so the events time the device's work, not the wrapper's host time."""
+
+    SPIN_CYCLES = 2_000_000     # ~1 ms at the H100's clocks
 
     def __init__(self, torch, reps: int = 20):
         self.torch = torch
@@ -105,6 +127,7 @@ class Timer:
         events = []
         for _ in range(self.reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -201,6 +224,140 @@ def sdpa_inputs(torch, args, bucket: int):
         (row[None] % bucket < lens[:, None].long())
     return (q.permute(1, 0, 2)[None].contiguous(), kk.contiguous(),
             vv.contiguous(), mask[None, None])
+
+
+def flash_case(torch, cfg, case: str, dtype, seed: int = 11):
+    """The legacy step's two flash-attention shapes at Qwen3-8B's heads:
+    ``chunk`` is a 256-token chunk at offset 512 (a per-row device offset)
+    over slot 3's 1024-row view of an 8-slot cache, ``recompute`` a
+    513-token prompt attending itself from offset 0.  Returns (args,
+    kwargs, SDPA mask, bytes, flops, description): the bytes count q, out
+    and the K/V rows the causal limit reaches once each, the flops QK^T
+    and PV over the keys each query sees."""
+    kv, hd, h = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    if case == "chunk":
+        sq, off = 256, 512
+        k = randn(8, 1024, kv, hd)[3:4]
+        v = randn(8, 1024, kv, hd)[3:4]
+        kw = dict(q_offset=torch.tensor([off], dtype=torch.int32,
+                                        device="cuda"))
+        desc = (f"q (1, {sq}, {h}, {hd}) at q_offset [{off}] (device) over "
+                f"slot 3's (1, 1024, {kv}, {hd}) view of an 8-slot cache")
+    else:
+        sq, off = 513, 0
+        k, v = randn(1, sq, kv, hd), randn(1, sq, kv, hd)
+        kw = {}
+        desc = f"q (1, {sq}, {h}, {hd}), k/v (1, {sq}, {kv}, {hd}), offset 0"
+    q = randn(1, sq, h, hd)
+    item = q.element_size()
+    nbytes = 2 * q.numel() * item + (off + sq) * kv * hd * 2 * item
+    flops = sum(off + i + 1 for i in range(sq)) * h * hd * 4
+    kpos = torch.arange(k.shape[1], device="cuda")
+    mask = kpos[None, :] <= off + torch.arange(sq, device="cuda")[:, None]
+    return (q, k, v), kw, mask, nbytes, flops, desc
+
+
+def decode_case(torch, cfg, dtype, seed: int = 13):
+    """One decode token for each of 8 slots of 1024 rows at Qwen3-8B's
+    heads, with the serve phase's prompt lengths plus 16 (mid-decode).
+    Returns (args, SDPA mask, bytes, flops, description)."""
+    kv, hd, h = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    lens = np.random.default_rng(0).integers(16, 601, 8) + 16
+    q, k, v = randn(8, h, hd), randn(8, 1024, kv, hd), randn(8, 1024, kv, hd)
+    clen = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    item = q.element_size()
+    nbytes = (int(lens.sum()) * kv * hd * 2 * item + 2 * q.numel() * item
+              + 8 * 4)
+    flops = int(lens.sum()) * h * hd * 4
+    mask = torch.arange(1024, device="cuda")[None, :] < clen[:, None].long()
+    desc = (f"q (8, {h}, {hd}), k/v (8, 1024, {kv}, {hd}), cache_len "
+            f"{lens.tolist()}")
+    return (q, k, v, clen), mask[:, None, None, :], nbytes, flops, desc
+
+
+def legacy_case(torch, cfg, case: str, dtype):
+    """One case of the legacy step's kernels as callables: (kernel, plain,
+    SDPA yardstick, SDPA output in the kernel's layout, bytes, flops,
+    description)."""
+    from functools import partial
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_ref)
+    if case == "decode":
+        args, mask, nbytes, flops, desc = decode_case(torch, cfg, dtype)
+        q, k, v, _ = args
+        fns, kw = (decode_attention_cuda, decode_attention_ref), {}
+        lib_in = [q[:, :, None]] + [x.transpose(1, 2).contiguous()
+                                    for x in (k, v)]
+
+        def lib_out(x):
+            return x[:, :, 0]
+    else:
+        args, kw, mask, nbytes, flops, desc = flash_case(torch, cfg, case,
+                                                         dtype)
+        fns = (flash_attention_cuda, flash_attention_ref)
+        lib_in = [x.transpose(1, 2).contiguous() for x in args]
+
+        def lib_out(x):
+            return x.transpose(1, 2)
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            *lib_in, attn_mask=mask, enable_gqa=True)
+    return (partial(fns[0], *args, **kw), partial(fns[1], *args, **kw), lib,
+            lib_out, nbytes, flops, desc)
+
+
+def phase_legacy_kernels(torch, cfg, timer, bw, peak) -> dict:
+    """Flash attention (chunk and recompute shapes) and decode attention
+    against their plain versions in f32 and bf16, timed in bf16 beside
+    their plain versions and a masked ``scaled_dot_product_attention`` (the
+    yardstick; the port never calls it)."""
+    record = {}
+    for kname, case in (("flash_attention", "chunk"),
+                        ("flash_attention", "recompute"),
+                        ("decode_attention", "decode")):
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            kernel, plain, lib, lib_out, nbytes, flops, desc = legacy_case(
+                torch, cfg, case, dtype)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            errs[dtype] = check_close(
+                f"{kname} [{case}] {dtype}", got, want,
+                F32_TOL if dtype == torch.float32 else BF16_TOL)
+        check_close(f"sdpa yardstick {kname} [{case}]", lib_out(lib()), want,
+                    LIB_TOL)
+        ms, plain_ms, lib_ms = timer(kernel), timer(plain), timer(lib)
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+        log(f"{kname} [{case}] {desc}: max_abs_err f32 "
+            f"{errs[torch.float32]:.3e} (tol {F32_TOL[0]} + {F32_TOL[1]}·"
+            f"|ref|), bf16 {errs[torch.bfloat16]:.3e} (tol {BF16_TOL[0]} + "
+            f"{BF16_TOL[1]}·|ref|)  kernel_ms {ms:.4f}  plain_ms "
+            f"{plain_ms:.4f}  sdpa_ms {lib_ms:.4f}  bound_ms "
+            f"{max(t_bytes, t_ops):.4f} ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+        # the chunk shape stands for flash attention in the kernels line
+        if case != "recompute":
+            record[kname] = dict(
+                shape=desc + ", bf16", max_abs_err=errs[torch.bfloat16],
+                max_abs_err_f32=errs[torch.float32], ms=ms,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=lib_ms)
+        del kernel, plain, lib, got, want
+    return record
 
 
 def phase_kernels(torch, cfg, timer, bw, peak):
@@ -371,19 +528,29 @@ def phase_forward(torch, cfg):
     torch.cuda.empty_cache()
 
 
-def zero_counts() -> None:
-    """Set every kernel's launch count to 0 (before a main-path run)."""
+def _counted():
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.packed_attention import packed_attention_cuda
     from repro_torch.kernels.swiglu import swiglu_cuda
-    for kname in packed_attention_cuda.launches:
-        packed_attention_cuda.launches[kname] = 0
-    swiglu_cuda.launches = 0
+    return (packed_attention_cuda, {"swiglu": swiglu_cuda,
+                                    "flash_attention": flash_attention_cuda,
+                                    "decode_attention": decode_attention_cuda})
+
+
+def zero_counts() -> None:
+    """Set every kernel's launch count to 0 (before a main-path run)."""
+    packed, single = _counted()
+    for kname in packed.launches:
+        packed.launches[kname] = 0
+    for fn in single.values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels.packed_attention import packed_attention_cuda
-    from repro_torch.kernels.swiglu import swiglu_cuda
-    return dict(packed_attention_cuda.launches, swiglu=swiglu_cuda.launches)
+    packed, single = _counted()
+    return dict(packed.launches,
+                **{kname: fn.launches for kname, fn in single.items()})
 
 
 def phase_serve(torch, cfg):
@@ -445,43 +612,54 @@ def phase_serve(torch, cfg):
         f"(tol >= {SERVE_AGREE_MIN})")
     if agree < SERVE_AGREE_MIN:
         raise AssertionError("serve: tokens disagree with the plain forward")
-    return launches, params, prompts, s.wall_time
+    outs = {r.rid: r.output for r in done}
+    return launches, params, prompts, s.wall_time, outs
 
 
-def phase_profile(torch, cfg, params, prompts, serve_wall: float):
-    """Where the serve phase's device time goes: the same requests on a
-    fresh engine under ``torch.profiler``, summing the device's own events
-    (kernels and copies).  The profiler stretches the host's wall clock, so
-    the busy share is also given against the unprofiled serve's wall."""
+def phase_profile(torch, cfg, params, prompts, serve_wall: float,
+                  tag: str = "profile", **engine_kw):
+    """Where a serve's device time goes: the same requests on a fresh
+    engine (``engine_kw`` on top of the serve's configuration) under
+    ``torch.profiler``, summing the device's own events (kernels and
+    copies).  The profiler stretches the host's wall clock, so the busy
+    share is also given against the unprofiled serve's wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.request import Request
     eng = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=1024,
-                                                async_depth=0))
+                                                async_depth=0, **engine_kw))
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=32))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host's op events would multiply the
+    # profiler's post-processing, and the busy share needs none of them
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run()
         torch.cuda.synchronize()
+        t_stop = time.perf_counter()
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0]
+    log(f"{tag}: profiler stop and post-processing "
+        f"{time.perf_counter() - t_stop:.1f} s")
     dev_us = sum(e.self_device_time_total for e in events)
     wall_us = eng.stats.wall_time * 1e6
     if dev_us == 0:
-        log("profile: the profiler saw no device time")
+        log(f"{tag}: the profiler saw no device time")
         return
-    log(f"profile: device busy {dev_us / 1e3:.1f} ms over "
+    log(f"{tag}: device busy {dev_us / 1e3:.1f} ms over "
         f"{eng.stats.iterations} iterations: {dev_us / wall_us:.3f} of the "
         f"profiled wall ({wall_us / 1e3:.1f} ms), {dev_us / 1e6 / serve_wall:.3f}"
         f" of the unprofiled serve's wall ({serve_wall * 1e3:.1f} ms); "
         f"{sum(e.count for e in events) / eng.stats.iterations:.0f} device "
         f"events per iteration")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"profile:   {e.self_device_time_total / 1e3:9.2f} ms "
+    # the twelve costliest, and the port's own kernels wherever they rank
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    ours = ("packed_attention_kernel", "flash_bf16_kernel", "swiglu_bf16")
+    for e in ranked[:12] + [e for e in ranked[12:]
+                            if any(k in e.key for k in ours)]:
+        log(f"{tag}:   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.self_device_time_total / dev_us:6.3f}  x{e.count:<6d} "
             f"{e.key[:90]}")
 
@@ -519,6 +697,73 @@ def context_agreement(a: dict, b: dict):
                 if x != y:
                     first[rid] = i
     return same_ctx / n_ctx, same / total, first
+
+
+def phase_legacy(torch, cfg, params, prompts, packed: dict) -> dict:
+    """The serve phase's 8 requests on the legacy step, with incremental
+    and with recompute prefill, each run counted from 0 and profiled
+    after: each must launch flash and decode attention 36 times per
+    dispatch and no packed-attention variant, and finish 32 tokens per
+    request; the tokens must agree with the packed serve's (``packed``)
+    and between the two modes.  Returns the incremental run's counts."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import Request
+    outs, counts = {}, {}
+    for mode, kw in LEGACY_MODES.items():
+        eng = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=1024,
+                                                    **kw))
+        zero_counts()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=32))
+        done = eng.run()
+        torch.cuda.synchronize()
+        c = counts[mode] = read_counts()
+        s = eng.stats
+        log(f"{mode}: {len(done)}/8 finished, {s.iterations} iterations, "
+            f"{s.total_tokens} tokens in {s.wall_time:.3f} s = "
+            f"{s.throughput:.1f} tok/s, {s.model_dispatches} dispatches "
+            f"({s.dispatches_per_iter:.3f}/iter), {s.host_syncs} syncs "
+            f"({s.syncs_per_iter:.3f}/iter), prefill work "
+            f"{s.prefill_model_tokens} tokens ({s.prefill_expansion:.3f}x)")
+        log(f"{mode}: wall split: host {s.host_time:.3f} s, step enqueue "
+            f"{s.dispatch_time:.3f} s, blocked on result copies "
+            f"{s.blocked_sync_time:.3f} s ({s.blocking_syncs} blocking "
+            f"syncs); launches {c}")
+        if len(done) != 8 or any(len(r.output) != 32 for r in done):
+            raise AssertionError(f"{mode}: not every request finished 32 "
+                                 "tokens")
+        if s.dispatches_per_iter <= 1.0 or s.syncs_per_iter <= 1.0:
+            raise AssertionError(f"{mode}: expected more than one dispatch "
+                                 "and sync per iteration")
+        for kname in LEGACY:
+            if c[kname] <= 0 or c[kname] % cfg.n_layers:
+                raise AssertionError(f"{mode}: {kname} launched {c[kname]} "
+                                     f"times, not {cfg.n_layers} per "
+                                     "dispatch")
+        if any(c[kname] for kname in ATTENTION) or c["swiglu"] <= 0:
+            raise AssertionError(f"{mode}: a packed-attention variant "
+                                 f"launched, or swiglu did not: {c}")
+        if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
+            raise AssertionError(f"{mode}: token id out of range")
+        outs[mode] = {r.rid: r.output for r in done}
+        phase_profile(torch, cfg, params, prompts, s.wall_time,
+                      tag=f"{mode} profile", **kw)
+        del eng
+        torch.cuda.empty_cache()
+    for a, b, bound in (("legacy", "packed", True),
+                        ("legacy", "recompute", True),
+                        ("recompute", "packed", False)):
+        same_ctx, raw, first = context_agreement(
+            outs[a], packed if b == "packed" else outs[b])
+        log(f"legacy: tokens {a} vs {b}: agreement {same_ctx:.4f} at the "
+            f"positions whose earlier tokens agree"
+            + (f" (tol >= {SERVE_AGREE_MIN})" if bound else " (no bound)")
+            + f"; {raw:.4f} at all positions; first differing position per "
+            f"request {first}")
+        if bound and same_ctx < SERVE_AGREE_MIN:
+            raise AssertionError(f"legacy: {a} and {b} tokens disagree")
+    return counts["legacy"]
 
 
 def phase_shared_prefix(torch, cfg, params) -> dict:
@@ -635,6 +880,11 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
+    phases = {}
+
+    def lap(phase: str) -> None:
+        phases[phase] = round(time.perf_counter() - t_start
+                              - sum(phases.values()), 1)
     name, bw, peak = card_info(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -646,23 +896,35 @@ def main() -> int:
     for line in libs.ptxas_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("---"):
             log("  " + line.strip())
+    lap("build")
 
     cfg = get_config("qwen3-8b")
     timer = Timer(torch)
     record = phase_kernels(torch, cfg, timer, bw, peak)
+    record.update(phase_legacy_kernels(torch, cfg, timer, bw, peak))
     del timer
+    lap("kernels")
     phase_forward(torch, cfg)
-    launches, params, prompts, serve_wall = phase_serve(torch, cfg)
+    lap("forward")
+    launches, params, prompts, serve_wall, packed = phase_serve(torch, cfg)
+    lap("serve")
     phase_profile(torch, cfg, params, prompts, serve_wall)
-    # the serve phase's counts stand for the kernels it drives; the
-    # shared-prefix runs give those of the other variants
+    lap("profile")
+    # the serve phase's counts stand for the kernels it drives; the legacy
+    # phase's incremental run gives flash and decode attention's, and the
+    # shared-prefix runs those of the other packed-attention variants
+    legacy = phase_legacy(torch, cfg, params, prompts, packed)
+    for kname in LEGACY:
+        launches[kname] = legacy[kname]
+    lap("legacy")
     for kname, n in phase_shared_prefix(torch, cfg, params).items():
         launches.setdefault(kname, n)
+    lap("shared-prefix")
 
-    sources = {kname: ("src/repro_torch/kernels/csrc/packed_attention.cu",
-                       replaces)
+    sources = {kname: (f"{_CSRC}/packed_attention.cu", replaces)
                for kname, (_, replaces) in ATTENTION.items()}
-    sources["swiglu"] = ("src/repro_torch/kernels/csrc/swiglu.cu",
+    sources.update(LEGACY)
+    sources["swiglu"] = (f"{_CSRC}/swiglu.cu",
                          "src/repro/kernels/swiglu.py:45")
     kernels = []
     for kname, (src, replaces) in sources.items():
@@ -673,7 +935,7 @@ def main() -> int:
                             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                             bound_by=rec["bound_by"],
                             library_ms=rec["library_ms"], shape=rec["shape"]))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s; by phase (s) {phases}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -26,7 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 # target -> (source, its compile-time switches).  The four packed-attention
-# variants are one source built with two switches (csrc/packed_attention.cu).
+# variants and decode attention are one source built with three switches
+# (csrc/packed_attention.cu).
 def _pa(quant: int, block_table: int) -> tuple[str, tuple[str, ...]]:
     return ("packed_attention", (f"-DREPRO_PA_QUANT={quant}",
                                  f"-DREPRO_PA_BLOCK_TABLE={block_table}"))
@@ -37,6 +38,8 @@ TARGETS = {
     "packed_attention_quant": _pa(1, 0),
     "packed_attention_block": _pa(0, 1),
     "packed_attention_block_quant": _pa(1, 1),
+    "decode_attention": ("packed_attention", ("-DREPRO_PA_DECODE=1",)),
+    "flash_attention": ("flash_attention", ()),
     "swiglu": ("swiglu", ()),
 }
 
@@ -47,6 +50,9 @@ SIGNATURES = {
     "packed_attention": ("repro_packed_attention",
                          [_void_p] * 9 + [_int] * 10 + [_ll] * 6
                          + [_float, _void_p]),
+    "flash_attention": ("repro_flash_attention",
+                        [_void_p] * 5 + [_int] * 8 + [_ll] * 4
+                        + [_float, _void_p]),
     "swiglu": ("repro_swiglu", [_void_p] * 4 + [_int] * 4 + [_void_p]),
 }
 

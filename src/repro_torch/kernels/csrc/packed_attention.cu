@@ -9,8 +9,8 @@
 // d ** -0.5), masked scores are NEG_INF = -1e30, and the softmax denominator
 // is clamped to 1e-30.
 //
-// One source, two compile-time switches (-D flags; kernels/build.py builds
-// each of the four variants into its own library, in parallel):
+// One source, three compile-time switches (-D flags; kernels/build.py
+// builds each of the five variants into its own library, in parallel):
 //   REPRO_PA_BLOCK_TABLE (`_kernel_block`): the caches are physical block
 //     storage, and logical row r of the token's slot lives at flat row
 //     bt[slot * nb_cols + r / bs] * bs + r % bs of the N·S row space
@@ -21,6 +21,13 @@
 //     leaves; each row dequantizes in registers as float(x) * scale, the
 //     TPU kernel's `k * ks` (DESIGN.md §15), before the same f32 math.
 // Both together are `_kernel_block_quant`.
+//   REPRO_PA_DECODE (replaces the TPU kernel
+//     src/repro/kernels/decode_attention.py `decode_attention`, the legacy
+//     step's batched decode): token b is the one query of slot b and its
+//     length is the slot's `cache_len[b]`, so no token_slot array is read.
+//     Built without the other two switches, into its own library, so decode
+//     can later get its own schedule (split-KV for few slots over long
+//     caches) without touching the packed step.
 //
 // What bounds it on the card: bytes.  A decode token reads its slot's K and V
 // rows once (2 * len * head_dim bytes per KV head in int8, twice that in
@@ -31,7 +38,8 @@
 //   * The cache is read in its stored (N, S, KV, D) layout through strides;
 //     no transposed copy of the cache or of the scales is made (the TPU
 //     wrapper's (N, KV, S, D) and (N, KV, S) transposes would cost one pass
-//     over the cache per layer per step).
+//     over the cache per layer per step, and the TPU decode wrapper also
+//     pads the cache to a whole number of blocks on every call).
 //   * One block per (token, KV head): the `group` query heads that share a KV
 //     head are all scored against each K row while it is in registers, so a
 //     row is read once per block, not once per query head.
@@ -58,6 +66,9 @@
 #ifndef REPRO_PA_BLOCK_TABLE
 #define REPRO_PA_BLOCK_TABLE 0
 #endif
+#ifndef REPRO_PA_DECODE
+#define REPRO_PA_DECODE 0
+#endif
 
 namespace {
 
@@ -65,6 +76,9 @@ constexpr float NEG_INF = -1e30f;
 constexpr int NUM_WARPS = 8;
 constexpr bool QUANT = REPRO_PA_QUANT != 0;
 constexpr bool BLOCK_TABLE = REPRO_PA_BLOCK_TABLE != 0;
+constexpr bool DECODE = REPRO_PA_DECODE != 0;
+static_assert(!DECODE || (!QUANT && !BLOCK_TABLE),
+              "the decode build reads native, contiguous slot caches");
 
 // Everything a launch needs besides its compile-time shape; strides are in
 // elements.  k_scale/v_scale share strides (s_sn, s_ss) and have unit stride
@@ -135,7 +149,7 @@ packed_attention_kernel(const Params p) {
   const T* __restrict__ q = static_cast<const T*>(p.q);
   T* __restrict__ out = static_cast<T*>(p.out);
 
-  const int slot = p.token_slot[t];
+  const int slot = DECODE ? t : p.token_slot[t];
   int len = min(p.lengths[t], p.sweep);
   if (slot < 0 || slot >= p.n_slots || len < 0) len = 0;
 
@@ -292,13 +306,15 @@ int launch(int group, int head_dim, int n_tokens, const Params& p,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out).  kv_int8 must equal this
-// build's REPRO_PA_QUANT, and block_tables must be non-null exactly when it
-// is built with REPRO_PA_BLOCK_TABLE.  q (T, H, D) and out (T, H, D) are
-// contiguous; k/v are (N, S, KV, D) with unit stride over (KV, D) and the
-// given element strides over N and S; scales are (N, S, KV) f32 with unit
-// stride over KV; block_tables is (N, nb_cols) int32, contiguous.  Returns -1
-// for a shape this build does not instantiate, -2 for a variant it was not
-// built as, else cudaGetLastError() after the launch.
+// build's REPRO_PA_QUANT, block_tables must be non-null exactly when it is
+// built with REPRO_PA_BLOCK_TABLE, and token_slot must be null exactly when
+// it is built with REPRO_PA_DECODE (token t is then slot t).  q (T, H, D)
+// and out (T, H, D) are contiguous; k/v are (N, S, KV, D) with unit stride
+// over (KV, D) and the given element strides over N and S; scales are
+// (N, S, KV) f32 with unit stride over KV; block_tables is (N, nb_cols)
+// int32, contiguous.  Returns -1 for a shape this build does not
+// instantiate, -2 for a variant it was not built as, else
+// cudaGetLastError() after the launch.
 extern "C" int repro_packed_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* token_slot, const void* lengths,
@@ -307,7 +323,8 @@ extern "C" int repro_packed_attention(
     int block_size, long long k_stride_n, long long k_stride_s,
     long long v_stride_n, long long v_stride_s, long long s_stride_n,
     long long s_stride_s, float scale, void* stream) {
-  if ((kv_int8 != 0) != QUANT || (block_tables != nullptr) != BLOCK_TABLE)
+  if ((kv_int8 != 0) != QUANT || (block_tables != nullptr) != BLOCK_TABLE ||
+      (token_slot == nullptr) != DECODE)
     return -2;
   if (n_tokens == 0) return 0;
   Params p;

@@ -12,6 +12,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  decode_attention_ref)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_ref)
 from repro_torch.kernels.packed_attention import (packed_attention_cuda,
                                                   packed_attention_ref)
 from repro_torch.kernels.swiglu import swiglu_cuda, swiglu_ref
@@ -49,3 +53,21 @@ def swiglu(x, w_gate, w_up, *, impl: Optional[str] = None) -> torch.Tensor:
     """``silu(x @ w_gate) * (x @ w_up)``; x (M, K), weights (K, N)."""
     fn = swiglu_cuda if _use_kernel(x, impl) else swiglu_ref
     return fn(x, w_gate, w_up)
+
+
+def flash_attention(q, k, v, *, q_offset=0,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """Causal GQA attention: query i of batch row b sees keys
+    [0, q_offset[b] + i]; q (B, Sq, H, D), k/v (B, Skv, KV, D);
+    ``q_offset`` an int or a (B,) int32 tensor."""
+    fn = flash_attention_cuda if _use_kernel(q, impl) else flash_attention_ref
+    return fn(q, k, v, q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     impl: Optional[str] = None) -> torch.Tensor:
+    """One query per row over its length-masked cache row: q (B, H, D),
+    caches (B, S, KV, D), rows [0, cache_len[b]) attended."""
+    fn = decode_attention_cuda if _use_kernel(q, impl) \
+        else decode_attention_ref
+    return fn(q, k_cache, v_cache, cache_len)

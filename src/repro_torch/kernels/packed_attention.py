@@ -147,13 +147,35 @@ def packed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     block-table mode each leaf's flat row space must be uniform.  Raises on
     any input the kernel does not take and on a failed launch; counts the
     launches of each variant in ``packed_attention_cuda.launches``."""
+    _check(token_slot is not None, "token_slot is required")
+    variant = VARIANTS[(block_tables is not None, k_scale is not None)]
+    out = launch(variant, q, k_cache, v_cache, token_slot, lengths,
+                 kv_bucket=kv_bucket, block_tables=block_tables,
+                 k_scale=k_scale, v_scale=v_scale)
+    packed_attention_cuda.launches[variant] += 1
+    return out
+
+
+def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
+           v_cache: torch.Tensor, token_slot: Optional[torch.Tensor],
+           lengths: torch.Tensor, *, kv_bucket: Optional[int] = None,
+           block_tables: Optional[torch.Tensor] = None,
+           k_scale: Optional[torch.Tensor] = None,
+           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Check the operands and launch build ``target`` of
+    ``csrc/packed_attention.cu``: one of the four packed variants, or
+    ``decode_attention`` (``token_slot=None``: token t is slot t)."""
     dev = q.device
     _check(dev.type == "cuda", "q is not a CUDA tensor")
     quant = k_scale is not None
     _check((v_scale is not None) == quant, "k_scale and v_scale go together")
     blocked = block_tables is not None
-    named = [("k_cache", k_cache), ("v_cache", v_cache),
-             ("token_slot", token_slot), ("lengths", lengths)]
+    decode = token_slot is None
+    _check(not (decode and (quant or blocked)),
+           "the decode build reads native, contiguous caches")
+    per_token = [("lengths", lengths)] + ([] if decode else
+                                          [("token_slot", token_slot)])
+    named = [("k_cache", k_cache), ("v_cache", v_cache)] + per_token
     scales = [("k_scale", k_scale), ("v_scale", v_scale)] if quant else []
     if blocked:
         named.append(("block_tables", block_tables))
@@ -175,7 +197,8 @@ def packed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
            f"group {h}/{kvh} not in {GROUPS}")
     _check(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
     _check(t < 65536, "at most 65535 tokens per launch")
-    for name, x in (("token_slot", token_slot), ("lengths", lengths)):
+    _check(not decode or t == n, f"decode: {t} queries for {n} slots")
+    for name, x in per_token:
         _check(x.dtype == torch.int32 and tuple(x.shape) == (t,)
                and x.is_contiguous(), f"{name} must be contiguous int32 (T,)")
     _check(q.is_contiguous(), "q must be contiguous")
@@ -211,24 +234,22 @@ def packed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             _check(x.stride(0) == s * x.stride(1),
                    f"{name}: block-table mode needs a uniform flat row space "
                    "(stride(0) == S * stride(1))")
-    variant = VARIANTS[(blocked, quant)]
     out = torch.empty((t, h, d), dtype=q.dtype, device=dev)
-    fn = build.build().fn(variant)
+    fn = build.build().fn(target)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                ptr(k_scale), ptr(v_scale), token_slot.data_ptr(),
+                ptr(k_scale), ptr(v_scale), ptr(token_slot),
                 lengths.data_ptr(), ptr(block_tables), out.data_ptr(),
                 _DTYPES[q.dtype], int(quant), t, h, kvh, d, n, sweep,
                 nb_cols, bs, k_cache.stride(0), k_cache.stride(1),
                 v_cache.stride(0), v_cache.stride(1), *s_strides,
                 float(d ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{variant} kernel launch failed: {rc}")
-    packed_attention_cuda.launches[variant] += 1
+        raise RuntimeError(f"{target} kernel launch failed: {rc}")
     return out
 
 

@@ -1,9 +1,11 @@
-"""GQA attention with qk-norm on the token-packed stream (port of the
-``gqa_packed`` path of ``repro.models.attention``, tp=1).
+"""GQA attention with qk-norm (port of ``repro.models.attention`` for GQA
+at tp=1): the token-packed stream (``gqa_packed``), and the legacy step's
+paths — the whole-chunk prefill (``gqa_full``), the batched decode
+(``gqa_decode``) and the incremental chunk (``gqa_prefill_chunk``).
 
 The slot caches keep the JAX layout, ``(N_slots, S, KV, hd)`` per layer
 (plus ``(N_slots, S, KV)`` f32 scale leaves ``k_s``/``v_s`` for int8 KV),
-and are updated in place (the JAX function returns new arrays).
+and are updated in place (the JAX functions return new arrays).
 """
 from __future__ import annotations
 
@@ -88,6 +90,87 @@ def _flat_scatter(cache: torch.Tensor, new: torch.Tensor,
     _row_store(cache).index_copy_(0, dst, new.to(cache.dtype))
 
 
+def _out_project(cfg: ModelConfig, p: dict,
+                 out: torch.Tensor) -> torch.Tensor:
+    """einsum("...hk,hkd->...d") as one GEMM over the flattened heads."""
+    lead = out.shape[:-2]
+    return torch.matmul(out.reshape(*lead, -1),
+                        p["wo"].reshape(-1, cfg.d_model))
+
+
+def _write_seq_at(cache: torch.Tensor, new: torch.Tensor,
+                  idx: torch.Tensor) -> None:
+    """cache (B, S, ...); new (B, s, ...); idx (B,): write row b's s new
+    rows at its own offset, in place.  As ``jax.lax.dynamic_update_slice``
+    does, the start is clamped to [0, S - s] so that the write fits (a
+    chunk whose offset + s passes S lands on the last s rows); the clamp
+    and the row indices are computed on the device, with no host sync."""
+    b, s_max = cache.shape[:2]
+    n = new.shape[1]
+    start = idx.long().clamp(0, s_max - n)
+    rows = (torch.arange(b, device=idx.device) * s_max + start)[:, None] \
+        + torch.arange(n, device=idx.device)
+    flat = cache.view((b * s_max,) + tuple(cache.shape[2:]))
+    flat.index_copy_(0, rows.reshape(-1),
+                     new.reshape((b * n,) + tuple(new.shape[2:]))
+                     .to(cache.dtype))
+
+
+def _write_at(cache: torch.Tensor, new: torch.Tensor,
+              idx: torch.Tensor) -> None:
+    """cache (B, S, ...); new (B, ...); idx (B,): the one-row case of
+    ``_write_seq_at`` (a decode at ``idx == S`` overwrites row S - 1)."""
+    _write_seq_at(cache, new[:, None], idx)
+
+
+def gqa_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
+             positions: torch.Tensor, *, q_offset=0,
+             kv_prefix: Optional[tuple] = None, return_kv: bool = False,
+             impl: Optional[str] = None):
+    """Whole-chunk causal attention (prefill, and the recompute path):
+    x (B, S, D); query i sees keys [0, q_offset + i] of its own chunk.
+    ``return_kv`` also returns this chunk's post-RoPE (k, v), each
+    (B, S, KV, hd).  The engine never passes ``kv_prefix``; it raises."""
+    if kv_prefix is not None:
+        raise NotImplementedError("gqa_full: kv_prefix is not used by the "
+                                  "engine and is not ported")
+    q, k, v = _qkv(cfg, p, x, positions)
+    out = ops.flash_attention(q, k, v, q_offset=q_offset, impl=impl)
+    y = _out_project(cfg, p, out)
+    return (y, (k, v)) if return_kv else y
+
+
+def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+               positions: torch.Tensor, cache: dict, cache_len: torch.Tensor,
+               impl: Optional[str] = None):
+    """Single-token decode.  x: (B, 1, D); cache{k,v}: (B, S, KV, hd);
+    cache_len: (B,) int32 valid rows *before* this token.  Writes the new
+    token's K/V at cache_len (in place), then attends rows
+    [0, cache_len + 1).  Returns (y (B, 1, D), cache)."""
+    q, k_new, v_new = _qkv(cfg, p, x, positions)
+    _write_at(cache["k"], k_new[:, 0], cache_len)
+    _write_at(cache["v"], v_new[:, 0], cache_len)
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
+                               cache_len + 1, impl=impl)
+    return _out_project(cfg, p, out)[:, None], cache
+
+
+def gqa_prefill_chunk(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      positions: torch.Tensor, cache: dict,
+                      cache_len: torch.Tensor, impl: Optional[str] = None):
+    """Incremental chunked prefill (DESIGN.md §7).  x: (B, L, D);
+    cache_len: (B,) int32 prefix rows already in the cache.  Writes the
+    chunk's K/V at cache_len (in place), then its queries attend the cache
+    causally with ``q_offset = cache_len`` (a device tensor), so rows past
+    cache_len + L are never read.  Returns (y (B, L, D), cache)."""
+    q, k_new, v_new = _qkv(cfg, p, x, positions)
+    _write_seq_at(cache["k"], k_new, cache_len)
+    _write_seq_at(cache["v"], v_new, cache_len)
+    out = ops.flash_attention(q, cache["k"], cache["v"], q_offset=cache_len,
+                              impl=impl)
+    return _out_project(cfg, p, out), cache
+
+
 def gqa_packed(cfg: ModelConfig, p: dict, x: torch.Tensor,
                positions: torch.Tensor, cache: dict, token_slot: torch.Tensor,
                token_wpos: torch.Tensor, kv_bucket: Optional[int] = None,
@@ -120,9 +203,7 @@ def gqa_packed(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                block_tables=block_tables,
                                k_scale=cache.get("k_s"),
                                v_scale=cache.get("v_s"), impl=impl)
-    t = out.shape[0]
-    y = torch.matmul(out.reshape(t, -1), p["wo"].reshape(-1, cfg.d_model))
-    return y[None], cache
+    return _out_project(cfg, p, out)[None], cache
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int,

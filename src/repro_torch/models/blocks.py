@@ -1,5 +1,8 @@
 """Per-layer block: GQA attention + dense FFN, pre-norm residual (port of
-``repro.models.blocks`` for ``LayerSpec(ATTN, FFN_DENSE)``)."""
+``repro.models.blocks`` for ``LayerSpec(ATTN, FFN_DENSE)``): the packed
+step (``block_packed``) and the legacy step's whole-chunk, decode and
+incremental-chunk paths (``block_full``, ``block_decode``,
+``block_chunk``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -29,6 +32,49 @@ def block_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
             "ffn": moe_mod.ffn_defs(d, cfg.d_ff, dt)}
 
 
+def _ffn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
+               impl: Optional[str]) -> torch.Tensor:
+    h = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return x + moe_mod.dense_ffn(p["ffn"], h, impl=impl)
+
+
+def block_full(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
+               positions: torch.Tensor, *, q_offset=0,
+               return_state: bool = False, impl: Optional[str] = None):
+    """Whole-chunk prefill for one layer.  Returns (x, state): ``state`` is
+    ``{"kv": (k, v)}`` with the chunk's K/V when ``return_state``, else
+    None."""
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    r = attn.gqa_full(cfg, p["mixer"], h, positions, q_offset=q_offset,
+                      return_kv=return_state, impl=impl)
+    y, kv = r if return_state else (r, None)
+    x = _ffn_apply(cfg, p, x + y, impl)
+    return x, ({"kv": kv} if return_state else None)
+
+
+def block_decode(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor, cache: dict,
+                 cache_len: torch.Tensor, impl: Optional[str] = None):
+    """Single-token decode for one layer.  Returns (x, cache), the cache
+    updated in place."""
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    y, cache = attn.gqa_decode(cfg, p["mixer"], h, positions, cache,
+                               cache_len, impl=impl)
+    return _ffn_apply(cfg, p, x + y, impl), cache
+
+
+def block_chunk(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
+                positions: torch.Tensor, cache: dict,
+                cache_len: torch.Tensor, impl: Optional[str] = None):
+    """Incremental chunked prefill for one layer (DESIGN.md §7): the chunk's
+    K/V are written at ``cache_len`` and it attends the prefix.  Returns
+    (x, cache), the cache updated in place."""
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    y, cache = attn.gqa_prefill_chunk(cfg, p["mixer"], h, positions, cache,
+                                      cache_len, impl=impl)
+    return _ffn_apply(cfg, p, x + y, impl), cache
+
+
 def block_packed(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cache: dict,
                  token_slot: torch.Tensor, token_wpos: torch.Tensor,
@@ -44,9 +90,7 @@ def block_packed(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                                token_slot, token_wpos, kv_bucket=kv_bucket,
                                token_dst=token_dst, block_tables=block_tables,
                                impl=impl)
-    x = x + y
-    h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + moe_mod.dense_ffn(p["ffn"], h, impl=impl), cache
+    return _ffn_apply(cfg, p, x + y, impl), cache
 
 
 def block_init_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,

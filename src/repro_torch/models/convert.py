@@ -33,8 +33,9 @@ def _map(tree, fn):
 
 
 def from_jax_params(cfg: ModelConfig, tree: dict,
-                    device: Optional[str | torch.device] = "cpu") -> dict:
-    """``tree``: ``repro.models.model.init`` output with numpy leaves."""
+                    device: Optional[str | torch.device] = None) -> dict:
+    """``tree``: ``repro.models.model.init`` output with numpy leaves.  The
+    tensors land on ``cuda`` unless ``device`` names another."""
     check_config(cfg)
     dev = resolve_device(device)
     layers = []

@@ -1,6 +1,7 @@
-"""Unified LM on the token-packed serving path: embedding -> decoder layers
--> head (port of ``repro.models.model``'s ``init``, ``init_cache`` and
-``forward_packed``).
+"""Unified LM: embedding -> decoder layers -> head (port of
+``repro.models.model``'s ``init``, ``init_cache``, the packed step's
+``forward_packed`` and the legacy step's ``forward_full``,
+``forward_decode``, ``forward_chunk`` and ``prefill``).
 
 Parameters are plain dicts of tensors in the JAX layouts, with the
 per-layer leaves unstacked into ``params["layers"]`` (a Python loop over
@@ -101,3 +102,84 @@ def forward_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                                    token_dst=token_dst,
                                    block_tables=block_tables, impl=impl)
     return _head(cfg, params, x), cache
+
+
+def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+                 positions: Optional[torch.Tensor] = None, q_offset=0,
+                 return_states: bool = False, impl: Optional[str] = None):
+    """Whole-chunk causal forward (prefill; the recompute path).  tokens:
+    (B, S); ``q_offset`` (an int or a (B,) int32 tensor) is the position of
+    the first token, and sets the positions unless they are given.
+
+    Returns (logits (B, S, vocab), aux) or, with ``return_states``,
+    (logits, aux, states): ``states[i]`` is layer i's ``{"kv": (k, v)}``,
+    each (B, S, KV, hd), for handing off to a decode cache.  ``aux`` (the
+    MoE balance loss in the JAX package) is 0 for these dense models."""
+    x = _embed(params, tokens)
+    b, s = tokens.shape
+    if positions is None:
+        if isinstance(q_offset, torch.Tensor):
+            positions = q_offset.reshape(-1, 1).to(torch.int32) + \
+                torch.arange(s, dtype=torch.int32, device=x.device)
+        else:
+            positions = torch.arange(q_offset, q_offset + s,
+                                     dtype=torch.int32, device=x.device)
+        positions = positions.expand(b, s)
+    states = []
+    for spec, p in zip(cfg.layer_specs(), params["layers"]):
+        x, st = blocks.block_full(cfg, spec, p, x, positions,
+                                  q_offset=q_offset,
+                                  return_state=return_states, impl=impl)
+        states.append(st)
+    logits = _head(cfg, params, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return (logits, aux, states) if return_states else (logits, aux)
+
+
+def forward_decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                   cache: list, cache_len: torch.Tensor,
+                   impl: Optional[str] = None):
+    """tokens: (B, 1); cache_len: (B,) int32 valid rows before this token.
+    Writes each row's K/V at its ``cache_len`` and attends [0, cache_len].
+    Returns (logits (B, vocab), cache), the cache updated in place."""
+    x = _embed(params, tokens)
+    positions = cache_len[:, None]
+    for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache):
+        x, _ = blocks.block_decode(cfg, spec, p, x, positions, c, cache_len,
+                                   impl=impl)
+    return _head(cfg, params, x)[:, 0], cache
+
+
+def forward_chunk(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                  cache: list, cache_len: torch.Tensor,
+                  impl: Optional[str] = None):
+    """Incremental chunked prefill (DESIGN.md §7): ``tokens`` (B, L) are
+    the next L positions after the ``cache_len`` (B,) int32 rows already in
+    ``cache``; each prompt token passes through the model once across
+    chunks.  Returns (logits (B, L, vocab), cache), the cache updated in
+    place."""
+    x = _embed(params, tokens)
+    positions = cache_len[:, None] + torch.arange(
+        tokens.shape[1], dtype=torch.int32, device=x.device)
+    for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache):
+        x, _ = blocks.block_chunk(cfg, spec, p, x, positions, c, cache_len,
+                                  impl=impl)
+    return _head(cfg, params, x), cache
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            max_len: Optional[int] = None, impl: Optional[str] = None):
+    """Run ``forward_full`` over the prompts, then place each layer's K/V
+    at rows [0, S) of a fresh cache of ``max_len`` rows (default S), made
+    by ``init_cache`` on the tokens' device.  Returns (last logits (B,
+    vocab), cache, cache_len (B,) int32)."""
+    logits, _aux, states = forward_full(cfg, params, tokens,
+                                        return_states=True, impl=impl)
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len or s, device=tokens.device)
+    for c, st in zip(cache, states):
+        k, v = st["kv"]
+        c["k"][:, :s] = k
+        c["v"][:, :s] = v
+    cache_len = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    return logits[:, -1], cache, cache_len

@@ -1,9 +1,12 @@
 """Engine configuration: the port's ``EngineConfig``, with the same fields
 as ``repro.serving.config.EngineConfig``.
 
-The port runs the packed greedy serving step at tp=1 and
-``async_depth=0``, with native or int8 KV (``kv_dtype``) and with or
-without prefix caching.  Every value it does not implement yet raises
+The port runs greedy serving at tp=1 and ``async_depth=0`` on two steps:
+the packed step, with native or int8 KV (``kv_dtype``) and with or without
+prefix caching, and the legacy step (``step_mode="legacy"``), with
+incremental or recompute prefill (``prefill_mode``; recompute implies the
+legacy step, as in JAX).  The combinations the JAX config refuses raise
+``ValueError``; every value the port does not implement yet raises
 ``NotImplementedError`` naming the ROADMAP item that brings it, so a
 configuration never silently runs something other than what it says.
 ``async_depth=None`` resolves to 0 here (the JAX engine's packed default is
@@ -52,12 +55,24 @@ class EngineConfig:
     seed: int = 0
 
     def __post_init__(self):
-        if self.prefill_mode == "recompute" or self.step_mode == "legacy":
-            raise NotImplementedError(
-                "the legacy step and recompute prefill are ROADMAP A10")
-        if self.prefill_mode != "incremental" or \
-                self.step_mode not in (None, "packed"):
+        if self.prefill_mode not in ("incremental", "recompute") or \
+                self.step_mode not in (None, "packed", "legacy"):
             raise ValueError((self.prefill_mode, self.step_mode))
+        if self.resolved_step_mode == "packed":
+            if self.prefill_mode == "recompute":
+                raise ValueError("the packed step runs incremental prefill "
+                                 "only")
+        else:
+            # what the JAX config refuses on the legacy step
+            for refused, what in (
+                    (self.tp != 1, "tensor parallelism"),
+                    (self.async_depth is not None and self.async_depth >= 1,
+                     "the async pipeline"),
+                    (self.prefix_caching, "prefix caching"),
+                    (self.kv_dtype == "int8", "int8 KV"),
+                    (self.spec_k > 0, "speculative decoding")):
+                if refused:
+                    raise ValueError(f"{what} requires the packed step")
         if self.tp != 1:
             raise NotImplementedError("tensor parallelism is ROADMAP A11")
         if self.kv_dtype not in ("bf16", "int8"):
@@ -71,7 +86,7 @@ class EngineConfig:
         if self.attn_fast or self.attn_stream:
             raise ValueError("attn_fast/attn_stream select variants of the "
                              "JAX XLA attention; the port always runs its "
-                             "packed-attention kernel")
+                             "attention kernels")
         if self.max_slots < 1 or self.max_len < 1 or self.kv_block_size < 1:
             raise ValueError((self.max_slots, self.max_len,
                               self.kv_block_size))
@@ -82,7 +97,11 @@ class EngineConfig:
 
     @property
     def resolved_step_mode(self) -> str:
-        return "packed"
+        """``step_mode`` if given, else the JAX rule: recompute prefill has
+        no packed equivalent, so it implies the legacy step."""
+        if self.step_mode is not None:
+            return self.step_mode
+        return "packed" if self.prefill_mode == "incremental" else "legacy"
 
     @property
     def resolved_async_depth(self) -> int:

@@ -1,25 +1,38 @@
-"""Serving engine on the token-packed single-dispatch step (port of
-``repro.serving.engine.ServeEngine`` for the packed greedy path at tp=1 and
-``async_depth=0``, in all four KV modes: contiguous or block-table caches
-with prefix caching (DESIGN.md §12), each with native or int8 KV (§15)).
+"""Serving engine (port of ``repro.serving.engine.ServeEngine`` for greedy
+serving at tp=1 and ``async_depth=0``): the token-packed single-dispatch
+step in all four KV modes — contiguous or block-table caches with prefix
+caching (DESIGN.md §12), each with native or int8 KV (§15) — and the legacy
+step kept for A/B (``step_mode="legacy"``, with incremental or recompute
+prefill).
 
-One iteration = one call of the packed step: the decode tokens (one per
-decoding slot) and every scheduled prefill chunk are packed into a single
-``(1, T)`` stream with per-token ``(slot, position)`` metadata, run through
-``model.forward_packed`` (K/V scattered at each segment's offset, attention
-masked to each token's own slot), sampled greedily on the device, and the
-samples scattered into a device-resident per-slot ``last_token`` buffer
-from which the next iteration's decode inputs are gathered on the device.
-The host metadata (with, under prefix caching, each token's physical
-cache row, the per-slot block tables and the rows of the iteration's
-copy-on-write block copies) goes up in one host-to-device copy, and the only
-device-to-host transfer is the ``last_token`` payload, once per iteration
-(``EngineStats.model_dispatches`` / ``host_syncs``).  ``T`` is bucketed to
-the scheduler's discrete sizes and attention sweeps only the iteration's
-KV-length bucket (DESIGN.md §9).
+**Legacy step.**  One iteration = a decode dispatch over all slots at
+static shape (``model.forward_decode``; an inactive slot writes a garbage
+row at its ``cache_len``, which the next chunk overwrites before attending,
+exactly as in JAX), then one dispatch per prefill chunk, each followed by
+a device-to-host copy of its sampled token.  Incremental prefill
+(``model.forward_chunk``) runs the chunk against the slot's ``(1, S, KV,
+hd)`` view of the cache in place (JAX gathers the slot's sub-cache and
+scatters it back) after zeroing the slot's rows on (re)assignment;
+recompute prefill (``model.forward_full``) reruns the whole prefix and
+writes its K/V into the slot's first rows.
 
-The step runs eagerly; capturing it in a CUDA graph per (T bucket, kv
-bucket) is ROADMAP A3's remaining work, and the async pipeline
+**Packed step.**  One iteration = one call of the packed step: the decode
+tokens (one per decoding slot) and every scheduled prefill chunk are packed
+into a single ``(1, T)`` stream with per-token ``(slot, position)``
+metadata, run through ``model.forward_packed`` (K/V scattered at each
+segment's offset, attention masked to each token's own slot), sampled
+greedily on the device, and the samples scattered into a device-resident
+per-slot ``last_token`` buffer from which the next iteration's decode
+inputs are gathered on the device.  The host metadata (with, under prefix
+caching, each token's physical cache row, the per-slot block tables and the
+rows of the iteration's copy-on-write block copies) goes up in one
+host-to-device copy, and the only device-to-host transfer is the
+``last_token`` payload, once per iteration (``EngineStats.model_dispatches``
+/ ``host_syncs``).  ``T`` is bucketed to the scheduler's discrete sizes and
+attention sweeps only the iteration's KV-length bucket (DESIGN.md §9).
+
+Both steps run eagerly; capturing the packed step in a CUDA graph per (T
+bucket, kv bucket) is ROADMAP A3's remaining work, and the async pipeline
 (``async_depth >= 1``) is A4.
 """
 from __future__ import annotations
@@ -68,8 +81,9 @@ class EngineStats:
     dispatch_time: float = 0.0
     blocked_sync_time: float = 0.0
     blocking_syncs: int = 0          # payload copies that had to wait
-    model_dispatches: int = 0        # packed-step calls
-    host_syncs: int = 0              # device->host payload copies
+    model_dispatches: int = 0        # step calls (legacy: decode, slot
+    #                                  resets and one per prefill chunk)
+    host_syncs: int = 0              # device->host copies of results
     packed_pad_tokens: int = 0       # bucketing padding launched
     dense_batch_hist: dict[int, int] = dataclasses.field(default_factory=dict)
     kv_bucket_hist: dict[int, int] = dataclasses.field(default_factory=dict)
@@ -139,6 +153,8 @@ class ServeEngine:
         self.params = params
         self.max_slots = config.max_slots
         self.max_len = config.max_len
+        self.prefill_mode = config.prefill_mode
+        self.step_mode = config.resolved_step_mode
         self.nano = config.nano
         self.kv_buckets = config.resolved_kv_buckets()
 
@@ -212,17 +228,27 @@ class ServeEngine:
         return done
 
     def step(self, plan: BatchPlan) -> list[Request]:
-        """Launch one packed iteration and retire it (``async_depth=0``)."""
+        """Run one iteration: launch the packed step and retire it
+        (``async_depth=0``), or run the legacy step and commit it."""
         self.stats.iterations += 1
         self.stats.dense_batch_hist[plan.dense_batch] = \
             self.stats.dense_batch_hist.get(plan.dense_batch, 0) + 1
-        return self._retire_oldest(self._launch_packed(plan))
+        if self.step_mode == "packed":
+            return self._retire_oldest(self._launch_packed(plan))
+        self.scheduler.mark_launched(plan)
+        sampled = self._step_legacy(plan)
+        now = time.perf_counter()
+        finished = self.scheduler.commit(plan, sampled, now)
+        for r in finished:
+            self._finalize(r)
+        self.stats.host_time += time.perf_counter() - now
+        return finished
 
     # ---- packed iteration: one dispatch, one host sync -----------------------
     def _retire_oldest(self, inf: _InFlight) -> list[Request]:
         """Copy the iteration's payload to the host, commit its samples to
         the scheduler and finalize what finished."""
-        payload = self._fetch(inf)
+        payload = self._fetch(inf.payload, inf.done)
         t1 = time.perf_counter()
         sampled = {rid: int(payload[s]) for rid, s in inf.sample_at}
         finished = self.scheduler.commit(inf.plan, sampled, time.perf_counter())
@@ -231,10 +257,14 @@ class ServeEngine:
         self.stats.host_time += time.perf_counter() - t1
         return finished
 
-    def _fetch(self, inf: _InFlight) -> np.ndarray:
+    def _fetch(self, payload: torch.Tensor,
+               done: Optional[torch.cuda.Event]) -> np.ndarray:
+        """Device-to-host copy of a step's result, counting the sync, the
+        time spent waiting and whether it had to wait (``done`` not yet
+        reached)."""
         t0 = time.perf_counter()
-        ready = inf.done is None or inf.done.query()
-        out = inf.payload.cpu().numpy()
+        ready = done is None or done.query()
+        out = payload.cpu().numpy()
         self.stats.blocked_sync_time += time.perf_counter() - t0
         self.stats.host_syncs += 1
         if not ready:
@@ -358,10 +388,7 @@ class ServeEngine:
         self.stats.host_time += t_disp - t_host
         payload = self._packed_core(host_block, t_total, kv_bucket,
                                     n_copy_rows)
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
+        done = self._launched()
         self.stats.dispatch_time += time.perf_counter() - t_disp
         self.stats.model_dispatches += 1
         return _InFlight(plan=plan, sample_at=sample_at, payload=payload,
@@ -406,6 +433,118 @@ class ServeEngine:
         self.last_token = sampling.scatter_last(self.last_token, sample_slot,
                                                 next_tok)
         return self.last_token
+
+    def _launched(self) -> Optional[torch.cuda.Event]:
+        """An event after the work enqueued so far (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        done = torch.cuda.Event()
+        done.record()
+        return done
+
+    # ---- legacy iteration: decode dispatch + one dispatch per chunk ----------
+    def _step_legacy(self, plan: BatchPlan) -> dict[int, int]:
+        sampled: dict[int, int] = {}
+
+        # batched decode over all slots (static shape)
+        decode_reqs = [r for r in plan.decode if r.slot >= 0]
+        if decode_reqs:
+            host = np.zeros((2, self.max_slots), np.int32)
+            tokens, active = host
+            for r in decode_reqs:
+                tokens[r.slot] = r.output[-1] if r.output else r.prompt[-1]
+                active[r.slot] = 1
+            block = torch.from_numpy(host).to(self.device)
+            t_disp = time.perf_counter()
+            logits, self.cache = model_lib.forward_decode(
+                self.cfg, self.params, block[0][:, None], self.cache,
+                self.cache_len)
+            next_tok = sampling.greedy(logits)
+            done = self._launched()
+            self.stats.dispatch_time += time.perf_counter() - t_disp
+            self.stats.model_dispatches += 1
+            self.cache_len = self.cache_len + block[1]
+            nt = self._fetch(next_tok, done)
+            for r in decode_reqs:
+                sampled[r.rid] = int(nt[r.slot])
+                self._pos[r.slot] += 1
+            self.stats.decode_tokens += len(decode_reqs)
+
+        # chunked prefill
+        for chunk in plan.prefill:
+            r = chunk.req
+            if r.slot < 0:
+                if not self.slot_free:
+                    raise RuntimeError("scheduler admitted beyond slot capacity")
+                r.slot = self.slot_free.pop()
+                self._pos[r.slot] = 0
+                if self.prefill_mode == "incremental":
+                    self._reset_slot(r.slot)
+                    self.stats.model_dispatches += 1
+            if self.prefill_mode == "incremental":
+                last_tok = self._prefill_chunk(r, chunk.offset, chunk.length)
+                self.stats.prefill_model_tokens += chunk.length
+            else:
+                last_tok = self._prefill_to(r, chunk.offset + chunk.length)
+                self.stats.prefill_model_tokens += chunk.offset + chunk.length
+            self.stats.prefill_tokens += chunk.length
+            self._pos[r.slot] = chunk.offset + chunk.length
+            if chunk.offset + chunk.length == r.prompt_len:
+                sampled[r.rid] = last_tok
+        return sampled
+
+    def _prefill_chunk(self, r: Request, offset: int, length: int) -> int:
+        """Incremental path: run exactly ``length`` new prompt tokens
+        against the slot's carried cache, through the slot's ``(1, S, ...)``
+        view of every leaf (written in place).  The tokens and the offset go
+        up in one host-to-device copy."""
+        host = np.asarray(r.prompt[offset:offset + length] + [offset],
+                          np.int32)
+        block = torch.from_numpy(host).to(self.device)
+        t_disp = time.perf_counter()
+        sub = [{name: leaf[r.slot:r.slot + 1] for name, leaf in layer.items()}
+               for layer in self.cache]
+        logits, _ = model_lib.forward_chunk(self.cfg, self.params,
+                                            block[None, :length], sub,
+                                            block[length:])
+        next_tok = sampling.greedy(logits[:, -1])
+        done = self._launched()
+        self.stats.dispatch_time += time.perf_counter() - t_disp
+        self.stats.model_dispatches += 1
+        self.cache_len[r.slot] = offset + length
+        return int(self._fetch(next_tok, done)[0])
+
+    def _prefill_to(self, r: Request, upto: int) -> int:
+        """Recompute path (``prefill_mode="recompute"``, kept for A/B):
+        rerun ``forward_full`` over the whole prefix [0, upto) and write its
+        K/V into the slot's first ``upto`` rows."""
+        toks = torch.from_numpy(np.asarray(r.prompt[:upto], np.int32)) \
+            .to(self.device)[None]
+        t_disp = time.perf_counter()
+        logits, _aux, states = model_lib.forward_full(
+            self.cfg, self.params, toks, return_states=True)
+        next_tok = sampling.greedy(logits[:, -1])
+        done = self._launched()
+        self.stats.dispatch_time += time.perf_counter() - t_disp
+        self.stats.model_dispatches += 1
+        self._scatter_states(r.slot, states)
+        self.cache_len[r.slot] = upto
+        return int(self._fetch(next_tok, done)[0])
+
+    def _scatter_states(self, slot: int, states: list) -> None:
+        """Write each layer's prefix K/V into rows [0, s) of ``slot`` (the
+        port of the JAX ``_scatter_states`` / ``_write_slot_seq``)."""
+        for layer, st in zip(self.cache, states):
+            k, v = st["kv"]
+            layer["k"][slot, :k.shape[1]] = k[0]
+            layer["v"][slot, :v.shape[1]] = v[0]
+
+    def _reset_slot(self, slot: int) -> None:
+        """Zero the slot's rows of every leaf in place (the JAX
+        ``_reset_slot`` scatters a fresh one-slot cache)."""
+        for layer in self.cache:
+            for leaf in layer.values():
+                leaf[slot].zero_()
 
     def _copy_rows(self, src: torch.Tensor, dst: torch.Tensor) -> None:
         """Copy-on-write block copies (port of the JAX ``_cow_impl``): flat

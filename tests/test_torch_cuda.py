@@ -15,6 +15,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  decode_attention_ref)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_ref)
 from repro_torch.kernels.packed_attention import (packed_attention_cuda,
                                                   packed_attention_ref)
 from repro_torch.kernels.swiglu import swiglu_cuda, swiglu_ref
@@ -128,6 +132,80 @@ def test_packed_attention_wrapper_raises_instead_of_falling_back(cuda):
     assert packed_attention_cuda.launches == before
 
 
+def _normal(rng, cuda, dtype, *shape):
+    return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                        device=cuda).to(TORCH[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+def test_flash_attention_kernel(cuda, group, d, dtype):
+    """Per-row offsets 0, 100 and 250 for a 37-query chunk over the
+    280-row slot views of a 4-slot cache (strided rows; the last chunk
+    runs past the view), then the recompute shape (int offset 0, Sq ==
+    Skv = 77), against the plain version."""
+    rng = np.random.default_rng(group + d)
+    kv = 2
+    cache_k = _normal(rng, cuda, dtype, 4, 300, kv, d)
+    cache_v = _normal(rng, cuda, dtype, 4, 300, kv, d)
+    k, v = cache_k[1:, :280], cache_v[1:, :280]
+    q = _normal(rng, cuda, dtype, 3, 37, kv * group, d)
+    off = torch.tensor([0, 100, 250], dtype=torch.int32, device=cuda)
+    before = flash_attention_cuda.launches
+    out = flash_attention_cuda(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    torch.testing.assert_close(out.float(), flash_attention_ref(
+        q, k, v, q_offset=off).float(), **_tol(dtype))
+    q, k, v = (_normal(rng, cuda, dtype, 2, 77, h, d)
+               for h in (kv * group, kv, kv))
+    torch.testing.assert_close(flash_attention_cuda(q, k, v).float(),
+                               flash_attention_ref(q, k, v).float(),
+                               **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+def test_decode_attention_kernel(cuda, group, d, dtype):
+    """5 slots of 300 rows with lengths 1, 299, 300 and S + 1 (a decode at
+    a full slot attends all S rows) and 57, against the plain version."""
+    rng = np.random.default_rng(group * d)
+    kv = 2
+    q = _normal(rng, cuda, dtype, 5, kv * group, d)
+    k = _normal(rng, cuda, dtype, 5, 300, kv, d)
+    v = _normal(rng, cuda, dtype, 5, 300, kv, d)
+    clen = torch.tensor([1, 299, 300, 301, 57], dtype=torch.int32,
+                        device=cuda)
+    before = decode_attention_cuda.launches
+    out = decode_attention_cuda(q, k, v, clen)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 1
+    torch.testing.assert_close(out.float(), decode_attention_ref(
+        q, k, v, clen).float(), **_tol(dtype))
+
+
+def test_flash_and_decode_wrappers_raise_instead_of_falling_back(cuda):
+    """d_v != d_qk, caches whose rows are not contiguous (KV, D) blocks, a
+    host offset tensor and a decode over another number of slots raise,
+    and nothing launches."""
+    rng = np.random.default_rng(0)
+    q = _normal(rng, cuda, "float32", 2, 9, 4, 64)
+    k = _normal(rng, cuda, "float32", 2, 20, 2, 64)
+    before = (flash_attention_cuda.launches, decode_attention_cuda.launches)
+    with pytest.raises(ValueError, match="d_v != d_qk"):
+        flash_attention_cuda(q, k, k[..., :32])
+    with pytest.raises(ValueError, match="rows must hold"):
+        flash_attention_cuda(q, k.transpose(2, 3).contiguous().transpose(
+            2, 3), k)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_cuda(q, k, k, q_offset=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="queries for"):
+        decode_attention_cuda(q[:, 0], k[:1], k[:1],
+                              torch.ones(2, dtype=torch.int32, device=cuda))
+    assert (flash_attention_cuda.launches,
+            decode_attention_cuda.launches) == before
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,k,n", [(1, 64, 64), (70, 136, 200),
                                    (257, 512, 96)])
@@ -169,6 +247,35 @@ def test_engine_on_card_matches_cpu(cuda, prefix, kv_dtype):
             eng.submit(Request(rid=i, prompt=pr, max_new_tokens=6))
         outs[dev] = {r.rid: r.output for r in eng.run()}
         assert eng.stats.dispatches_per_iter == eng.stats.syncs_per_iter == 1.0
+    assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6
+
+
+@pytest.mark.parametrize("mode", [dict(step_mode="legacy"),
+                                  dict(prefill_mode="recompute")])
+def test_legacy_engine_on_card_matches_cpu(cuda, mode):
+    """tiny-toy in f32: the legacy step (incremental or recompute prefill)
+    on the card, through the flash and decode attention kernels, serves
+    the same greedy tokens as on the CPU, with slot reuse."""
+    cfg = dataclasses.replace(get_config("tiny-toy"), dtype="float32")
+    params = model.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                             int(rng.integers(3, 40)))]
+               for _ in range(6)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, _to(params, dev), EngineConfig(
+            max_slots=2, max_len=64, discrete_sizes=(16, 8),
+            avg_decode_len=4, **mode), device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=pr, max_new_tokens=6))
+        before = (flash_attention_cuda.launches,
+                  decode_attention_cuda.launches)
+        outs[dev] = {r.rid: r.output for r in eng.run()}
+        launched = (flash_attention_cuda.launches - before[0],
+                    decode_attention_cuda.launches - before[1])
+        assert (min(launched) > 0) == (dev == "cuda"), launched
+        assert eng.stats.dispatches_per_iter > 1.0
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6
 
 

@@ -44,7 +44,8 @@ def test_engine_token_exact_vs_jax():
     jcfg = dataclasses.replace(jax_get_config("tiny-toy"), dtype="float32")
     tcfg = dataclasses.replace(get_config("tiny-toy"), dtype="float32")
     jparams = jax_model.init(jcfg, jax.random.PRNGKey(0))
-    tparams = from_jax_params(tcfg, jax.tree.map(np.asarray, jparams))
+    tparams = from_jax_params(tcfg, jax.tree.map(np.asarray, jparams),
+                              device="cpu")
     jeng = JaxServeEngine(jcfg, jparams, JaxEngineConfig(**ENGINE))
     teng = ServeEngine(tcfg, tparams, EngineConfig(**ENGINE), device="cpu")
     for i, p in enumerate(_prompts(tcfg.vocab_size)):
@@ -87,14 +88,40 @@ def test_kv_bytes_per_token_from_cache_shapes():
     assert kv_bytes_per_token(toy) == 4 * 2 * 2 * 64 * 4
 
 
-@pytest.mark.parametrize("field,value", [
-    ("async_depth", 1), ("tp", 2), ("drafter", "ngram"), ("top_k", 5),
-    ("spec_k", 2), ("temperature", 0.7),
-    ("step_mode", "legacy"), ("prefill_mode", "recompute"),
+@pytest.mark.parametrize("kw,exc", [
+    (dict(async_depth=1), NotImplementedError),
+    (dict(tp=2), NotImplementedError),
+    (dict(drafter="ngram"), NotImplementedError),
+    (dict(top_k=5), NotImplementedError),
+    (dict(spec_k=2), NotImplementedError),
+    (dict(temperature=0.7), NotImplementedError),
+    # the legacy step is ported; what the JAX config refuses on it raises
+    # ValueError
+    (dict(step_mode="legacy", prefix_caching=True), ValueError),
+    (dict(step_mode="legacy", kv_dtype="int8"), ValueError),
 ])
-def test_config_rejects_unported_features(field, value):
-    with pytest.raises(NotImplementedError):
-        EngineConfig(**{field: value})
+def test_config_rejects_unported_features(kw, exc):
+    """Unported values raise NotImplementedError; combinations the JAX
+    config refuses raise ValueError."""
+    with pytest.raises(exc):
+        EngineConfig(**kw)
+
+
+def test_config_step_modes():
+    """The JAX rules: recompute prefill implies the legacy step; the packed
+    step refuses it; the legacy step refuses tp > 1, the async pipeline and
+    speculative decoding (prefix caching and int8 KV above)."""
+    assert EngineConfig().resolved_step_mode == "packed"
+    assert EngineConfig(step_mode="legacy").resolved_step_mode == "legacy"
+    assert EngineConfig(prefill_mode="recompute").resolved_step_mode == \
+        "legacy"
+    for kw in (dict(step_mode="packed", prefill_mode="recompute"),
+               dict(step_mode="legacy", tp=2),
+               dict(prefill_mode="recompute", async_depth=1),
+               dict(step_mode="legacy", spec_k=2),
+               dict(step_mode="eager"), dict(prefill_mode="lazy")):
+        with pytest.raises(ValueError):
+            EngineConfig(**kw)
 
 
 @pytest.mark.parametrize("kw", [

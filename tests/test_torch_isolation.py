@@ -11,6 +11,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import model
+from repro_torch.models.convert import from_jax_params
 from repro_torch.serving.engine import ServeEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -54,6 +55,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         model.init(cfg)
     with pytest.raises(RuntimeError):
         model.init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError):       # before the tree is read
+        from_jax_params(cfg, {})
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+

@@ -85,7 +85,8 @@ def test_forward_packed_matches_jax(name):
     if name == "qwen3-8b":
         assert tcfg.qk_norm and tcfg.rope_theta == 1e6 and tcfg.gqa_group == 2
     jparams = jax_model.init(jcfg, jax.random.PRNGKey(0))
-    tparams = from_jax_params(tcfg, jax.tree.map(np.asarray, jparams))
+    tparams = from_jax_params(tcfg, jax.tree.map(np.asarray, jparams),
+                              device="cpu")
     jcache = jax_model.init_cache(jcfg, 1, SLOTS, MAX_LEN)
     tcache = model.init_cache(tcfg, SLOTS, MAX_LEN, device="cpu")
     for toks, slot, pos, wpos in _streams(tcfg.vocab_size):

@@ -128,7 +128,7 @@ def toy():
     tcfg = dataclasses.replace(get_config("tiny-toy"), dtype="float32")
     jparams = jax_model.init(jcfg, jax.random.PRNGKey(0))
     return jcfg, jparams, tcfg, from_jax_params(
-        tcfg, jax.tree.map(np.asarray, jparams))
+        tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def _serve(eng, request_cls):
