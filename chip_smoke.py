@@ -14,7 +14,10 @@ Phases (any failure exits non-zero; no phase is caught):
                packed-attention variants: contiguous, int8 KV, block-table
                (shuffled table, block 16) and block-table + int8; flash
                attention at the legacy chunk's and the recompute prefill's
-               shapes; decode attention over 8 slots of 1024 rows.
+               shapes; decode attention over 8 slots of 1024 rows; the
+               selective scan (f32 and bf16) at Jamba-1.5-Large's 16384
+               channels and 16 states, on a 256-token chunk from a carried
+               state and a 513-token prompt from zero state.
   4. forward — ``forward_packed`` at full width, 4 layers, through the
                kernels and through the plain versions: logits must agree.
   5. serve   — Qwen3-8B at full width and all 36 layers (seeded random bf16
@@ -37,6 +40,17 @@ Phases (any failure exits non-zero; no phase is caught):
                agree with the runs without prefix caching; an int8 request
                agrees with a teacher-forced plain forward through an int8
                cache.
+  9. hybrid  — Qwen3-8B's weights freed, Jamba-1.5-Large at full width cut
+               to one 8-layer group (7 Mamba + 1 attention) with dense FFNs:
+               a two-chunk ``forward_chunk`` through the kernels against the
+               plain versions, then the serve phase's 8 prompt lengths on
+               the legacy, recompute and packed steps: every request
+               finishes 32 tokens; the scan launches 7 times per prefill
+               dispatch on legacy and recompute and never on the packed
+               step; each attention kernel once per dispatch of its kind,
+               SwiGLU 8 times; tokens agree between the steps and with a
+               teacher-forced plain ``forward_full``; the legacy run is
+               profiled.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -86,6 +100,21 @@ LEGACY = {
 }
 LEGACY_MODES = {"legacy": dict(step_mode="legacy"),
                 "recompute": dict(prefill_mode="recompute")}
+# the selective scan: source, the TPU kernel it replaces, and its tolerance
+# in f32 (the N states summed in another order; the recurrence contracts,
+# so the difference does not grow with S)
+SSM_SCAN = (f"{_CSRC}/ssm_scan.cu", "src/repro/kernels/ssm_scan.py:61")
+SCAN_F32_TOL = (1e-5, 1e-5)
+# special-function-unit exponentials per clock per SM (CUDA C++ programming
+# guide, arithmetic instruction throughput, compute capability 9.0) and the
+# float32 rate outside the tensor cores (NVIDIA H100 SXM data sheet)
+SFU_PER_CLOCK_SM = 16
+F32_PEAK = 67e12
+JAMBA = "jamba-1.5-large-398b"
+HYBRID_LAYERS = 8       # one pattern group: 7 Mamba + 1 attention layer
+HYBRID_MODES = {"legacy": dict(step_mode="legacy"),
+                "recompute": dict(prefill_mode="recompute"),
+                "packed": dict(step_mode="packed")}
 
 
 def log(msg: str) -> None:
@@ -360,6 +389,93 @@ def phase_legacy_kernels(torch, cfg, timer, bw, peak) -> dict:
     return record
 
 
+def sfu_rate(torch) -> float:
+    """Exponentials per second on the card's special-function units: 16 per
+    clock per SM at the SM clock's maximum (nvidia-smi)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"special-function units: {SFU_PER_CLOCK_SM}/clock/SM x {sms} SMs x "
+        f"{mhz:.0f} MHz (clocks.max.sm)")
+    return SFU_PER_CLOCK_SM * sms * mhz * 1e6
+
+
+def scan_case(torch, cfg, s: int, carried: bool, dtype, seed: int = 17):
+    """Selective-scan inputs at a Mamba layer's widths (C = expand x
+    d_model, N = d_state) for one slot: x, b, c in ``dtype``, dt = softplus
+    of N(-2, 1), a = -(1..N) per channel, d = 1, and for ``carried`` a
+    random f32 state.  Returns (args, bytes, exponentials, f32 flops): the
+    bytes count x, dt, y, a, b, c, d, h0 and h_final once each."""
+    mc = cfg.mamba
+    ch, n = mc.expand * cfg.d_model, mc.d_state
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, mean=0.0):
+        return torch.randn(shape, generator=gen, device="cuda") + mean
+    x = randn(1, s, ch).to(dtype)
+    dt = torch.nn.functional.softplus(randn(1, s, ch, mean=-2.0))
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda") \
+        .expand(ch, n).contiguous()
+    b, c = randn(1, s, n).to(dtype), randn(1, s, n).to(dtype)
+    d = torch.ones(ch, device="cuda")
+    h0 = randn(1, ch, n) if carried else None
+    item = x.element_size()
+    nbytes = (2 * s * ch * item + s * ch * 4 + 2 * s * n * item
+              + ch * n * 4 * (3 if carried else 2) + ch * 4)
+    # per (token, channel, state): dt*a, exp, da*h, (dt*x)*b, +, *c, +
+    return (x, dt, a, b, c, d, h0), nbytes, s * ch * n, s * ch * (6 * n + 3)
+
+
+def phase_ssm_kernels(torch, cfg, timer, bw, sfu) -> dict:
+    """The selective scan against its plain version in f32 and bf16 at
+    Jamba's widths, timed in bf16; no one PyTorch call computes it."""
+    from functools import partial
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref
+    record = {}
+    for case, s, carried in (("chunk", 256, True), ("prompt", 513, False)):
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            args, nbytes, exps, flops = scan_case(torch, cfg, s, carried,
+                                                  dtype)
+            y, h = ssm_scan_cuda(*args)
+            want_y, want_h = ssm_scan_ref(*args)
+            torch.cuda.synchronize()
+            errs[dtype] = check_close(
+                f"ssm_scan [{case}] {dtype}", y, want_y,
+                SCAN_F32_TOL if dtype == torch.float32 else BF16_TOL)
+            check_close(f"ssm_scan [{case}] {dtype} h_final", h, want_h,
+                        SCAN_F32_TOL)
+        ms = timer(partial(ssm_scan_cuda, *args))
+        plain_ms = timer(partial(ssm_scan_ref, *args))
+        t_bytes, t_sfu, t_f32 = (nbytes / bw * 1e3, exps / sfu * 1e3,
+                                 flops / F32_PEAK * 1e3)
+        bound = max(t_bytes, t_sfu, t_f32)
+        ch, n = args[2].shape
+        desc = (f"x (1, {s}, {ch}), N {n}, "
+                + ("carried f32 state" if carried else "zero state"))
+        log(f"ssm_scan [{case}] {desc}: max_abs_err f32 "
+            f"{errs[torch.float32]:.3e} (tol {SCAN_F32_TOL[0]} + "
+            f"{SCAN_F32_TOL[1]}·|ref|), bf16 {errs[torch.bfloat16]:.3e} (tol "
+            f"{BF16_TOL[0]} + {BF16_TOL[1]}·|ref|)  kernel_ms {ms:.4f}  "
+            f"plain_ms {plain_ms:.4f}  bound_ms {bound:.4f} (bytes "
+            f"{nbytes / 1e6:.1f} MB {t_bytes:.4f} ms, exponentials "
+            f"{exps / 1e6:.1f} M {t_sfu:.4f} ms, f32 {flops / 1e9:.3f} GFLOP "
+            f"{t_f32:.4f} ms)")
+        # the chunk shape stands for the scan in the kernels line
+        if case == "chunk":
+            record["ssm_scan"] = dict(
+                shape=desc + ", bf16 x/b/c", max_abs_err=errs[torch.bfloat16],
+                max_abs_err_f32=errs[torch.float32], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound,
+                bound_by="bytes" if t_bytes >= max(t_sfu, t_f32)
+                else "operations", library_ms=None)
+        del args, y, h, want_y, want_h
+    return record
+
+
 def phase_kernels(torch, cfg, timer, bw, peak):
     from repro_torch.kernels.packed_attention import (packed_attention_cuda,
                                                       packed_attention_ref)
@@ -532,10 +648,12 @@ def _counted():
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.packed_attention import packed_attention_cuda
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
     from repro_torch.kernels.swiglu import swiglu_cuda
     return (packed_attention_cuda, {"swiglu": swiglu_cuda,
                                     "flash_attention": flash_attention_cuda,
-                                    "decode_attention": decode_attention_cuda})
+                                    "decode_attention": decode_attention_cuda,
+                                    "ssm_scan": ssm_scan_cuda})
 
 
 def zero_counts() -> None:
@@ -656,7 +774,8 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
         f"events per iteration")
     # the twelve costliest, and the port's own kernels wherever they rank
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)
-    ours = ("packed_attention_kernel", "flash_bf16_kernel", "swiglu_bf16")
+    ours = ("packed_attention_kernel", "flash_bf16_kernel", "swiglu_bf16",
+            "ssm_scan_kernel")
     for e in ranked[:12] + [e for e in ranked[12:]
                             if any(k in e.key for k in ours)]:
         log(f"{tag}:   {e.self_device_time_total / 1e3:9.2f} ms "
@@ -866,6 +985,191 @@ def phase_shared_prefix(torch, cfg, params) -> dict:
     return launches
 
 
+def hybrid_config():
+    """Jamba-1.5-Large at full width, cut to what one card holds without
+    the MoE FFN: one 8-layer pattern group and a dense SwiGLU FFN in every
+    layer (``dataclasses.replace`` on the port's copy of the config)."""
+    from repro_torch.configs import FFN_DENSE, get_config
+    full = get_config(JAMBA)
+    cfg = dataclasses.replace(
+        full, name=full.name + "-8l-dense", n_layers=HYBRID_LAYERS, moe=None,
+        block_pattern=tuple(dataclasses.replace(sp, ffn=FFN_DENSE)
+                            for sp in full.block_pattern))
+    log(f"hybrid: {full.name} ({full.citation}) cut: n_layers "
+        f"{full.n_layers} -> {cfg.n_layers}, moe {full.moe} -> None, "
+        f"FFN_MOE -> FFN_DENSE (d_ff {cfg.d_ff}); kept d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads, vocab "
+        f"{cfg.vocab_size}, {cfg.mamba}; layers "
+        f"{[sp.mixer for sp in cfg.layer_specs()]}")
+    return cfg
+
+
+def phase_hybrid_forward(torch, cfg, params):
+    """Two slots: a 64-token chunk, then a 37-token chunk that resumes
+    their states, through ``forward_chunk`` with the kernels and with the
+    plain versions, each with its own cache; the logits must agree and the
+    scan must have launched 7 times per chunk."""
+    from repro_torch.models import model
+    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+    rng = np.random.default_rng(2)
+    chunks = [rng.integers(0, cfg.vocab_size, (2, n)) for n in (64, 37)]
+    n_mamba = sum(sp.mixer != "attn" for sp in cfg.layer_specs())
+    logits = {}
+    for impl in (None, "plain"):
+        cache = model.init_cache(cfg, 2, 128, device="cuda")
+        clen = torch.zeros(2, dtype=torch.int32, device="cuda")
+        before = ssm_scan_cuda.launches
+        outs = []
+        for toks in chunks:
+            lg, cache = model.forward_chunk(
+                cfg, params, torch.tensor(toks, dtype=torch.int32,
+                                          device="cuda"), cache, clen,
+                impl=impl)
+            outs.append(lg.reshape(-1, cfg.vocab_size))
+            clen = clen + toks.shape[1]
+        launched = ssm_scan_cuda.launches - before
+        if launched != (n_mamba * len(chunks) if impl is None else 0):
+            raise AssertionError(f"hybrid forward: ssm_scan launched "
+                                 f"{launched} times with impl={impl}")
+        logits[impl] = torch.cat(outs).float()
+    torch.cuda.synchronize()
+    a, b = logits[None], logits["plain"]
+    if not bool(a.isfinite().all()):
+        raise AssertionError("hybrid forward: non-finite logits")
+    diff = float((a - b).abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    log(f"hybrid forward (forward_chunk, 2 slots x (64 + 37) tokens): logits "
+        f"max-abs diff {diff:.4f} (tol {FWD_LOGIT_ATOL}), |logits| max "
+        f"{float(b.abs().max()):.3f}, greedy argmax agreement {agree:.4f} "
+        f"(tol >= {FWD_ARGMAX_MIN})")
+    if diff > FWD_LOGIT_ATOL or agree < FWD_ARGMAX_MIN:
+        raise AssertionError("hybrid forward: kernels and plain versions "
+                             "disagree")
+
+
+def check_hybrid_counts(mode: str, cfg, c: dict, s) -> None:
+    """Each kernel launched as often as the step's dispatches say: on
+    legacy and recompute the scan 7 times and flash attention once per
+    prefill dispatch, decode attention once per decode dispatch (the
+    remaining dispatches are the incremental mode's slot resets, one per
+    request); on the packed step packed attention once per iteration and
+    no scan; SwiGLU once per layer of every forward."""
+    n_mamba = sum(sp.mixer != "attn" for sp in cfg.layer_specs())
+    n_attn = cfg.n_layers - n_mamba
+    others = [k for k in ATTENTION if not (mode == "packed"
+                                           and k == "packed_attention")]
+    if mode == "packed":
+        forwards = s.iterations
+        ok = (c["packed_attention"] == n_attn * s.iterations > 0
+              and c["ssm_scan"] == c["flash_attention"]
+              == c["decode_attention"] == 0)
+    else:
+        chunks = c["flash_attention"] // n_attn
+        decodes = c["decode_attention"] // n_attn
+        forwards = chunks + decodes
+        resets = 8 if mode == "legacy" else 0
+        ok = (chunks > 0 and decodes > 0
+              and c["ssm_scan"] == n_mamba * chunks
+              and c["flash_attention"] == n_attn * chunks
+              and c["decode_attention"] == n_attn * decodes
+              and forwards + resets == s.model_dispatches)
+    ok = ok and c["swiglu"] == cfg.n_layers * forwards \
+        and not any(c[k] for k in others)
+    if not ok:
+        raise AssertionError(f"hybrid {mode}: launches {c} do not match "
+                             f"{s.iterations} iterations and "
+                             f"{s.model_dispatches} dispatches")
+
+
+def phase_hybrid(torch) -> dict:
+    """The hybrid model on the three steps (see the module docstring).
+    Returns the scan's launches in the legacy run."""
+    from repro_torch.models import model
+    from repro_torch.models.param import count_params
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import Request
+    cfg = hybrid_config()
+    t0 = time.perf_counter()
+    params = model.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"hybrid: {count_params(model.model_defs(cfg)) / 1e9:.3f}B params, "
+        f"seeded init {time.perf_counter() - t0:.1f} s")
+    phase_hybrid_forward(torch, cfg, params)
+
+    # the serve phase's prompt lengths and seed, token ids in Jamba's vocab
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 601, 8)
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+               for n in lens]
+    outs, counts = {}, {}
+    for mode, kw in HYBRID_MODES.items():
+        eng = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=1024,
+                                                    **kw))
+        zero_counts()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=32))
+        done = eng.run()
+        torch.cuda.synchronize()
+        c = counts[mode] = read_counts()
+        s = eng.stats
+        log(f"hybrid {mode}: prompts {lens.tolist()}, {len(done)}/8 finished, "
+            f"{s.iterations} iterations, {s.total_tokens} tokens in "
+            f"{s.wall_time:.3f} s = {s.throughput:.1f} tok/s, "
+            f"{s.model_dispatches} dispatches ({s.dispatches_per_iter:.3f}/"
+            f"iter), {s.host_syncs} syncs ({s.syncs_per_iter:.3f}/iter), "
+            f"prefill work {s.prefill_model_tokens} tokens "
+            f"({s.prefill_expansion:.3f}x), KV {eng.kv.bytes_per_token} "
+            f"B/token, peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        log(f"hybrid {mode}: wall split: host {s.host_time:.3f} s, step "
+            f"enqueue {s.dispatch_time:.3f} s, blocked on result copies "
+            f"{s.blocked_sync_time:.3f} s ({s.blocking_syncs} blocking "
+            f"syncs); launches {c}")
+        if len(done) != 8 or any(len(r.output) != 32 for r in done):
+            raise AssertionError(f"hybrid {mode}: not every request finished "
+                                 "32 tokens")
+        if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
+            raise AssertionError(f"hybrid {mode}: token id out of range")
+        if mode == "packed" and (s.dispatches_per_iter != 1.0
+                                 or s.syncs_per_iter != 1.0):
+            raise AssertionError("hybrid packed: not one dispatch and one "
+                                 "sync per iteration")
+        check_hybrid_counts(mode, cfg, c, s)
+        outs[mode] = {r.rid: r.output for r in done}
+        # request 0's tokens against a teacher-forced plain forward_full
+        r0 = min(done, key=lambda r: r.rid)
+        seq = torch.tensor([r0.prompt + r0.output[:-1]], dtype=torch.int32,
+                           device="cuda")
+        lg, _ = model.forward_full(cfg, params, seq, impl="plain")
+        ref = lg[0, r0.prompt_len - 1:].argmax(-1).tolist()
+        agree = float(np.mean(np.asarray(ref) == np.asarray(r0.output)))
+        log(f"hybrid {mode}: request 0 ({r0.prompt_len} prompt tokens) vs a "
+            f"teacher-forced plain forward_full: agreement {agree:.4f} "
+            f"(tol >= {SERVE_AGREE_MIN})")
+        if agree < SERVE_AGREE_MIN:
+            raise AssertionError(f"hybrid {mode}: tokens disagree with the "
+                                 "plain forward")
+        wall = s.wall_time
+        del eng, lg
+        torch.cuda.empty_cache()
+        if mode == "legacy":
+            phase_profile(torch, cfg, params, prompts, wall,
+                          tag="hybrid legacy profile", **kw)
+    for a, b in (("legacy", "packed"), ("legacy", "recompute"),
+                 ("recompute", "packed")):
+        same_ctx, raw, first = context_agreement(outs[a], outs[b])
+        log(f"hybrid: tokens {a} vs {b}: agreement {same_ctx:.4f} at the "
+            f"positions whose earlier tokens agree (tol >= {SERVE_AGREE_MIN})"
+            f"; {raw:.4f} at all positions; first differing position per "
+            f"request {first}")
+        if same_ctx < SERVE_AGREE_MIN:
+            raise AssertionError(f"hybrid: {a} and {b} tokens disagree")
+    del params
+    torch.cuda.empty_cache()
+    return counts["legacy"]["ssm_scan"]
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -902,6 +1206,8 @@ def main() -> int:
     timer = Timer(torch)
     record = phase_kernels(torch, cfg, timer, bw, peak)
     record.update(phase_legacy_kernels(torch, cfg, timer, bw, peak))
+    record.update(phase_ssm_kernels(torch, get_config(JAMBA), timer, bw,
+                                    sfu_rate(torch)))
     del timer
     lap("kernels")
     phase_forward(torch, cfg)
@@ -920,12 +1226,18 @@ def main() -> int:
     for kname, n in phase_shared_prefix(torch, cfg, params).items():
         launches.setdefault(kname, n)
     lap("shared-prefix")
+    # the hybrid's legacy run gives the scan's count
+    del params
+    torch.cuda.empty_cache()
+    launches["ssm_scan"] = phase_hybrid(torch)
+    lap("hybrid")
 
     sources = {kname: (f"{_CSRC}/packed_attention.cu", replaces)
                for kname, (_, replaces) in ATTENTION.items()}
     sources.update(LEGACY)
     sources["swiglu"] = (f"{_CSRC}/swiglu.cu",
                          "src/repro/kernels/swiglu.py:45")
+    sources["ssm_scan"] = SSM_SCAN
     kernels = []
     for kname, (src, replaces) in sources.items():
         rec = record[kname]

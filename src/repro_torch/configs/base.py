@@ -1,17 +1,22 @@
 """Model configuration: the port's copy of ``repro.configs.base``.
 
-Only the fields and helpers the packed dense-GQA serving path reads are
-kept (``ModelConfig``, ``LayerSpec``, ``layer_groups``, ``scale_down`` and
-the registry).  Layer and FFN kinds keep the JAX names; the kinds of later
-slices (MLA, MoE, recurrent mixers) come with them.
+Only the fields and helpers the port's serving paths read are kept
+(``ModelConfig``, ``LayerSpec``, ``MambaConfig``, ``MoEConfig``,
+``layer_groups``, ``scale_down`` and the registry).  Layer and FFN kinds
+keep the JAX names; the kinds of later slices (MLA, the xLSTM mixers) come
+with them.  ``FFN_MOE`` and ``MoEConfig`` are here so that configurations
+with experts can be written down; the model refuses them (ROADMAP A5).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 ATTN = "attn"          # softmax attention (GQA)
+MAMBA = "mamba"        # Mamba-1 selective SSM
 FFN_DENSE = "dense"
+FFN_MOE = "moe"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,6 +24,23 @@ class LayerSpec:
     """One decoder layer: a sequence-mixing op plus an FFN kind."""
     mixer: str = ATTN
     ffn: str = FFN_DENSE
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """The fields a configuration with experts states; the rest of the JAX
+    ``MoEConfig`` comes with the MoE FFN (ROADMAP A5)."""
+    num_experts: int = 0
+    top_k: int = 2
+    expert_d_ff: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0          # 0 => ceil(d_model/16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +56,8 @@ class ModelConfig:
     head_dim: int = 0                # 0 => d_model // n_heads
     block_pattern: tuple[LayerSpec, ...] = (LayerSpec(),)
     first_layers: tuple[LayerSpec, ...] = ()
+    moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
     qk_norm: bool = False
     ffn_gated: bool = True           # SwiGLU (3 mats) vs plain MLP (2 mats)
     rope_theta: float = 10000.0
@@ -95,18 +119,25 @@ def get_config(name: str) -> ModelConfig:
 
 def _load_all() -> None:
     # import each config module for its register() side effect
-    from repro_torch.configs import qwen3_8b, tiny  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        jamba_1_5_large_398b, qwen3_8b, tiny)
 
 
 def scale_down(cfg: ModelConfig, *, n_layers: int = 0, d_model: int = 128,
                n_heads: int = 4, vocab: int = 512) -> ModelConfig:
     """Reduced same-family config for CPU tests (same rule as the JAX
-    package's ``scale_down``, restricted to the fields kept here)."""
+    package's ``scale_down``, restricted to the fields kept here): the
+    block pattern and the Mamba settings stay, the widths shrink."""
     pat_len = min(len(cfg.block_pattern), 8)
     layers = n_layers or (len(cfg.first_layers) + pat_len)
     kv = max(1, min(cfg.n_kv_heads, n_heads))
     hd = max(8, d_model // n_heads)
+    moe = None
+    if cfg.moe is not None:
+        moe = dataclasses.replace(
+            cfg.moe, num_experts=min(cfg.moe.num_experts, 4),
+            top_k=min(cfg.moe.top_k, 2), expert_d_ff=d_model * 2)
     return dataclasses.replace(
         cfg, name=cfg.name + "-smoke", n_layers=layers, d_model=d_model,
         n_heads=n_heads, n_kv_heads=kv, head_dim=hd,
-        d_ff=0 if cfg.d_ff == 0 else d_model * 3, vocab_size=vocab)
+        d_ff=0 if cfg.d_ff == 0 else d_model * 3, vocab_size=vocab, moe=moe)

@@ -41,6 +41,7 @@ TARGETS = {
     "decode_attention": ("packed_attention", ("-DREPRO_PA_DECODE=1",)),
     "flash_attention": ("flash_attention", ()),
     "swiglu": ("swiglu", ()),
+    "ssm_scan": ("ssm_scan", ()),
 }
 
 _c = ctypes
@@ -54,6 +55,8 @@ SIGNATURES = {
                         [_void_p] * 5 + [_int] * 8 + [_ll] * 4
                         + [_float, _void_p]),
     "swiglu": ("repro_swiglu", [_void_p] * 4 + [_int] * 4 + [_void_p]),
+    "ssm_scan": ("repro_ssm_scan",
+                 [_void_p] * 9 + [_int] * 5 + [_ll] * 4 + [_void_p]),
 }
 
 

@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_ref)
 from repro_torch.kernels.packed_attention import (packed_attention_cuda,
                                                   packed_attention_ref)
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref
 from repro_torch.kernels.swiglu import swiglu_cuda, swiglu_ref
 
 IMPLS = (None, "plain")
@@ -71,3 +72,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     fn = decode_attention_cuda if _use_kernel(q, impl) \
         else decode_attention_ref
     return fn(q, k_cache, v_cache, cache_len)
+
+
+def ssm_scan(x, dt, a, b, c, d, h0=None, *, impl: Optional[str] = None):
+    """Mamba-1 selective scan: x, dt (B, S, C); a (C, N); b, c (B, S, N);
+    d (C,); h0 (B, C, N) f32 or None.  Returns (y (B, S, C) in x's dtype,
+    h_final (B, C, N) f32)."""
+    fn = ssm_scan_cuda if _use_kernel(x, impl) else ssm_scan_ref
+    return fn(x, dt, a, b, c, d, h0)

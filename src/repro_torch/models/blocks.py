@@ -1,33 +1,42 @@
-"""Per-layer block: GQA attention + dense FFN, pre-norm residual (port of
-``repro.models.blocks`` for ``LayerSpec(ATTN, FFN_DENSE)``): the packed
-step (``block_packed``) and the legacy step's whole-chunk, decode and
+"""Per-layer block: a sequence mixer (GQA attention or Mamba) + dense FFN,
+pre-norm residual (port of ``repro.models.blocks`` for ``LayerSpec(ATTN,
+FFN_DENSE)`` and ``LayerSpec(MAMBA, FFN_DENSE)``): the packed step
+(``block_packed``) and the legacy step's whole-chunk, decode and
 incremental-chunk paths (``block_full``, ``block_decode``,
-``block_chunk``)."""
+``block_chunk``).  An attention layer's cache is ``{"k", "v"}`` (plus
+int8 scales), a Mamba layer's its state ``{"conv", "ssm"}``."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ATTN, FFN_DENSE, LayerSpec, ModelConfig
+from repro_torch.configs.base import (ATTN, FFN_DENSE, FFN_MOE, MAMBA,
+                                      LayerSpec, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.param import ParamDef
 
 
 def check_spec(spec: LayerSpec) -> None:
-    if spec.mixer != ATTN or spec.ffn != FFN_DENSE:
+    if spec.ffn == FFN_MOE:
         raise NotImplementedError(
-            f"layer {spec}: the port runs GQA attention + dense FFN layers; "
-            "MoE, MLA and recurrent mixers are ROADMAP A5 and A9")
+            f"layer {spec}: the MoE FFN is ROADMAP A5")
+    if spec.mixer not in (ATTN, MAMBA) or spec.ffn != FFN_DENSE:
+        raise NotImplementedError(
+            f"layer {spec}: the port runs GQA attention or Mamba mixers with "
+            "a dense FFN; MLA and MoE are ROADMAP A5, the xLSTM mixers A9")
 
 
 def block_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
     check_spec(spec)
     d, dt = cfg.d_model, cfg.dtype
+    mixer = attn.gqa_defs(cfg) if spec.mixer == ATTN \
+        else ssm_mod.mamba_defs(cfg)
     return {"norm1": ParamDef((d,), init="ones", dtype=dt),
-            "mixer": attn.gqa_defs(cfg),
+            "mixer": mixer,
             "norm2": ParamDef((d,), init="ones", dtype=dt),
             "ffn": moe_mod.ffn_defs(d, cfg.d_ff, dt)}
 
@@ -41,25 +50,35 @@ def _ffn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def block_full(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                positions: torch.Tensor, *, q_offset=0,
                return_state: bool = False, impl: Optional[str] = None):
-    """Whole-chunk prefill for one layer.  Returns (x, state): ``state`` is
-    ``{"kv": (k, v)}`` with the chunk's K/V when ``return_state``, else
-    None."""
+    """Whole-chunk prefill for one layer.  Returns (x, state): with
+    ``return_state``, ``state`` is ``{"kv": (k, v)}`` with the chunk's K/V
+    for attention and the new ``{"conv", "ssm"}`` for Mamba, else None."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    r = attn.gqa_full(cfg, p["mixer"], h, positions, q_offset=q_offset,
-                      return_kv=return_state, impl=impl)
-    y, kv = r if return_state else (r, None)
+    if spec.mixer == ATTN:
+        r = attn.gqa_full(cfg, p["mixer"], h, positions, q_offset=q_offset,
+                          return_kv=return_state, impl=impl)
+        y, kv = r if return_state else (r, None)
+        state = {"kv": kv} if return_state else None
+    else:
+        r = ssm_mod.mamba_full(cfg, p["mixer"], h, return_state=return_state,
+                               impl=impl)
+        y, state = r if return_state else (r, None)
     x = _ffn_apply(cfg, p, x + y, impl)
-    return x, ({"kv": kv} if return_state else None)
+    return x, state
 
 
 def block_decode(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cache: dict,
                  cache_len: torch.Tensor, impl: Optional[str] = None):
-    """Single-token decode for one layer.  Returns (x, cache), the cache
-    updated in place."""
+    """Single-token decode for one layer.  Returns (x, cache): attention's
+    cache updated in place, Mamba's new state as new tensors (the old one
+    untouched, so the engine commits only the decoding rows)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    y, cache = attn.gqa_decode(cfg, p["mixer"], h, positions, cache,
-                               cache_len, impl=impl)
+    if spec.mixer == ATTN:
+        y, cache = attn.gqa_decode(cfg, p["mixer"], h, positions, cache,
+                                   cache_len, impl=impl)
+    else:
+        y, cache = ssm_mod.mamba_decode(cfg, p["mixer"], h, cache)
     return _ffn_apply(cfg, p, x + y, impl), cache
 
 
@@ -67,34 +86,55 @@ def block_chunk(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                 positions: torch.Tensor, cache: dict,
                 cache_len: torch.Tensor, impl: Optional[str] = None):
     """Incremental chunked prefill for one layer (DESIGN.md §7): the chunk's
-    K/V are written at ``cache_len`` and it attends the prefix.  Returns
-    (x, cache), the cache updated in place."""
+    K/V are written at ``cache_len`` and it attends the prefix; a Mamba
+    layer resumes from its state (cache format == state format).  Returns
+    (x, cache), the cache updated in place: the new Mamba state is copied
+    into the given leaves, which may be views of a slot."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    y, cache = attn.gqa_prefill_chunk(cfg, p["mixer"], h, positions, cache,
-                                      cache_len, impl=impl)
+    if spec.mixer == ATTN:
+        y, cache = attn.gqa_prefill_chunk(cfg, p["mixer"], h, positions,
+                                          cache, cache_len, impl=impl)
+    else:
+        y, state = ssm_mod.mamba_full(cfg, p["mixer"], h, initial=cache,
+                                      return_state=True, impl=impl)
+        for name, leaf in cache.items():
+            leaf.copy_(state[name])
     return _ffn_apply(cfg, p, x + y, impl), cache
 
 
 def block_packed(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cache: dict,
                  token_slot: torch.Tensor, token_wpos: torch.Tensor,
+                 token_active: Optional[torch.Tensor] = None,
                  kv_bucket: Optional[int] = None,
                  token_dst: Optional[torch.Tensor] = None,
                  block_tables: Optional[torch.Tensor] = None,
                  impl: Optional[str] = None):
     """Token-packed step for one layer (DESIGN.md §8); ``token_dst`` and
-    ``block_tables`` switch attention to block-table mode (§12).  Returns
-    (x, cache), the cache updated in place."""
+    ``block_tables`` switch attention to block-table mode (§12); a Mamba
+    layer advances each token's slot state, committing only tokens with
+    ``token_active`` set (required for Mamba layers).  Returns (x, cache),
+    the cache updated in place."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
-    y, cache = attn.gqa_packed(cfg, p["mixer"], h, positions, cache,
-                               token_slot, token_wpos, kv_bucket=kv_bucket,
-                               token_dst=token_dst, block_tables=block_tables,
-                               impl=impl)
+    if spec.mixer == ATTN:
+        y, cache = attn.gqa_packed(cfg, p["mixer"], h, positions, cache,
+                                   token_slot, token_wpos,
+                                   kv_bucket=kv_bucket, token_dst=token_dst,
+                                   block_tables=block_tables, impl=impl)
+    else:
+        if token_active is None:
+            raise ValueError("a Mamba layer's packed step needs token_active")
+        y, cache = ssm_mod.mamba_packed(cfg, p["mixer"], h, cache,
+                                        token_slot, token_active)
     return _ffn_apply(cfg, p, x + y, impl), cache
 
 
 def block_init_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, device: torch.device,
                      kv_dtype: Optional[str] = None) -> dict:
+    """Attention's K/V cache (``kv_dtype`` applies to it only), or a Mamba
+    layer's zero state."""
     check_spec(spec)
+    if spec.mixer == MAMBA:
+        return ssm_mod.mamba_init_cache(cfg, batch, device)
     return attn.gqa_init_cache(cfg, batch, max_len, device, kv_dtype)

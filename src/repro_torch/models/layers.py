@@ -1,4 +1,5 @@
-"""Shared layer primitives: RMSNorm, SiLU, RoPE (ports of
+"""Shared layer primitives: RMSNorm, SiLU, softplus, RoPE and the causal
+depthwise convolution of the Mamba mixer (ports of
 ``repro.models.layers``)."""
 from __future__ import annotations
 
@@ -16,6 +17,12 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))``, as ``jax.nn.softplus`` computes it."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
 
 
 def rope_freqs(head_dim: int, theta: float,
@@ -48,3 +55,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     if ang.dim() == 3:                      # positions were (S,)
         ang = ang[None]
     return _rope_rotate(x, ang)
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv (mamba) — streaming decode and chunk carries
+# ---------------------------------------------------------------------------
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor | None) -> torch.Tensor:
+    """x: (B, S, C); w: (C, K) depthwise taps; left-pads with zeros.  The
+    JAX formula, K shifted multiply-adds accumulated in x's dtype — not
+    ``F.conv1d``, which on the card runs through cuDNN (TF32 in f32) and
+    sums in another order."""
+    k = w.shape[-1]
+    s = x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + pad[:, i:i + s, :] * w[:, i]
+    if b is not None:
+        out = out + b
+    return out
+
+
+def causal_conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor,
+                       w: torch.Tensor, b: torch.Tensor | None):
+    """One decode step.  x_t: (B, C); conv_state: (B, K-1, C) past inputs.
+    Returns (out (B, C), new state (B, K-1, C))."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)      # (B,K,C)
+    out = torch.einsum("bkc,ck->bc", window, w)
+    if b is not None:
+        out = out + b
+    return out, window[:, 1:, :]
+
+
+def conv_tail(xs: torch.Tensor, kk: int) -> torch.Tensor:
+    """Conv history carry for chunked prefill: the last ``kk`` rows of (B,
+    S, C), left-zero-padded when S < kk.  Callers pass (prev history ++
+    chunk) so chunks shorter than the kernel keep earlier history."""
+    s = xs.shape[1]
+    if s >= kk:
+        return xs[:, s - kk:, :]
+    return torch.nn.functional.pad(xs, (0, 0, kk - s, 0))

@@ -6,8 +6,8 @@
 Parameters are plain dicts of tensors in the JAX layouts, with the
 per-layer leaves unstacked into ``params["layers"]`` (a Python loop over
 layers takes the place of ``jax.lax.scan``); the cache is a list of
-per-layer ``{"k", "v"}`` dicts (plus ``"k_s"``/``"v_s"`` scales for int8
-KV).
+per-layer dicts: ``{"k", "v"}`` for attention (plus ``"k_s"``/``"v_s"``
+scales for int8 KV) and the recurrent state ``{"conv", "ssm"}`` for Mamba.
 """
 from __future__ import annotations
 
@@ -16,15 +16,16 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import blocks
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.param import ParamDef, init_params
 
 
 def check_config(cfg: ModelConfig) -> None:
-    """The port runs dense GQA decoders with untied SwiGLU and no
-    modality frontend; anything else raises."""
+    """The port runs decoders of GQA attention and Mamba layers (hybrids
+    included), each with an untied dense SwiGLU FFN and no modality
+    frontend; anything else raises."""
     if cfg.frontend != "none" or cfg.tie_embeddings or not cfg.ffn_gated:
         raise NotImplementedError(
             f"{cfg.name}: frontends, tied embeddings and ungated FFNs are "
@@ -75,6 +76,7 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 def forward_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                    cache: list, token_slot: torch.Tensor,
                    token_pos: torch.Tensor, token_wpos: torch.Tensor,
+                   token_active: Optional[torch.Tensor] = None,
                    kv_bucket: Optional[int] = None,
                    token_dst: Optional[torch.Tensor] = None,
                    block_tables: Optional[torch.Tensor] = None,
@@ -84,9 +86,11 @@ def forward_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     tokens: (1, T) packed stream; token_slot: (T,) int32 slot per token;
     token_pos: (T,) int32 position of the token in its request;
     token_wpos: (T,) int32 cache write row — ``token_pos`` for real tokens,
-    ``max_len`` for padding (whose K/V are then not written).  Each token
-    attends rows [0, pos] of its own slot, so segments never attend across
-    each other; ``kv_bucket`` bounds the rows read (DESIGN.md §9).
+    ``max_len`` for padding (whose K/V are then not written);
+    token_active: (T,) bool, False for padding, whose recurrent state is
+    then not committed (required when the model has Mamba layers).  Each
+    token attends rows [0, pos] of its own slot, so segments never attend
+    across each other; ``kv_bucket`` bounds the rows read (DESIGN.md §9).
     ``token_dst`` ((T,) int32 flat physical rows, N·S for padding) and
     ``block_tables`` ((N_slots, max_len / block_size) int32) switch
     attention to block-table mode (DESIGN.md §12): K/V scatter by physical
@@ -98,7 +102,8 @@ def forward_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     positions = token_pos[None]
     for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache):
         x, _ = blocks.block_packed(cfg, spec, p, x, positions, c, token_slot,
-                                   token_wpos, kv_bucket=kv_bucket,
+                                   token_wpos, token_active,
+                                   kv_bucket=kv_bucket,
                                    token_dst=token_dst,
                                    block_tables=block_tables, impl=impl)
     return _head(cfg, params, x), cache
@@ -113,8 +118,9 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
     Returns (logits (B, S, vocab), aux) or, with ``return_states``,
     (logits, aux, states): ``states[i]`` is layer i's ``{"kv": (k, v)}``,
-    each (B, S, KV, hd), for handing off to a decode cache.  ``aux`` (the
-    MoE balance loss in the JAX package) is 0 for these dense models."""
+    each (B, S, KV, hd), for an attention layer and its final ``{"conv",
+    "ssm"}`` for a Mamba layer, for handing off to a decode cache.  ``aux``
+    (the MoE balance loss in the JAX package) is 0 for these models."""
     x = _embed(params, tokens)
     b, s = tokens.shape
     if positions is None:
@@ -141,13 +147,18 @@ def forward_decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                    impl: Optional[str] = None):
     """tokens: (B, 1); cache_len: (B,) int32 valid rows before this token.
     Writes each row's K/V at its ``cache_len`` and attends [0, cache_len].
-    Returns (logits (B, vocab), cache), the cache updated in place."""
+    Returns (logits (B, vocab), new cache): attention layers' entries are
+    the given dicts, updated in place; Mamba layers' are new states, every
+    row advanced, with the given ones left as they were (the engine
+    commits only the decoding slots, as JAX's ``_decode_impl`` does)."""
     x = _embed(params, tokens)
     positions = cache_len[:, None]
+    new_cache = []
     for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache):
-        x, _ = blocks.block_decode(cfg, spec, p, x, positions, c, cache_len,
+        x, c = blocks.block_decode(cfg, spec, p, x, positions, c, cache_len,
                                    impl=impl)
-    return _head(cfg, params, x)[:, 0], cache
+        new_cache.append(c)
+    return _head(cfg, params, x)[:, 0], new_cache
 
 
 def forward_chunk(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -156,8 +167,9 @@ def forward_chunk(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     """Incremental chunked prefill (DESIGN.md §7): ``tokens`` (B, L) are
     the next L positions after the ``cache_len`` (B,) int32 rows already in
     ``cache``; each prompt token passes through the model once across
-    chunks.  Returns (logits (B, L, vocab), cache), the cache updated in
-    place."""
+    chunks; Mamba layers resume from their state.  Returns (logits (B, L,
+    vocab), cache), the cache updated in place (each Mamba state copied
+    into its given leaves, which may be views of a slot)."""
     x = _embed(params, tokens)
     positions = cache_len[:, None] + torch.arange(
         tokens.shape[1], dtype=torch.int32, device=x.device)
@@ -169,17 +181,22 @@ def forward_chunk(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             max_len: Optional[int] = None, impl: Optional[str] = None):
-    """Run ``forward_full`` over the prompts, then place each layer's K/V
-    at rows [0, S) of a fresh cache of ``max_len`` rows (default S), made
-    by ``init_cache`` on the tokens' device.  Returns (last logits (B,
-    vocab), cache, cache_len (B,) int32)."""
+    """Run ``forward_full`` over the prompts, then place each attention
+    layer's K/V at rows [0, S) of a fresh cache of ``max_len`` rows
+    (default S), made by ``init_cache`` on the tokens' device; a Mamba
+    layer's final state is its cache.  Returns (last logits (B, vocab),
+    cache, cache_len (B,) int32)."""
     logits, _aux, states = forward_full(cfg, params, tokens,
                                         return_states=True, impl=impl)
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_len or s, device=tokens.device)
-    for c, st in zip(cache, states):
-        k, v = st["kv"]
-        c["k"][:, :s] = k
-        c["v"][:, :s] = v
+    for spec, c, st in zip(cfg.layer_specs(), cache, states):
+        if spec.mixer == ATTN:
+            k, v = st["kv"]
+            c["k"][:, :s] = k
+            c["v"][:, :s] = v
+        else:
+            for name, leaf in c.items():
+                leaf.copy_(st[name])
     cache_len = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     return logits[:, -1], cache, cache_len

@@ -4,7 +4,9 @@ A definition tree is a nested dict of ``ParamDef``s (lists for the
 per-layer stack).  ``init_params`` draws each leaf from its own seeded
 ``torch.Generator`` on the target device, with the JAX init's scales
 (``repro/models/param.py``): truncated normal on [-2, 2] times
-1/sqrt(fan_in), norms set to ones.  The draws differ from JAX's (another
+1/sqrt(fan_in), norms set to ones, biases to zeros, and Mamba's ``a_log``
+(log 1..N per channel) and ``dt_bias`` (the inverse softplus of a step
+drawn log-uniform on [1e-3, 1e-1]).  The draws differ from JAX's (another
 generator); tests that compare the packages convert the JAX pytree instead
 (``models.convert``).
 """
@@ -19,6 +21,9 @@ import torch
 
 INIT_NORMAL = "normal"       # truncated-normal, 1/sqrt(fan_in)
 INIT_ONES = "ones"
+INIT_ZEROS = "zeros"
+INIT_A_LOG = "a_log"         # mamba: A = -exp(A_log)
+INIT_DT_BIAS = "dt_bias"     # mamba: softplus^-1 of the initial step
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -61,6 +66,20 @@ def _materialize(d: ParamDef, gen: torch.Generator,
     dt = DTYPES[d.dtype]
     if d.init == INIT_ONES:
         return torch.ones(d.shape, dtype=dt, device=device)
+    if d.init == INIT_ZEROS:
+        return torch.zeros(d.shape, dtype=dt, device=device)
+    if d.init == INIT_A_LOG:
+        n = d.shape[-1]
+        a = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=device))
+        return a.expand(d.shape).to(dt).contiguous()
+    if d.init == INIT_DT_BIAS:
+        dt_min, dt_max = 1e-3, 1e-1
+        u = torch.rand(d.shape, dtype=torch.float32, device=device,
+                       generator=gen)
+        dt_v = torch.exp(u * (math.log(dt_max) - math.log(dt_min))
+                         + math.log(dt_min))
+        return (dt_v + torch.log(-torch.expm1(-dt_v))).to(dt)
     if d.init != INIT_NORMAL:
         raise ValueError(d.init)
     w = torch.empty(d.shape, dtype=torch.float32, device=device)

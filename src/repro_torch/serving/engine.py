@@ -16,6 +16,17 @@ scatters it back) after zeroing the slot's rows on (re)assignment;
 recompute prefill (``model.forward_full``) reruns the whole prefix and
 writes its K/V into the slot's first rows.
 
+**Recurrent state** (Mamba layers of a hybrid): a slot's ``{"conv",
+"ssm"}`` state is advanced by every token of its request and must not be
+by anything else.  The legacy decode commits it only for the decoding
+slots (a mid-prefill slot's garbage decode token would advance it); a
+chunk writes its new state back into the slot's views; recompute writes
+the whole state of the prefix; a slot taken by a new request starts from
+zeros (the legacy reset, or, on the packed step, a masked select on the
+device before the forward).  Prefix caching and speculative decoding
+refuse models with recurrent layers, as in JAX: their state can neither
+be shared by blocks nor rolled back.
+
 **Packed step.**  One iteration = one call of the packed step: the decode
 tokens (one per decoding slot) and every scheduled prefill chunk are packed
 into a single ``(1, T)`` stream with per-token ``(slot, position)``
@@ -45,7 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import model as model_lib
 from repro_torch.serving import sampling
 from repro_torch.serving.config import EngineConfig
@@ -60,12 +71,14 @@ _META_ROWS = ("tokens", "slot", "pos", "active", "from_last", "sample_slot")
 def kv_bytes_per_token(cfg: ModelConfig,
                        kv_dtype: Optional[str] = None) -> int:
     """Per-token KV-cache bytes, from the cache shapes themselves (built on
-    the ``meta`` device, so nothing is allocated): for every layer, the
-    bytes of one sequence row of each cache leaf — int8 values plus f32
-    scales for ``kv_dtype="int8"``."""
+    the ``meta`` device, so nothing is allocated): for every attention
+    layer, the bytes of one sequence row of each cache leaf — int8 values
+    plus f32 scales for ``kv_dtype="int8"``.  A recurrent layer's state is
+    per slot, not per token, and is not charged."""
     cache = model_lib.init_cache(cfg, 1, 1, device="meta", kv_dtype=kv_dtype)
     return sum(int(np.prod(leaf.shape[2:])) * leaf.element_size()
-               for layer in cache for leaf in layer.values())
+               for spec, layer in zip(cfg.layer_specs(), cache)
+               if spec.mixer == ATTN for leaf in layer.values())
 
 
 @dataclasses.dataclass
@@ -151,6 +164,18 @@ class ServeEngine:
         self.config = config
         self.cfg = cfg
         self.params = params
+        self.recurrent = any(spec.mixer != ATTN
+                             for spec in cfg.layer_specs())
+        if self.recurrent:
+            # as the JAX engine refuses it: recurrent state cannot be
+            # block-shared (speculative decoding, which JAX refuses too,
+            # is refused for every model by EngineConfig until ROADMAP A8)
+            if config.prefix_caching:
+                raise ValueError("prefix caching (DESIGN.md §12) needs "
+                                 "attention-only models")
+            if config.kv_dtype == "int8":
+                raise NotImplementedError(
+                    "int8 KV on models with recurrent layers is ROADMAP A9")
         self.max_slots = config.max_slots
         self.max_len = config.max_len
         self.prefill_mode = config.prefill_mode
@@ -419,11 +444,13 @@ class ServeEngine:
                     .view(2, n_copy_rows)
                 self._copy_rows(src, dst)
         active = active.bool()
+        if self.recurrent:
+            self._reset_recurrent(reset)
         wpos = torch.where(active, pos, self.max_len)
         toks = sampling.substitute_last(tokens[None], self.last_token, slot,
                                         from_last.bool())
         logits, self.cache = model_lib.forward_packed(
-            self.cfg, self.params, toks, self.cache, slot, pos, wpos,
+            self.cfg, self.params, toks, self.cache, slot, pos, wpos, active,
             kv_bucket=kv_bucket, token_dst=token_dst,
             block_tables=block_tables)
         next_tok = sampling.greedy(logits[0])
@@ -433,6 +460,18 @@ class ServeEngine:
         self.last_token = sampling.scatter_last(self.last_token, sample_slot,
                                                 next_tok)
         return self.last_token
+
+    def _reset_recurrent(self, reset: torch.Tensor) -> None:
+        """Zero the recurrent state of the slots in ``reset`` (a reused slot
+        must not leak the previous request's state; the port of the JAX
+        ``_reset_recurrent``), in place on the device.  Attention leaves
+        need no reset: rows past a request's written extent are never
+        attended."""
+        for spec, layer in zip(self.cfg.layer_specs(), self.cache):
+            if spec.mixer != ATTN:
+                for leaf in layer.values():
+                    m = reset.view(-1, *(1,) * (leaf.dim() - 1))
+                    leaf.masked_fill_(m, 0)
 
     def _launched(self) -> Optional[torch.cuda.Event]:
         """An event after the work enqueued so far (None on the CPU)."""
@@ -456,9 +495,18 @@ class ServeEngine:
                 active[r.slot] = 1
             block = torch.from_numpy(host).to(self.device)
             t_disp = time.perf_counter()
-            logits, self.cache = model_lib.forward_decode(
+            logits, new_cache = model_lib.forward_decode(
                 self.cfg, self.params, block[0][:, None], self.cache,
                 self.cache_len)
+            # attention leaves were written in place; recurrent states
+            # commit only for the decoding slots
+            act = block[1].bool()
+            for spec, old, new in zip(self.cfg.layer_specs(), self.cache,
+                                      new_cache):
+                if spec.mixer != ATTN:
+                    for name, leaf in old.items():
+                        m = act.view(-1, *(1,) * (leaf.dim() - 1))
+                        leaf.copy_(torch.where(m, new[name], leaf))
             next_tok = sampling.greedy(logits)
             done = self._launched()
             self.stats.dispatch_time += time.perf_counter() - t_disp
@@ -496,8 +544,9 @@ class ServeEngine:
     def _prefill_chunk(self, r: Request, offset: int, length: int) -> int:
         """Incremental path: run exactly ``length`` new prompt tokens
         against the slot's carried cache, through the slot's ``(1, S, ...)``
-        view of every leaf (written in place).  The tokens and the offset go
-        up in one host-to-device copy."""
+        view of every leaf (written in place; a Mamba layer's new state is
+        copied into its views).  The tokens and the offset go up in one
+        host-to-device copy."""
         host = np.asarray(r.prompt[offset:offset + length] + [offset],
                           np.int32)
         block = torch.from_numpy(host).to(self.device)
@@ -532,16 +581,24 @@ class ServeEngine:
         return int(self._fetch(next_tok, done)[0])
 
     def _scatter_states(self, slot: int, states: list) -> None:
-        """Write each layer's prefix K/V into rows [0, s) of ``slot`` (the
-        port of the JAX ``_scatter_states`` / ``_write_slot_seq``)."""
-        for layer, st in zip(self.cache, states):
-            k, v = st["kv"]
-            layer["k"][slot, :k.shape[1]] = k[0]
-            layer["v"][slot, :v.shape[1]] = v[0]
+        """Write each attention layer's prefix K/V into rows [0, s) of
+        ``slot`` and each recurrent layer's state whole into the slot (the
+        port of the JAX ``_scatter_states`` / ``_write_slot_seq`` /
+        ``_write_slot``)."""
+        for spec, layer, st in zip(self.cfg.layer_specs(), self.cache,
+                                   states):
+            if spec.mixer == ATTN:
+                k, v = st["kv"]
+                layer["k"][slot, :k.shape[1]] = k[0]
+                layer["v"][slot, :v.shape[1]] = v[0]
+            else:
+                for name, leaf in layer.items():
+                    leaf[slot].copy_(st[name][0])
 
     def _reset_slot(self, slot: int) -> None:
-        """Zero the slot's rows of every leaf in place (the JAX
-        ``_reset_slot`` scatters a fresh one-slot cache)."""
+        """Zero the slot's rows of every leaf in place, recurrent state
+        included (the JAX ``_reset_slot`` scatters a fresh one-slot cache,
+        whose recurrent state is zeros too)."""
         for layer in self.cache:
             for leaf in layer.values():
                 leaf[slot].zero_()

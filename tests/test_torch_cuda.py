@@ -6,7 +6,9 @@ only PyTorch is installed.
 
 Tolerances: rtol 1e-5 / atol 2e-5 for f32 attention and 2e-2 in bf16 (as
 for the JAX kernels); 1e-4 for f32 SwiGLU, as ``tests/test_kernels.py``
-holds the Pallas SwiGLU.
+holds the Pallas SwiGLU; the selective scan at 1e-5 in f32 (the N states
+summed in another order) and, with bf16 x, b and c, y at one output
+rounding (1e-3 + 1e-2·|ref|) and the f32 final state at 1e-5.
 """
 import dataclasses
 
@@ -14,13 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import FFN_DENSE, get_config, scale_down
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssm_scan as ssm_scan_mod
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_ref)
 from repro_torch.kernels.packed_attention import (packed_attention_cuda,
                                                   packed_attention_ref)
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref
 from repro_torch.kernels.swiglu import swiglu_cuda, swiglu_ref
 from repro_torch.models import model
 from repro_torch.serving.config import EngineConfig
@@ -276,6 +281,116 @@ def test_legacy_engine_on_card_matches_cpu(cuda, mode):
                     decode_attention_cuda.launches - before[1])
         assert (min(launched) > 0) == (dev == "cuda"), launched
         assert eng.stats.dispatches_per_iter > 1.0
+    assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6
+
+
+def _scan_args(cuda, dtype, bsz, s, ch, n=16, h0=True, seed=0):
+    """Selective-scan inputs on the card at a Mamba layer's magnitudes:
+    x, b and c in ``dtype``; dt, a, d and h0 in f32."""
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=cuda)
+    x = f32(rng.normal(size=(bsz, s, ch))).to(TORCH[dtype])
+    dt = f32(np.log1p(np.exp(rng.normal(-2.0, 1.0, (bsz, s, ch)))))
+    a = f32(-np.exp(rng.uniform(0.0, np.log(n), (ch, n))))
+    b = f32(rng.normal(size=(bsz, s, n))).to(TORCH[dtype])
+    c = f32(rng.normal(size=(bsz, s, n))).to(TORCH[dtype])
+    d = f32(rng.normal(size=(ch,)))
+    h = f32(rng.normal(size=(bsz, ch, n))) if h0 else None
+    return x, dt, a, b, c, d, h
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+@pytest.mark.parametrize("s", [1, 8, 37])
+@pytest.mark.parametrize("ch,n", [(70, 16), (200, 32), (33, 64)])
+def test_ssm_scan_kernel(cuda, ch, n, s, h0, dtype):
+    """Two batch rows, ragged channel counts (the kernel's blocks hold 64,
+    32 and 16 channels at N 16, 32, 64), S across a 32-token tile edge,
+    from a given and from a zero state, against the plain version."""
+    args = _scan_args(cuda, dtype, 2, s, ch, n, h0, seed=s + ch)
+    before = ssm_scan_cuda.launches
+    y, h = ssm_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert ssm_scan_cuda.launches == before + 1
+    want_y, want_h = ssm_scan_ref(*args)
+    assert y.dtype == TORCH[dtype] and h.dtype == torch.float32
+    tol = dict(rtol=1e-2, atol=1e-3) if dtype == "bfloat16" \
+        else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y.float(), want_y.float(), **tol)
+    torch.testing.assert_close(h, want_h, rtol=1e-5, atol=1e-5)
+
+
+def test_ssm_scan_kernel_reads_projection_slices(cuda):
+    """b and c as column slices of one (B, S, R + 2N) projection, as
+    ``mamba_full`` passes them, without a copy."""
+    x, dt, a, _, _, d, h = _scan_args(cuda, "bfloat16", 2, 40, 96)
+    proj = torch.randn(2, 40, 8 + 32, device=cuda).to(torch.bfloat16)
+    b, c = proj[..., 8:24], proj[..., 24:]
+    assert not b.is_contiguous()
+    y, hf = ssm_scan_cuda(x, dt, a, b, c, d, h)
+    want_y, want_h = ssm_scan_ref(x, dt, a, b, c, d, h)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=1e-2,
+                               atol=1e-3)
+    torch.testing.assert_close(hf, want_h, rtol=1e-5, atol=1e-5)
+
+
+def test_ssm_scan_wrapper_never_reaches_the_plain_version(cuda, monkeypatch):
+    """``ops.ssm_scan`` sends a CUDA tensor to the kernel (the plain version
+    is made to fail and is never called); inputs the kernel does not take
+    raise and launch nothing."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+    monkeypatch.setattr(ops, "ssm_scan_ref", refuse)
+    monkeypatch.setattr(ssm_scan_mod, "ssm_scan_ref", refuse)
+    args = _scan_args(cuda, "float32", 1, 5, 64)
+    before = ssm_scan_cuda.launches
+    ops.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert ssm_scan_cuda.launches == before + 1
+    x, dt, a, b, c, d, h = args
+    for bad in ((x, dt.to(torch.bfloat16), a, b, c, d, h),   # dt not f32
+                (x, dt, a[:, :8].contiguous(), b[..., :8], c[..., :8], d,
+                 h[..., :8].contiguous()),                       # N 8
+                (x, dt, a, b.to(torch.bfloat16), c, d, h),
+                (x, dt, a, b, c, d, h.cpu())):
+        with pytest.raises(ValueError):
+            ops.ssm_scan(*bad)
+    assert ssm_scan_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("mode", [dict(step_mode="legacy"),
+                                  dict(prefill_mode="recompute"),
+                                  dict(step_mode="packed")])
+def test_hybrid_engine_on_card_matches_cpu(cuda, mode):
+    """Jamba's layer pattern at scaled-down width (d_model 256, 4 heads of
+    64: a head size the attention kernels take) with dense FFNs, f32: each
+    step on the card (the scan kernel on the prefill dispatches of the
+    legacy and recompute steps, none on the packed step) serves the same
+    greedy tokens as on the CPU, with slot reuse."""
+    cfg = scale_down(get_config("jamba-1.5-large-398b"), d_model=256,
+                     n_heads=4)
+    cfg = dataclasses.replace(
+        cfg, moe=None, dtype="float32",
+        block_pattern=tuple(dataclasses.replace(sp, ffn=FFN_DENSE)
+                            for sp in cfg.block_pattern))
+    params = model.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                             int(rng.integers(3, 40)))]
+               for _ in range(6)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, _to(params, dev), EngineConfig(
+            max_slots=2, max_len=64, discrete_sizes=(16, 8),
+            avg_decode_len=4, **mode), device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=pr, max_new_tokens=6))
+        before = ssm_scan_cuda.launches
+        outs[dev] = {r.rid: r.output for r in eng.run()}
+        scans = ssm_scan_cuda.launches - before
+        assert (scans > 0) == (dev == "cuda" and eng.step_mode == "legacy")
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6
 
 
