@@ -18,6 +18,20 @@ Phases (any failure exits non-zero; no phase is caught):
                selective scan (f32 and bf16) at Jamba-1.5-Large's 16384
                channels and 16 states, on a 256-token chunk from a carried
                state and a 513-token prompt from zero state.
+     paged   — paged decode attention through ``ops.paged_decode_attention``
+               (its only caller) at Qwen3-8B's heads: 8 rows of the serve
+               phase's lengths + 16 over a shuffled pool of 16-row pages,
+               tables padded with -1; kernel vs plain in bf16 and f32.
+     overlap — the fused GEMM + decode-attention op through
+               ``ops.fused_overlap``: x (1024, 4096) @ w (4096, 4096) beside
+               decode attention of 64 rows over (64, 1024, 8, 128) caches;
+               kernel vs plain in bf16 and f32, outputs bitwise equal over
+               the gemm_fraction sweep 0.125 ... 1.0 (CTAs, GEMM CTAs, CTAs
+               per SM and ms at each), beside both bounds, the library pair
+               (torch.matmul, then masked SDPA), the port's decode
+               attention alone and each role of the fused kernel alone.
+               Each of the two is launched once from 0 counts, through its
+               ``ops`` entry; no serve phase may launch them.
   4. forward — ``forward_packed`` at full width, 4 layers, through the
                kernels and through the plain versions: logits must agree.
   5. serve   — Qwen3-8B at full width and all 36 layers (seeded random bf16
@@ -105,6 +119,18 @@ LEGACY_MODES = {"legacy": dict(step_mode="legacy"),
 # so the difference does not grow with S)
 SSM_SCAN = (f"{_CSRC}/ssm_scan.cu", "src/repro/kernels/ssm_scan.py:61")
 SCAN_F32_TOL = (1e-5, 1e-5)
+# the two kernels that only their ``ops`` entries call: source and the TPU
+# kernel each replaces; no serve phase may launch them
+OPS_ONLY = {
+    "paged_decode_attention": (f"{_CSRC}/packed_attention.cu",
+                               "src/repro/kernels/decode_attention.py:154"),
+    "fused_overlap": (f"{_CSRC}/fused_overlap.cu",
+                      "src/repro/kernels/fused_overlap.py:89"),
+}
+PAGE = 16               # rows per page of the paged phase
+OVERLAP_FRACTIONS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+# the fused GEMM in f32 against torch.matmul: 4096-term sums in another order
+GEMM_F32_TOL = (1e-4, 1e-4)
 # special-function-unit exponentials per clock per SM (CUDA C++ programming
 # guide, arithmetic instruction throughput, compute capability 9.0) and the
 # float32 rate outside the tensor cores (NVIDIA H100 SXM data sheet)
@@ -476,6 +502,211 @@ def phase_ssm_kernels(torch, cfg, timer, bw, sfu) -> dict:
     return record
 
 
+def paged_case(torch, cfg, dtype, seed: int = 19):
+    """``decode_case``'s 8 rows (the serve phase's prompt lengths + 16) read
+    through a page table: a pool of 8 x 64 pages of 16 rows, each row's
+    pages drawn without repeats from a shuffled pool (numpy seed), tables
+    (8, 64) padded with -1.  Returns (args, bytes, flops, description): the
+    bytes count q, out, the attended K/V rows, the tables and lengths."""
+    kv, hd, h = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    lens = np.random.default_rng(0).integers(16, 601, 8) + 16
+    maxp = 1024 // PAGE
+    pool = np.random.default_rng(seed).permutation(8 * maxp)
+    table = np.full((8, maxp), -1, np.int32)
+    used = 0
+    for i, n in enumerate(-(-lens // PAGE)):
+        table[i, :n] = pool[used:used + n]
+        used += n
+    q = randn(8, h, hd)
+    kp, vp = randn(8 * maxp, PAGE, kv, hd), randn(8 * maxp, PAGE, kv, hd)
+    args = (q, kp, vp, torch.tensor(table, device="cuda"),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+    item = q.element_size()
+    nbytes = (int(lens.sum()) * kv * hd * 2 * item + 2 * q.numel() * item
+              + table.size * 4 + 8 * 4)
+    desc = (f"q (8, {h}, {hd}), pools ({8 * maxp}, {PAGE}, {kv}, {hd}), "
+            f"tables (8, {maxp}) with -1 padding, cache_len {lens.tolist()}")
+    return args, nbytes, int(lens.sum()) * h * hd * 4, desc
+
+
+def phase_paged(torch, cfg, timer, bw, peak) -> tuple[dict, int]:
+    """Paged decode attention: one launch through ``ops`` from 0 counts,
+    then the kernel against its plain version in f32 and bf16, timed in
+    bf16 beside it.  No one PyTorch call gathers through a page table.
+    Returns (record, launches)."""
+    from functools import partial
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_ref)
+    args, nbytes, flops, desc = paged_case(torch, cfg, torch.bfloat16)
+    zero_counts()
+    ops.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    launches = read_counts()["paged_decode_attention"]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args, nbytes, flops, desc = paged_case(torch, cfg, dtype)
+        got = paged_decode_attention_cuda(*args)
+        want = paged_decode_attention_ref(*args)
+        torch.cuda.synchronize()
+        errs[dtype] = check_close(
+            f"paged_decode_attention {dtype}", got, want,
+            F32_TOL if dtype == torch.float32 else BF16_TOL)
+    ms = timer(partial(paged_decode_attention_cuda, *args))
+    plain_ms = timer(partial(paged_decode_attention_ref, *args))
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+    log(f"paged_decode_attention {desc}: launches through ops {launches}, "
+        f"max_abs_err f32 {errs[torch.float32]:.3e} (tol {F32_TOL[0]} + "
+        f"{F32_TOL[1]}·|ref|), bf16 {errs[torch.bfloat16]:.3e} (tol "
+        f"{BF16_TOL[0]} + {BF16_TOL[1]}·|ref|)  kernel_ms {ms:.4f}  plain_ms "
+        f"{plain_ms:.4f}  bound_ms {max(t_bytes, t_ops):.4f} "
+        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    if launches != 1:
+        raise AssertionError(f"paged: ops launched the kernel {launches} "
+                             "times, not once")
+    return dict(shape=desc + ", bf16", max_abs_err=errs[torch.bfloat16],
+                max_abs_err_f32=errs[torch.float32], ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None), launches
+
+
+def overlap_case(torch, cfg, dtype, seed: int = 23):
+    """The O projection of a 1024-token nano-batch, x (1024, d_model) @ w
+    (d_model, d_model), beside decode attention of 64 rows over (64, 1024,
+    KV, D) caches, lengths uniform in [1, 1024] (numpy seed).  Returns
+    (args, gemm (bytes, flops), attention (bytes, flops), description)."""
+    kv, hd, h, dm = (cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads,
+                     cfg.d_model)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
+    m, b, s = 1024, 64, 1024
+    lens = np.random.default_rng(seed).integers(1, s + 1, b)
+    x, w = randn(m, dm), randn(dm, dm, scale=dm ** -0.5)
+    q, k, v = randn(b, h, hd), randn(b, s, kv, hd), randn(b, s, kv, hd)
+    args = (x, w, q, k, v,
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+    item = x.element_size()
+    gemm = ((m * dm + dm * dm + m * dm) * item, 2 * m * dm * dm)
+    attn = (int(lens.sum()) * kv * hd * 2 * item + 2 * q.numel() * item
+            + b * 4, int(lens.sum()) * h * hd * 4)
+    desc = (f"x ({m}, {dm}) @ w ({dm}, {dm}) beside q ({b}, {h}, {hd}) over "
+            f"caches ({b}, {s}, {kv}, {hd}), {int(lens.sum())} rows attended")
+    return args, gemm, attn, desc
+
+
+def phase_overlap(torch, cfg, timer, bw, peak) -> tuple[dict, int]:
+    """The fused op: one launch through ``ops`` from 0 counts; the kernel
+    against its plain version in f32 and bf16; the gemm_fraction sweep in
+    bf16 (outputs bitwise equal at every fraction; CTAs and time at each);
+    the bounds by arithmetic; the library pair and the port's decode
+    attention alone on the same inputs.  Returns (record, launches)."""
+    from functools import partial
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.fused_overlap import (fused_overlap_cuda,
+                                                   fused_overlap_ref)
+    F = torch.nn.functional
+    args, gemm, attn, desc = overlap_case(torch, cfg, torch.bfloat16)
+    zero_counts()
+    ops.fused_overlap(*args, gemm_fraction=0.5)
+    torch.cuda.synchronize()
+    launches = read_counts()["fused_overlap"]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args, gemm, attn, desc = overlap_case(torch, cfg, dtype)
+        (go, ao), (wg, wa) = fused_overlap_cuda(*args), fused_overlap_ref(*args)
+        torch.cuda.synchronize()
+        f32 = dtype == torch.float32
+        errs[dtype] = (
+            check_close(f"fused_overlap gemm {dtype}", go, wg,
+                        GEMM_F32_TOL if f32 else BF16_TOL),
+            check_close(f"fused_overlap attention {dtype}", ao, wa,
+                        F32_TOL if f32 else BF16_TOL))
+        del go, ao, wg, wa
+        if f32:
+            del args
+            torch.cuda.empty_cache()
+    first, sweep = None, []
+    for frac in OVERLAP_FRACTIONS:
+        outs = fused_overlap_cuda(*args, gemm_fraction=frac)
+        sched = fused_overlap_cuda.schedule
+        if first is None:
+            first = outs
+        if not all(torch.equal(a, b) for a, b in zip(outs, first)):
+            raise AssertionError(f"fused_overlap: outputs at gemm_fraction "
+                                 f"{frac} differ from {OVERLAP_FRACTIONS[0]}")
+        ms = timer(partial(fused_overlap_cuda, *args, gemm_fraction=frac))
+        sweep.append((frac, sched, ms))
+        log(f"fused_overlap sweep: gemm_fraction {frac}: {sched[0]} CTAs "
+            f"({sched[2]} per SM), {sched[1]} GEMM + {sched[0] - sched[1]} "
+            f"attention, kernel_ms {ms:.4f}, outputs bitwise equal")
+    x, w, q, k, v, clen = args
+    mask = torch.arange(k.shape[1], device="cuda")[None, :] < clen[:, None]
+    lib_q, lib_k, lib_v = (q[:, :, None], k.transpose(1, 2).contiguous(),
+                           v.transpose(1, 2).contiguous())
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            lib_q, lib_k, lib_v, attn_mask=mask[:, None, None, :],
+            enable_gqa=True)
+
+    def library():
+        return torch.matmul(x, w), sdpa()
+    lg, la = library()
+    check_close("library pair gemm", lg, first[0], LIB_TOL)
+    check_close("library pair attention", la[:, :, 0], first[1], LIB_TOL)
+    lib_ms = timer(library)
+    mm_ms, sdpa_ms = timer(partial(torch.matmul, x, w)), timer(sdpa)
+    decode_ms = timer(partial(decode_attention_cuda, q, k, v, clen))
+    # each role alone on every CTA of the same kernel: the other side empty
+    gemm_only = (x, w, q[:0], k[:0], v[:0], clen[:0])
+    attn_only = (x[:0], w, q, k, v, clen)
+    gemm_only_ms = timer(partial(fused_overlap_cuda, *gemm_only))
+    attn_only_ms = timer(partial(fused_overlap_cuda, *attn_only))
+    plain_ms = timer(partial(fused_overlap_ref, *args))
+    ms = dict((f, t) for f, _, t in sweep)[0.5]
+    t_gemm = max(gemm[0] / bw, gemm[1] / peak) * 1e3
+    t_attn = max(attn[0] / bw, attn[1] / peak) * 1e3
+    t_bytes = (gemm[0] + attn[0]) / bw * 1e3
+    t_ops = (gemm[1] + attn[1]) / peak * 1e3
+    best = min(sweep, key=lambda r: r[2])
+    log(f"fused_overlap {desc}: launches through ops {launches}; max_abs_err "
+        f"f32 gemm {errs[torch.float32][0]:.3e} (tol {GEMM_F32_TOL[0]} + "
+        f"{GEMM_F32_TOL[1]}·|ref|) attention {errs[torch.float32][1]:.3e} (tol"
+        f" {F32_TOL[0]} + {F32_TOL[1]}·|ref|), bf16 gemm "
+        f"{errs[torch.bfloat16][0]:.3e} attention {errs[torch.bfloat16][1]:.3e}"
+        f" (tol {BF16_TOL[0]} + {BF16_TOL[1]}·|ref|)")
+    log(f"fused_overlap: kernel_ms {ms:.4f} at gemm_fraction 0.5, best "
+        f"{best[2]:.4f} at {best[0]}; plain_ms {plain_ms:.4f}; bound_ms "
+        f"overlapped {max(t_bytes, t_ops):.4f} (bytes {t_bytes:.4f}: GEMM "
+        f"{gemm[0] / 1e6:.1f} MB + attention {attn[0] / 1e6:.1f} MB; "
+        f"operations {t_ops:.4f}: {(gemm[1] + attn[1]) / 1e9:.2f} GFLOP), "
+        f"sequential {t_gemm + t_attn:.4f} (GEMM {t_gemm:.4f} + attention "
+        f"{t_attn:.4f}); library pair (torch.matmul then masked SDPA, one "
+        f"stream) {lib_ms:.4f} = matmul {mm_ms:.4f} + sdpa {sdpa_ms:.4f} "
+        f"alone; the port's decode attention alone {decode_ms:.4f}; the "
+        f"fused kernel's GEMM role alone (B = 0, all CTAs) {gemm_only_ms:.4f}, "
+        f"its attention role alone (M = 0, all CTAs) {attn_only_ms:.4f}")
+    if launches != 1:
+        raise AssertionError(f"overlap: ops launched the kernel {launches} "
+                             "times, not once")
+    return dict(shape=desc + ", bf16, gemm_fraction 0.5",
+                max_abs_err=max(errs[torch.bfloat16]),
+                max_abs_err_f32=max(errs[torch.float32]), ms=ms,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=lib_ms), launches
+
+
 def phase_kernels(torch, cfg, timer, bw, peak):
     from repro_torch.kernels.packed_attention import (packed_attention_cuda,
                                                       packed_attention_ref)
@@ -645,15 +876,20 @@ def phase_forward(torch, cfg):
 
 
 def _counted():
-    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, paged_decode_attention_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.fused_overlap import fused_overlap_cuda
     from repro_torch.kernels.packed_attention import packed_attention_cuda
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
     from repro_torch.kernels.swiglu import swiglu_cuda
     return (packed_attention_cuda, {"swiglu": swiglu_cuda,
                                     "flash_attention": flash_attention_cuda,
                                     "decode_attention": decode_attention_cuda,
-                                    "ssm_scan": ssm_scan_cuda})
+                                    "ssm_scan": ssm_scan_cuda,
+                                    "paged_decode_attention":
+                                        paged_decode_attention_cuda,
+                                    "fused_overlap": fused_overlap_cuda})
 
 
 def zero_counts() -> None:
@@ -669,6 +905,13 @@ def read_counts() -> dict:
     packed, single = _counted()
     return dict(packed.launches,
                 **{kname: fn.launches for kname, fn in single.items()})
+
+
+def check_off_path(tag: str, counts: dict) -> None:
+    """The kernels that only their ``ops`` entries call never launch on a
+    serve path."""
+    if any(counts[kname] for kname in OPS_ONLY):
+        raise AssertionError(f"{tag}: an ops-only kernel launched: {counts}")
 
 
 def phase_serve(torch, cfg):
@@ -696,6 +939,7 @@ def phase_serve(torch, cfg):
     done = eng.run()
     torch.cuda.synchronize()
     counts = read_counts()
+    check_off_path("serve", counts)
     launches = {k: counts[k] for k in ("packed_attention", "swiglu")}
     s = eng.stats
     log(f"serve: prompts {lens.tolist()}, {len(done)}/8 finished, "
@@ -838,6 +1082,7 @@ def phase_legacy(torch, cfg, params, prompts, packed: dict) -> dict:
         done = eng.run()
         torch.cuda.synchronize()
         c = counts[mode] = read_counts()
+        check_off_path(mode, c)
         s = eng.stats
         log(f"{mode}: {len(done)}/8 finished, {s.iterations} iterations, "
             f"{s.total_tokens} tokens in {s.wall_time:.3f} s = "
@@ -920,6 +1165,7 @@ def phase_shared_prefix(torch, cfg, params) -> dict:
         done += eng.run()
         torch.cuda.synchronize()
         counts = read_counts()
+        check_off_path("shared-prefix", counts)
         s, kvs = eng.stats, eng.kv.stats
         tag = (f"shared-prefix [prefix caching {'on' if blocked else 'off'}, "
                f"{kv_dtype} KV]")
@@ -1112,6 +1358,7 @@ def phase_hybrid(torch) -> dict:
         done = eng.run()
         torch.cuda.synchronize()
         c = counts[mode] = read_counts()
+        check_off_path(f"hybrid {mode}", c)
         s = eng.stats
         log(f"hybrid {mode}: prompts {lens.tolist()}, {len(done)}/8 finished, "
             f"{s.iterations} iterations, {s.total_tokens} tokens in "
@@ -1208,8 +1455,17 @@ def main() -> int:
     record.update(phase_legacy_kernels(torch, cfg, timer, bw, peak))
     record.update(phase_ssm_kernels(torch, get_config(JAMBA), timer, bw,
                                     sfu_rate(torch)))
-    del timer
     lap("kernels")
+    # the two ops-only kernels: each phase's own launch through ``ops``
+    ops_only = {}
+    record["paged_decode_attention"], ops_only["paged_decode_attention"] = \
+        phase_paged(torch, cfg, timer, bw, peak)
+    lap("paged")
+    record["fused_overlap"], ops_only["fused_overlap"] = \
+        phase_overlap(torch, cfg, timer, bw, peak)
+    del timer
+    torch.cuda.empty_cache()
+    lap("overlap")
     phase_forward(torch, cfg)
     lap("forward")
     launches, params, prompts, serve_wall, packed = phase_serve(torch, cfg)
@@ -1231,6 +1487,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["ssm_scan"] = phase_hybrid(torch)
     lap("hybrid")
+    launches.update(ops_only)
 
     sources = {kname: (f"{_CSRC}/packed_attention.cu", replaces)
                for kname, (_, replaces) in ATTENTION.items()}
@@ -1238,6 +1495,7 @@ def main() -> int:
     sources["swiglu"] = (f"{_CSRC}/swiglu.cu",
                          "src/repro/kernels/swiglu.py:45")
     sources["ssm_scan"] = SSM_SCAN
+    sources.update(OPS_ONLY)
     kernels = []
     for kname, (src, replaces) in sources.items():
         rec = record[kname]

@@ -26,8 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 # target -> (source, its compile-time switches).  The four packed-attention
-# variants and decode attention are one source built with three switches
-# (csrc/packed_attention.cu).
+# variants, decode attention and paged decode attention are one source built
+# with three switches (csrc/packed_attention.cu).
 def _pa(quant: int, block_table: int) -> tuple[str, tuple[str, ...]]:
     return ("packed_attention", (f"-DREPRO_PA_QUANT={quant}",
                                  f"-DREPRO_PA_BLOCK_TABLE={block_table}"))
@@ -39,6 +39,10 @@ TARGETS = {
     "packed_attention_block": _pa(0, 1),
     "packed_attention_block_quant": _pa(1, 1),
     "decode_attention": ("packed_attention", ("-DREPRO_PA_DECODE=1",)),
+    "paged_decode_attention": ("packed_attention",
+                               ("-DREPRO_PA_DECODE=1",
+                                "-DREPRO_PA_BLOCK_TABLE=1")),
+    "fused_overlap": ("fused_overlap", ()),
     "flash_attention": ("flash_attention", ()),
     "swiglu": ("swiglu", ()),
     "ssm_scan": ("ssm_scan", ()),
@@ -57,6 +61,9 @@ SIGNATURES = {
     "swiglu": ("repro_swiglu", [_void_p] * 4 + [_int] * 4 + [_void_p]),
     "ssm_scan": ("repro_ssm_scan",
                  [_void_p] * 9 + [_int] * 5 + [_ll] * 4 + [_void_p]),
+    "fused_overlap": ("repro_fused_overlap",
+                      [_void_p] * 11 + [_int] * 9 + [_ll] * 4
+                      + [_float, _float, _void_p, _void_p]),
 }
 
 

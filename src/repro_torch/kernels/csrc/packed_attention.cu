@@ -28,6 +28,15 @@
 //     Built without the other two switches, into its own library, so decode
 //     can later get its own schedule (split-KV for few slots over long
 //     caches) without touching the packed step.
+//   REPRO_PA_DECODE with REPRO_PA_BLOCK_TABLE (replaces the TPU kernel
+//     src/repro/kernels/decode_attention.py `paged_decode_attention`): decode
+//     through a page table.  Token b reads its logical row r from row r % PS
+//     of page max(page_table[b, r / PS], 0) of the (NP, PS, KV, D) pools, in
+//     place (block_size = PS, nb_cols = MAXP; the TPU wrapper's (KV, NP, PS,
+//     D) transpose is not made).  A -1 entry inside the length reads page 0,
+//     as the TPU kernel (which prefetches max(table, 0)) and its reference
+//     do; pages past the length are never read.  The clamp exists only in
+//     this build, so the other builds compile as before.
 //
 // What bounds it on the card: bytes.  A decode token reads its slot's K and V
 // rows once (2 * len * head_dim bytes per KV head in int8, twice that in
@@ -77,8 +86,7 @@ constexpr int NUM_WARPS = 8;
 constexpr bool QUANT = REPRO_PA_QUANT != 0;
 constexpr bool BLOCK_TABLE = REPRO_PA_BLOCK_TABLE != 0;
 constexpr bool DECODE = REPRO_PA_DECODE != 0;
-static_assert(!DECODE || (!QUANT && !BLOCK_TABLE),
-              "the decode build reads native, contiguous slot caches");
+static_assert(!DECODE || !QUANT, "the decode builds read native caches");
 
 // Everything a launch needs besides its compile-time shape; strides are in
 // elements.  k_scale/v_scale share strides (s_sn, s_ss) and have unit stride
@@ -192,8 +200,11 @@ packed_attention_kernel(const Params p) {
       const int r = base + u;
       if (r < len) {
         long long row = r;
-        if (BLOCK_TABLE)
-          row = (long long)bt[r / p.block_size] * p.block_size + r % p.block_size;
+        if (BLOCK_TABLE) {
+          int page = bt[r / p.block_size];
+          if (DECODE) page = max(page, 0);   // paged decode: -1 reads page 0
+          row = (long long)page * p.block_size + r % p.block_size;
+        }
         load_vec<KV, DPL>(kb + row * p.k_ss, kf[u]);
         load_vec<KV, DPL>(vb + row * p.v_ss, vf[u]);
         if (QUANT) {
@@ -308,7 +319,9 @@ int launch(int group, int head_dim, int n_tokens, const Params& p,
 // dtype: 0 = float32, 1 = bfloat16 (q and out).  kv_int8 must equal this
 // build's REPRO_PA_QUANT, block_tables must be non-null exactly when it is
 // built with REPRO_PA_BLOCK_TABLE, and token_slot must be null exactly when
-// it is built with REPRO_PA_DECODE (token t is then slot t).  q (T, H, D)
+// it is built with REPRO_PA_DECODE (token t is then slot t; with block
+// tables, the paged build, row t of the (T, nb_cols) page table is token
+// t's, and entries may be -1).  q (T, H, D)
 // and out (T, H, D) are contiguous; k/v are (N, S, KV, D) with unit stride
 // over (KV, D) and the given element strides over N and S; scales are
 // (N, S, KV) f32 with unit stride over KV; block_tables is (N, nb_cols)

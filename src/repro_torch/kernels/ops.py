@@ -12,10 +12,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.decode_attention import (decode_attention_cuda,
-                                                  decode_attention_ref)
+from repro_torch.kernels.decode_attention import (
+    decode_attention_cuda, decode_attention_ref, paged_decode_attention_cuda,
+    paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_ref)
+from repro_torch.kernels.fused_overlap import (fused_overlap_cuda,
+                                               fused_overlap_ref)
 from repro_torch.kernels.packed_attention import (packed_attention_cuda,
                                                   packed_attention_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref
@@ -72,6 +75,32 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     fn = decode_attention_cuda if _use_kernel(q, impl) \
         else decode_attention_ref
     return fn(q, k_cache, v_cache, cache_len)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,
+                           logit_scale: Optional[float] = None,
+                           impl: Optional[str] = None) -> torch.Tensor:
+    """Decode through a page table: q (B, H, D), page pools (NP, PS, KV,
+    D), ``page_table`` (B, MAXP) int32 page ids (-1 unused), rows
+    [0, cache_len[b]) of row b's pages attended; scores scaled by
+    ``logit_scale`` (default D ** -0.5)."""
+    fn = paged_decode_attention_cuda if _use_kernel(q, impl) \
+        else paged_decode_attention_ref
+    return fn(q, k_pages, v_pages, page_table, cache_len,
+              logit_scale=logit_scale)
+
+
+def fused_overlap(x, w, q, k_cache, v_cache, cache_len, *,
+                  gemm_fraction: float = 0.5, impl: Optional[str] = None):
+    """NanoFlow's signature op: ``x @ w`` co-scheduled with decode
+    attention of q (B, H, D) over caches (B, S, KV, D).  ``gemm_fraction``
+    is the share of the kernel's CTAs that take GEMM tiles (the paper's
+    SM-partition ratio); the plain version computes the pair one after the
+    other.  Returns (gemm_out, attn_out)."""
+    if _use_kernel(x, impl):
+        return fused_overlap_cuda(x, w, q, k_cache, v_cache, cache_len,
+                                  gemm_fraction=gemm_fraction)
+    return fused_overlap_ref(x, w, q, k_cache, v_cache, cache_len)
 
 
 def ssm_scan(x, dt, a, b, c, d, h0=None, *, impl: Optional[str] = None):

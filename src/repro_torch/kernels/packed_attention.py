@@ -161,18 +161,23 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
            lengths: torch.Tensor, *, kv_bucket: Optional[int] = None,
            block_tables: Optional[torch.Tensor] = None,
            k_scale: Optional[torch.Tensor] = None,
-           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+           v_scale: Optional[torch.Tensor] = None,
+           scale: Optional[float] = None) -> torch.Tensor:
     """Check the operands and launch build ``target`` of
-    ``csrc/packed_attention.cu``: one of the four packed variants, or
-    ``decode_attention`` (``token_slot=None``: token t is slot t)."""
+    ``csrc/packed_attention.cu``: one of the four packed variants,
+    ``decode_attention`` (``token_slot=None``: token t is slot t), or
+    ``paged_decode_attention`` (``token_slot=None`` with ``block_tables``:
+    the caches are (NP, PS, KV, D) page pools and row t of the (T, MAXP)
+    table holds token t's page ids).  ``scale`` multiplies the scores
+    (default ``D ** -0.5``)."""
     dev = q.device
     _check(dev.type == "cuda", "q is not a CUDA tensor")
     quant = k_scale is not None
     _check((v_scale is not None) == quant, "k_scale and v_scale go together")
     blocked = block_tables is not None
     decode = token_slot is None
-    _check(not (decode and (quant or blocked)),
-           "the decode build reads native, contiguous caches")
+    paged = decode and blocked
+    _check(not (decode and quant), "the decode builds read native caches")
     per_token = [("lengths", lengths)] + ([] if decode else
                                           [("token_slot", token_slot)])
     named = [("k_cache", k_cache), ("v_cache", v_cache)] + per_token
@@ -197,7 +202,8 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
            f"group {h}/{kvh} not in {GROUPS}")
     _check(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
     _check(t < 65536, "at most 65535 tokens per launch")
-    _check(not decode or t == n, f"decode: {t} queries for {n} slots")
+    _check(not decode or paged or t == n,
+           f"decode: {t} queries for {n} slots")
     for name, x in per_token:
         _check(x.dtype == torch.int32 and tuple(x.shape) == (t,)
                and x.is_contiguous(), f"{name} must be contiguous int32 (T,)")
@@ -224,12 +230,18 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
     sweep = s if kv_bucket is None else min(int(kv_bucket), s)
     nb_cols = bs = 0
     if blocked:
+        rows = t if paged else n
         _check(block_tables.dtype == torch.int32 and block_tables.dim() == 2
-               and block_tables.shape[0] == n
+               and block_tables.shape[0] == rows
                and block_tables.is_contiguous(),
-               f"block_tables must be contiguous int32 ({n}, S // bs)")
+               f"block_tables must be contiguous int32 ({rows}, "
+               + ("MAXP)" if paged else "S // bs)"))
         nb_cols = block_tables.shape[1]
-        bs, _ = _block_sweep(s, nb_cols, kv_bucket)
+        if paged:     # a page is a block; MAXP pages bound the sweep
+            _check(nb_cols >= 1, "page_table needs a column")
+            bs, sweep = s, nb_cols * s
+        else:
+            bs, _ = _block_sweep(s, nb_cols, kv_bucket)
         for name, x in [("k_cache", k_cache), ("v_cache", v_cache)] + scales:
             _check(x.stride(0) == s * x.stride(1),
                    f"{name}: block-table mode needs a uniform flat row space "
@@ -244,10 +256,11 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 ptr(k_scale), ptr(v_scale), ptr(token_slot),
                 lengths.data_ptr(), ptr(block_tables), out.data_ptr(),
-                _DTYPES[q.dtype], int(quant), t, h, kvh, d, n, sweep,
-                nb_cols, bs, k_cache.stride(0), k_cache.stride(1),
-                v_cache.stride(0), v_cache.stride(1), *s_strides,
-                float(d ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
+                _DTYPES[q.dtype], int(quant), t, h, kvh, d,
+                t if paged else n, sweep, nb_cols, bs, k_cache.stride(0),
+                k_cache.stride(1), v_cache.stride(0), v_cache.stride(1),
+                *s_strides, float(d ** -0.5 if scale is None else scale),
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{target} kernel launch failed: {rc}")
     return out

@@ -8,7 +8,9 @@ Tolerances: rtol 1e-5 / atol 2e-5 for f32 attention and 2e-2 in bf16 (as
 for the JAX kernels); 1e-4 for f32 SwiGLU, as ``tests/test_kernels.py``
 holds the Pallas SwiGLU; the selective scan at 1e-5 in f32 (the N states
 summed in another order) and, with bf16 x, b and c, y at one output
-rounding (1e-3 + 1e-2·|ref|) and the f32 final state at 1e-5.
+rounding (1e-3 + 1e-2·|ref|) and the f32 final state at 1e-5; the fused
+overlap's GEMM at 1e-4 in f32 (sums over K in another order) and 2e-2 in
+bf16, its outputs bitwise equal across ``gemm_fraction``.
 """
 import dataclasses
 
@@ -19,10 +21,13 @@ import torch
 from repro_torch.configs import FFN_DENSE, get_config, scale_down
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssm_scan as ssm_scan_mod
-from repro_torch.kernels.decode_attention import (decode_attention_cuda,
-                                                  decode_attention_ref)
+from repro_torch.kernels.decode_attention import (
+    decode_attention_cuda, decode_attention_ref, paged_decode_attention_cuda,
+    paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_ref)
+from repro_torch.kernels.fused_overlap import (fused_overlap_cuda,
+                                               fused_overlap_ref)
 from repro_torch.kernels.packed_attention import (packed_attention_cuda,
                                                   packed_attention_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref
@@ -209,6 +214,156 @@ def test_flash_and_decode_wrappers_raise_instead_of_falling_back(cuda):
                               torch.ones(2, dtype=torch.int32, device=cuda))
     assert (flash_attention_cuda.launches,
             decode_attention_cuda.launches) == before
+
+
+def _paged_args(cuda, dtype, group, d, maxp, ps=16, kv=2, npages=40,
+                seed=0):
+    """5 rows over a shuffled pool of ``npages`` pages: lengths 1, one
+    whole page, one row past a page edge, a partial last page and the full
+    MAXP * PS (clipped to the table), distinct pages per row and -1 past
+    each row's last page."""
+    rng = np.random.default_rng(seed)
+    q = _normal(rng, cuda, dtype, 5, kv * group, d)
+    kp = _normal(rng, cuda, dtype, npages, ps, kv, d)
+    vp = _normal(rng, cuda, dtype, npages, ps, kv, d)
+    full = maxp * ps
+    lens = [min(x, full) for x in (1, ps, ps + 1, full - ps // 2, full)]
+    table = np.full((5, maxp), -1, np.int32)
+    for i, n in enumerate(lens):
+        used = -(-n // ps)
+        table[i, :used] = rng.choice(npages, size=used, replace=False)
+    return (q, kp, vp, torch.tensor(table, device=cuda),
+            torch.tensor(lens, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("maxp", [1, 6])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+def test_paged_decode_attention_kernel(cuda, group, d, maxp, dtype):
+    """Ragged lengths, partial last pages and -1 padding, MAXP 1 and 6,
+    against the plain version, through ``ops`` (the counter moves)."""
+    args = _paged_args(cuda, dtype, group, d, maxp, seed=group * d + maxp)
+    before = paged_decode_attention_cuda.launches
+    out = ops.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_cuda.launches == before + 1
+    torch.testing.assert_close(out.float(), paged_decode_attention_ref(
+        *args).float(), **_tol(dtype))
+
+
+def test_paged_decode_attention_scale_hole_and_strides(cuda):
+    """A ``logit_scale``, a -1 inside a row's length (reads page 0, as the
+    JAX kernel does) and K and V pools read in place from one interleaved
+    (NP, PS, 2, KV, D) buffer, against the plain version in f32."""
+    q, kp, vp, table, lens = _paged_args(cuda, "float32", 4, 128, 6, seed=3)
+    table[3, 1] = -1
+    kvbuf = torch.stack([kp, vp], 2)
+    kp, vp = kvbuf[:, :, 0], kvbuf[:, :, 1]
+    assert not kp.is_contiguous()
+    got = paged_decode_attention_cuda(q, kp, vp, table, lens,
+                                      logit_scale=0.05)
+    torch.testing.assert_close(got, paged_decode_attention_ref(
+        q, kp, vp, table, lens, logit_scale=0.05), **_tol("float32"))
+
+
+def _overlap_args(cuda, dtype, m, k, n, group=4, d=128, b=5, s=600, kv=2,
+                  seed=0):
+    """x (m, k) @ w (k, n) beside decode attention over 5 rows of an
+    s-row cache: lengths 1, one chunk, one past a chunk edge, all s and
+    one mid-chunk (units of 256 rows)."""
+    rng = np.random.default_rng(seed)
+    x = _normal(rng, cuda, dtype, m, k)
+    w = (_normal(rng, cuda, "float32", k, n) / k ** 0.5).to(TORCH[dtype])
+    q = _normal(rng, cuda, dtype, b, kv * group, d)
+    kc = _normal(rng, cuda, dtype, b, s, kv, d)
+    vc = _normal(rng, cuda, dtype, b, s, kv, d)
+    lens = torch.tensor([1, 256, 257, s, 333][:b], dtype=torch.int32,
+                        device=cuda)
+    return x, w, q, kc, vc, lens
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+@pytest.mark.parametrize("m,k,n", [(1, 8, 8), (70, 136, 200),
+                                   (300, 264, 520)])
+def test_fused_overlap_kernel(cuda, m, k, n, group, d, dtype):
+    """Ragged M, N and K edges of the GEMM role's tiles (128 x 128 x 32
+    in bf16, 64 x 64 x 16 in f32) beside multi-chunk attention rows,
+    against the plain version, through ``ops`` (the counter moves)."""
+    args = _overlap_args(cuda, dtype, m, k, n, group, d, seed=m + group)
+    before = fused_overlap_cuda.launches
+    go, ao = ops.fused_overlap(*args, gemm_fraction=0.5)
+    torch.cuda.synchronize()
+    assert fused_overlap_cuda.launches == before + 1
+    want_g, want_a = fused_overlap_ref(*args)
+    gemm_tol = _tol(dtype) if dtype == "bfloat16" \
+        else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(go.float(), want_g.float(), **gemm_tol)
+    torch.testing.assert_close(ao.float(), want_a.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_overlap_bitwise_across_fractions(cuda, dtype):
+    """The outputs do not depend on the split: bitwise equal at every
+    fraction, with one GEMM CTA or one attention CTA at the ends."""
+    args = _overlap_args(cuda, dtype, 300, 264, 520, b=5, s=1100)
+    first = None
+    for frac in (0.125, 0.25, 0.5, 0.875, 1.0, 1e-6):
+        outs = fused_overlap_cuda(*args, gemm_fraction=frac)
+        n_ctas, n_gemm, _ = fused_overlap_cuda.schedule
+        assert 1 <= n_gemm <= n_ctas - 1
+        if first is None:
+            first = outs
+        for got, want in zip(outs, first):
+            assert torch.equal(got, want), frac
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_overlap_one_side_empty(cuda, dtype):
+    """With no attention rows every CTA takes GEMM tiles, with no GEMM
+    rows every CTA takes attention units; each side still matches the
+    plain version."""
+    x, w, q, kc, vc, lens = _overlap_args(cuda, dtype, 70, 136, 200)
+    go, ao = fused_overlap_cuda(x, w, q[:0], kc[:0], vc[:0], lens[:0])
+    n_ctas, n_gemm, _ = fused_overlap_cuda.schedule
+    assert n_gemm == n_ctas and ao.shape == (0,) + q.shape[1:]
+    gemm_tol = _tol(dtype) if dtype == "bfloat16" \
+        else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(go.float(), torch.matmul(
+        x.float(), w.float()).to(x.dtype).float(), **gemm_tol)
+    go, ao = fused_overlap_cuda(x[:0], w, q, kc, vc, lens)
+    assert fused_overlap_cuda.schedule[1] == 0 and go.shape == (0, 200)
+    torch.testing.assert_close(ao.float(), decode_attention_ref(
+        q, kc, vc, lens).float(), **_tol(dtype))
+
+
+def test_fused_overlap_wrapper_raises_instead_of_falling_back(cuda):
+    """Mixed dtypes, a GEMM shape mismatch, bf16 K not a multiple of 8, a
+    fraction outside (0, 1], a CPU operand and a wrong page table raise,
+    and nothing launches."""
+    x, w, q, kc, vc, lens = _overlap_args(cuda, "bfloat16", 16, 64, 64)
+    before = (fused_overlap_cuda.launches, paged_decode_attention_cuda.launches)
+    for bad in ((x.float(), w, q, kc, vc, lens),        # mixed dtypes
+                (x, w[:32], q, kc, vc, lens),            # K mismatch
+                (x[:, :60].contiguous(), w[:60].contiguous(), q, kc, vc,
+                 lens),                                  # bf16 K % 8
+                (x, w, q, kc, vc, lens.cpu()),
+                (x, w, q, kc, vc, lens.long())):
+        with pytest.raises(ValueError):
+            fused_overlap_cuda(*bad)
+    for frac in (0.0, 1.5):
+        with pytest.raises(ValueError, match="gemm_fraction"):
+            fused_overlap_cuda(x, w, q, kc, vc, lens, gemm_fraction=frac)
+    pq, kp, vp, table, plens = _paged_args(cuda, "bfloat16", 4, 128, 6)
+    for tbl in (table.long(), table[:4], table.t().contiguous()):
+        with pytest.raises(ValueError, match="block_tables"):
+            paged_decode_attention_cuda(pq, kp, vp, tbl, plens)
+    with pytest.raises(ValueError, match="must be"):
+        paged_decode_attention_cuda(pq, kp.float(), vp, table, plens)
+    with pytest.raises(ValueError, match="uniform flat row space"):
+        paged_decode_attention_cuda(pq, kp[::2], vp[::2], table, plens)
+    assert (fused_overlap_cuda.launches,
+            paged_decode_attention_cuda.launches) == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
