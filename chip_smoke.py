@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; no phase is caught):
                packed-attention variants: contiguous, int8 KV, block-table
                (shuffled table, block 16) and block-table + int8; flash
                attention at the legacy chunk's and the recompute prefill's
-               shapes; decode attention over 8 slots of 1024 rows; the
+               shapes; decode attention over 8 slots of 1024 rows (with
+               its TB/s and the split-KV units and chunk size); the
                selective scan (f32 and bf16) at Jamba-1.5-Large's 16384
                channels and 16 states, on a 256-token chunk from a carried
                state and a 513-token prompt from zero state.
@@ -29,7 +30,9 @@ Phases (any failure exits non-zero; no phase is caught):
                the gemm_fraction sweep 0.125 ... 1.0 (CTAs, GEMM CTAs, CTAs
                per SM and ms at each), beside both bounds, the library pair
                (torch.matmul, then masked SDPA), the port's decode
-               attention alone and each role of the fused kernel alone.
+               attention alone and each role of the fused kernel alone,
+               the attention role's TB/s, units and chunk size, and whether
+               the sweep's minimum falls below the two roles back to back.
                Each of the two is launched once from 0 counts, through its
                ``ops`` entry; no serve phase may launch them.
   4. forward — ``forward_packed`` at full width, 4 layers, through the
@@ -109,7 +112,7 @@ _CSRC = "src/repro_torch/kernels/csrc"
 LEGACY = {
     "flash_attention": (f"{_CSRC}/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:73"),
-    "decode_attention": (f"{_CSRC}/packed_attention.cu",
+    "decode_attention": (f"{_CSRC}/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:70"),
 }
 LEGACY_MODES = {"legacy": dict(step_mode="legacy"),
@@ -374,6 +377,17 @@ def legacy_case(torch, cfg, case: str, dtype):
             lib_out, nbytes, flops, desc)
 
 
+def split_units(torch, cfg, kernel) -> str:
+    """The units and chunk size of decode attention's last launch, and the
+    units that had rows to read (from the lengths, on the host)."""
+    from repro_torch.kernels import decode_attention as da
+    kernel()
+    units, chunk = da.launch.units
+    lens = kernel.args[3].tolist()
+    live = sum(max(1, -(-n // chunk)) for n in lens) * cfg.n_kv_heads
+    return f"{units} units of {chunk} rows launched, {live} with rows to read"
+
+
 def phase_legacy_kernels(torch, cfg, timer, bw, peak) -> dict:
     """Flash attention (chunk and recompute shapes) and decode attention
     against their plain versions in f32 and bf16, timed in bf16 beside
@@ -396,6 +410,11 @@ def phase_legacy_kernels(torch, cfg, timer, bw, peak) -> dict:
                     LIB_TOL)
         ms, plain_ms, lib_ms = timer(kernel), timer(plain), timer(lib)
         t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+        if kname == "decode_attention":
+            units = split_units(torch, cfg, kernel)
+            log(f"decode_attention split-KV: {units}; {nbytes / ms / 1e9:.3f}"
+                f" TB/s achieved ({nbytes / 1e6:.1f} MB in {ms:.4f} ms; SDPA "
+                f"{lib_ms:.4f} ms)")
         log(f"{kname} [{case}] {desc}: max_abs_err f32 "
             f"{errs[torch.float32]:.3e} (tol {F32_TOL[0]} + {F32_TOL[1]}·"
             f"|ref|), bf16 {errs[torch.bfloat16]:.3e} (tol {BF16_TOL[0]} + "
@@ -610,6 +629,7 @@ def phase_overlap(torch, cfg, timer, bw, peak) -> tuple[dict, int]:
     the bounds by arithmetic; the library pair and the port's decode
     attention alone on the same inputs.  Returns (record, launches)."""
     from functools import partial
+    from repro_torch.kernels import fused_overlap as fo
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.fused_overlap import (fused_overlap_cuda,
@@ -672,6 +692,8 @@ def phase_overlap(torch, cfg, timer, bw, peak) -> tuple[dict, int]:
     attn_only = (x[:0], w, q, k, v, clen)
     gemm_only_ms = timer(partial(fused_overlap_cuda, *gemm_only))
     attn_only_ms = timer(partial(fused_overlap_cuda, *attn_only))
+    fused_overlap_cuda(*attn_only)
+    units, chunk = fo.launch.units
     plain_ms = timer(partial(fused_overlap_ref, *args))
     ms = dict((f, t) for f, _, t in sweep)[0.5]
     t_gemm = max(gemm[0] / bw, gemm[1] / peak) * 1e3
@@ -696,6 +718,15 @@ def phase_overlap(torch, cfg, timer, bw, peak) -> tuple[dict, int]:
         f"alone; the port's decode attention alone {decode_ms:.4f}; the "
         f"fused kernel's GEMM role alone (B = 0, all CTAs) {gemm_only_ms:.4f}, "
         f"its attention role alone (M = 0, all CTAs) {attn_only_ms:.4f}")
+    roles = gemm_only_ms + attn_only_ms
+    log(f"fused_overlap attention role alone: {units} units of {chunk} rows, "
+        f"{attn[0] / attn_only_ms / 1e9:.3f} TB/s achieved "
+        f"({attn[0] / 1e6:.1f} MB in {attn_only_ms:.4f} ms; SDPA alone "
+        f"{attn[0] / sdpa_ms / 1e9:.3f} TB/s by the same bytes); sweep "
+        f"minimum {best[2]:.4f} at {best[0]} vs the roles alone back to back "
+        f"{roles:.4f} ({gemm_only_ms:.4f} + {attn_only_ms:.4f}): "
+        + ("below, the overlap pays" if best[2] < roles
+           else "not below, no overlap"))
     if launches != 1:
         raise AssertionError(f"overlap: ops launched the kernel {launches} "
                              "times, not once")

@@ -3,11 +3,11 @@
 Each target compiles one ``csrc/*.cu`` source with ``nvcc`` (plus the
 target's ``-D`` switches) into its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), keyed by a hash
-of the source and the flags, under ``build/repro_torch_kernels/`` at the
-repository root.  All targets compile in parallel, one ``nvcc`` each, at
-first use; later calls in the process reuse the loaded libraries.  A
-missing ``nvcc`` or a failed build raises — there is no other path for a
-CUDA tensor.
+of the source, the ``csrc/*.cuh`` headers and the flags, under
+``build/repro_torch_kernels/`` at the repository root.  All targets
+compile in parallel, one ``nvcc`` each, at first use; later calls in the
+process reuse the loaded libraries.  A missing ``nvcc`` or a failed build
+raises — there is no other path for a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -26,8 +26,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 # target -> (source, its compile-time switches).  The four packed-attention
-# variants, decode attention and paged decode attention are one source built
-# with three switches (csrc/packed_attention.cu).
+# variants and paged decode attention are one source built with three
+# switches (csrc/packed_attention.cu); decode attention and the fused op
+# share the unit of csrc/attn_decode.cuh.
 def _pa(quant: int, block_table: int) -> tuple[str, tuple[str, ...]]:
     return ("packed_attention", (f"-DREPRO_PA_QUANT={quant}",
                                  f"-DREPRO_PA_BLOCK_TABLE={block_table}"))
@@ -38,7 +39,7 @@ TARGETS = {
     "packed_attention_quant": _pa(1, 0),
     "packed_attention_block": _pa(0, 1),
     "packed_attention_block_quant": _pa(1, 1),
-    "decode_attention": ("packed_attention", ("-DREPRO_PA_DECODE=1",)),
+    "decode_attention": ("decode_attention", ()),
     "paged_decode_attention": ("packed_attention",
                                ("-DREPRO_PA_DECODE=1",
                                 "-DREPRO_PA_BLOCK_TABLE=1")),
@@ -61,8 +62,11 @@ SIGNATURES = {
     "swiglu": ("repro_swiglu", [_void_p] * 4 + [_int] * 4 + [_void_p]),
     "ssm_scan": ("repro_ssm_scan",
                  [_void_p] * 9 + [_int] * 5 + [_ll] * 4 + [_void_p]),
+    "decode_attention": ("repro_decode_attention",
+                         [_void_p] * 8 + [_int] * 7 + [_ll] * 4
+                         + [_float, _void_p, _void_p]),
     "fused_overlap": ("repro_fused_overlap",
-                      [_void_p] * 11 + [_int] * 9 + [_ll] * 4
+                      [_void_p] * 11 + [_int] * 10 + [_ll] * 4
                       + [_float, _float, _void_p, _void_p]),
 }
 
@@ -95,8 +99,12 @@ def _nvcc() -> str:
 
 
 def _digest(source: str, defines: tuple[str, ...]) -> str:
+    """Key of one target's library: the flags, the source and every header
+    of ``csrc`` (a source may include any of them)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
-    h.update((CSRC / f"{source}.cu").read_bytes())
+    for path in [CSRC / f"{source}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

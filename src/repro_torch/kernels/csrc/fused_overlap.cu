@@ -33,85 +33,42 @@
 //     kept for exact checks.  Ragged M, N and K edges are masked in the
 //     kernel (zero-filled loads, guarded stores); nothing is padded.  bf16
 //     moves 16-byte chunks, so it needs K and N to be multiples of 8.
-//   * Attention role: a unit is (row, KV head, 256-row chunk), as the TPU
-//     kernel's block_s = 256; chunks past cache_len are skipped without a
-//     read.  The G query heads of the KV head are scored against each row
-//     while it is in registers; each warp keeps an online softmax state over
-//     a strided share of the chunk and the warps merge in a fixed order.  A
-//     row of one chunk writes its output directly.  Otherwise each chunk
-//     writes its partial (m, l, acc) to scratch, and the CTA that takes the
-//     pair's last ticket (an atomic counter per (row, KV head), set back to 0
-//     by that CTA) merges the partials in chunk order, so the op stays one
-//     launch.
+//   * Attention role: csrc/attn_decode.cuh's unit, shared with decode
+//     attention: a unit is (row, KV head, chunk of `chunk` rows, 512 by
+//     default; the TPU kernel's block_s is 256), and units past cache_len
+//     exit without a read.  K/V tiles stream through a cp.async ring that fits
+//     in the GEMM ring's shared memory, bf16 scores and P V run on
+//     mma.sync, and a row of several chunks is merged in chunk order by the
+//     CTA that takes the pair's last ticket (an atomic counter per (row, KV
+//     head), set back to 0 by that CTA), so the op stays one launch.
 //   * Each output element's arithmetic does not depend on which CTA computes
 //     it, nor on the order in which CTAs finish, so the outputs are bitwise
 //     equal at every gemm_fraction.
 //   * Shared memory is one dynamic buffer sized to the larger role (the bf16
-//     GEMM ring, 55.5 KB, above the 48 KB default).
+//     GEMM ring, 55.5 KB, above the 48 KB default; the attention ring takes
+//     at most 54 KB).
 // Left for a later change: wgmma and TMA for the GEMM role, and choosing G
 // from the two roles' measured rates instead of a caller's fraction.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attn_decode.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int THREADS = 256;
-constexpr int NUM_WARPS = THREADS / 32;
-constexpr int CHUNK = 256;   // cache rows per attention unit
+using attn_decode::cp_async16;
+using attn_decode::cp_async_commit;
+using attn_decode::cp_async_wait;
+using attn_decode::ldmatrix_x4;
+using attn_decode::ldmatrix_x4_trans;
+using attn_decode::mma_bf16;
+using attn_decode::THREADS;
 
 struct Params {
   const void* x;
   const void* w;
   void* gemm_out;
-  const void* q;
-  const void* k;
-  const void* v;
-  const int32_t* cache_len;
-  void* attn_out;
-  float* part_ml;     // (B * KV, n_chunks, 2, G): m then l of each chunk
-  float* part_acc;    // (B * KV, n_chunks, G, D)
-  int32_t* tickets;   // (B * KV,), 0 between launches
   int M, N, K;
-  int B, n_kv, S, n_chunks;
-  long long k_sb, k_ss, v_sb, v_ss;
-  float scale;
+  attn_decode::Args attn;   // the attention role's operands
   int n_gemm_ctas, n_tiles, n_units;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Vec {
-  T v[N];
-};
-
-template <typename T, int N>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p,
-                                         float (&out)[N]) {
-  const Vec<T, N> x = *reinterpret_cast<const Vec<T, N>*>(p);
-#pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_f32(x.v[i]);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 // ---------------------------------------------------------------------------
 // GEMM role, bf16: mma.sync tensor-core tiles
@@ -123,52 +80,6 @@ constexpr int STAGES = 3;
 constexpr int A_LD = BK + 8;   // padded row pitch (elements) of the x tile
 constexpr int B_LD = BN + 8;   // padded row pitch of the w tile
 constexpr int BF16_SMEM = STAGES * (BM * A_LD + BK * B_LD) * 2;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  // src-size 0 zero-fills the 16 destination bytes without reading src
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ void gemm_tile(const Params& p, int tile, __nv_bfloat16* /*tag*/,
                           unsigned char* smem) {
@@ -348,181 +259,7 @@ __device__ void gemm_tile(const Params& p, int tile, float* /*tag*/,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Attention role: one (row, KV head, 256-row chunk) unit
-// ---------------------------------------------------------------------------
-template <int G, int D>
-constexpr int attn_smem() {
-  return (NUM_WARPS * G * 2 + G * D) * 4 + 16;
-}
-
-// T: q/cache/out type; G: query heads per KV head; DPL: head_dim / 32.
-template <typename T, int G, int DPL>
-__device__ void attn_unit(const Params& p, int unit, unsigned char* smem) {
-  constexpr int D = DPL * 32;
-  constexpr int ROWS = DPL <= 4 ? 8 : 4;   // K/V rows in flight per warp
-  const int pairs = p.B * p.n_kv;
-  const int chunk = unit / pairs;
-  const int pair = unit % pairs;
-  const int b = pair / p.n_kv;
-  const int kvh = pair % p.n_kv;
-  const int len = min(max(p.cache_len[b], 0), p.S);
-  const int n_chunks = max(1, (len + CHUNK - 1) / CHUNK);
-  if (chunk >= n_chunks) return;   // past the row's length: nothing to read
-  const int r0 = chunk * CHUNK;
-  const int r1 = min(len, r0 + CHUNK);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n_heads = p.n_kv * G;
-  const T* __restrict__ q = static_cast<const T*>(p.q);
-  T* __restrict__ out = static_cast<T*>(p.attn_out);
-
-  float qf[G][DPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    load_vec<T, DPL>(q + ((long long)b * n_heads + kvh * G + g) * D + lane * DPL,
-                     qf[g]);
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) qf[g][i] *= p.scale;
-  }
-  float m[G], l[G], acc[G][DPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
-  }
-
-  const T* __restrict__ kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb +
-                             kvh * D + lane * DPL;
-  const T* __restrict__ vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb +
-                             kvh * D + lane * DPL;
-  for (int base = r0 + warp * ROWS; base < r1; base += NUM_WARPS * ROWS) {
-    float kf[ROWS][DPL], vf[ROWS][DPL];
-#pragma unroll
-    for (int u = 0; u < ROWS; ++u) {
-      const int r = base + u;
-      if (r < r1) {
-        load_vec<T, DPL>(kb + (long long)r * p.k_ss, kf[u]);
-        load_vec<T, DPL>(vb + (long long)r * p.v_ss, vf[u]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) kf[u][i] = vf[u][i] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s[ROWS];
-      float mx = m[g];
-#pragma unroll
-      for (int u = 0; u < ROWS; ++u) {
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) part = fmaf(qf[g][i], kf[u][i], part);
-        s[u] = (base + u < r1) ? warp_sum(part) : NEG_INF;
-        mx = fmaxf(mx, s[u]);
-      }
-      const float alpha = expf(m[g] - mx);
-      float psum = 0.f;
-#pragma unroll
-      for (int u = 0; u < ROWS; ++u) {
-        s[u] = (base + u < r1) ? expf(s[u] - mx) : 0.f;
-        psum += s[u];
-      }
-      l[g] = l[g] * alpha + psum;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        float a = acc[g][i] * alpha;
-#pragma unroll
-        for (int u = 0; u < ROWS; ++u) a = fmaf(s[u], vf[u][i], a);
-        acc[g][i] = a;
-      }
-      m[g] = mx;
-    }
-  }
-
-  // merge the warps' states in a fixed order: the chunk's (m, l, acc)
-  float* sm_m = reinterpret_cast<float*>(smem);         // [NUM_WARPS][G]
-  float* sm_l = sm_m + NUM_WARPS * G;                    // [NUM_WARPS][G]
-  float* sm_acc = sm_l + NUM_WARPS * G;                  // [G][D]
-  int* sm_last = reinterpret_cast<int*>(sm_acc + G * D);
-  if (lane == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      sm_m[warp * G + g] = m[g];
-      sm_l[warp * G + g] = l[g];
-    }
-  }
-  for (int idx = threadIdx.x; idx < G * D; idx += THREADS) sm_acc[idx] = 0.f;
-  __syncthreads();
-  float mine[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float mg = NEG_INF;
-    for (int w = 0; w < NUM_WARPS; ++w) mg = fmaxf(mg, sm_m[w * G + g]);
-    mine[g] = expf(m[g] - mg);
-  }
-  for (int w = 0; w < NUM_WARPS; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int i = 0; i < DPL; ++i)
-          sm_acc[g * D + lane * DPL + i] += acc[g][i] * mine[g];
-    }
-    __syncthreads();
-  }
-
-  float* ml = p.part_ml + ((long long)pair * p.n_chunks) * 2 * G;
-  float* pacc = p.part_acc + ((long long)pair * p.n_chunks) * G * D;
-  for (int idx = threadIdx.x; idx < G * D; idx += THREADS) {
-    const int g = idx / D;
-    float mg = NEG_INF;
-    for (int w = 0; w < NUM_WARPS; ++w) mg = fmaxf(mg, sm_m[w * G + g]);
-    float lg = 0.f;
-    for (int w = 0; w < NUM_WARPS; ++w) lg += sm_l[w * G + g] * expf(sm_m[w * G + g] - mg);
-    if (n_chunks == 1) {
-      out[((long long)b * n_heads + kvh * G) * D + idx] =
-          from_f32<T>(sm_acc[idx] / fmaxf(lg, 1e-30f));
-    } else {
-      pacc[(long long)chunk * G * D + idx] = sm_acc[idx];
-      if (idx % D == 0) {
-        ml[(chunk * 2) * G + g] = mg;
-        ml[(chunk * 2 + 1) * G + g] = lg;
-      }
-    }
-  }
-  if (n_chunks > 1) {
-    // the last chunk of the pair to finish merges all of them, in order
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0)
-      *sm_last = atomicAdd(p.tickets + pair, 1) == n_chunks - 1;
-    __syncthreads();
-    if (*sm_last) {
-      __threadfence();
-      for (int idx = threadIdx.x; idx < G * D; idx += THREADS) {
-        const int g = idx / D;
-        float mg = NEG_INF;
-        for (int c = 0; c < n_chunks; ++c) mg = fmaxf(mg, __ldcg(ml + (c * 2) * G + g));
-        float lg = 0.f, a = 0.f;
-        for (int c = 0; c < n_chunks; ++c) {
-          const float e = expf(__ldcg(ml + (c * 2) * G + g) - mg);
-          lg += __ldcg(ml + (c * 2 + 1) * G + g) * e;
-          a += __ldcg(pacc + (long long)c * G * D + idx) * e;
-        }
-        out[((long long)b * n_heads + kvh * G) * D + idx] =
-            from_f32<T>(a / fmaxf(lg, 1e-30f));
-      }
-      if (threadIdx.x == 0) p.tickets[pair] = 0;   // ready for the next launch
-    }
-  }
-  __syncthreads();   // the next unit reuses the shared buffer
-}
-
-template <typename T, int G, int DPL>
+template <typename T, int G, int D>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_overlap_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -533,16 +270,16 @@ fused_overlap_kernel(const Params p) {
   } else {
     const int stride = gridDim.x - p.n_gemm_ctas;
     for (int u = cta - p.n_gemm_ctas; u < p.n_units; u += stride)
-      attn_unit<T, G, DPL>(p, u, smem);
+      attn_decode::unit<T, G, D>(p.attn, u, smem);
   }
 }
 
-template <typename T, int G, int DPL>
+template <typename T, int G, int D>
 int launch(Params p, float gemm_fraction, int* sched, cudaStream_t stream) {
   constexpr int GEMM_SMEM = sizeof(T) == 2 ? BF16_SMEM : F32_SMEM;
-  constexpr int A_SMEM = attn_smem<G, DPL * 32>();
+  constexpr int A_SMEM = attn_decode::smem_bytes<T, G, D>();
   constexpr int SMEM = GEMM_SMEM > A_SMEM ? GEMM_SMEM : A_SMEM;
-  auto kernel = fused_overlap_kernel<T, G, DPL>;
+  auto kernel = fused_overlap_kernel<T, G, D>;
   cudaError_t err = cudaSuccess;
   if (SMEM > 48 * 1024)
     err = cudaFuncSetAttribute(kernel,
@@ -568,6 +305,7 @@ int launch(Params p, float gemm_fraction, int* sched, cudaStream_t stream) {
   sched[0] = n_ctas;
   sched[1] = g;
   sched[2] = per_sm;
+  sched[3] = p.n_units;
   if (n_ctas > 0 && (p.n_tiles > 0 || p.n_units > 0))
     kernel<<<n_ctas, THREADS, SMEM, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -576,9 +314,9 @@ int launch(Params p, float gemm_fraction, int* sched, cudaStream_t stream) {
 template <typename T>
 int dispatch(int group, int head_dim, const Params& p, float frac, int* sched,
              cudaStream_t s) {
-#define REPRO_FO_CASE(G, DPL) \
-  if (group == G && head_dim == DPL * 32) return launch<T, G, DPL>(p, frac, sched, s);
-#define REPRO_FO_CASES(G) REPRO_FO_CASE(G, 2) REPRO_FO_CASE(G, 4) REPRO_FO_CASE(G, 8)
+#define REPRO_FO_CASE(G, D) \
+  if (group == G && head_dim == D) return launch<T, G, D>(p, frac, sched, s);
+#define REPRO_FO_CASES(G) REPRO_FO_CASE(G, 64) REPRO_FO_CASE(G, 128) REPRO_FO_CASE(G, 256)
   REPRO_FO_CASES(1)
   REPRO_FO_CASES(2)
   REPRO_FO_CASES(4)
@@ -593,45 +331,52 @@ int dispatch(int group, int head_dim, const Params& p, float frac, int* sched,
 // dtype: 0 = float32, 1 = bfloat16 (x, w, gemm_out, q, the caches and
 // attn_out all of it).  x (M, K), w (K, N), gemm_out (M, N), q and attn_out
 // (B, H, D) are contiguous; the caches are (B, S, KV, D) with unit stride
-// over (KV, D) and the given element strides over B and S; cache_len is
-// (B,) int32.  part_ml holds B * KV * n_chunks * 2 * G floats, part_acc
-// B * KV * n_chunks * G * D (n_chunks = ceil(S / 256)), tickets B * KV
-// int32 zeros, left zero by the launch.  sched receives (CTAs launched, of
-// them GEMM CTAs, CTAs per SM).  Returns -1 for a shape this build does not
-// instantiate (bf16 also needs K % 8 == 0 and N % 8 == 0), -3 if the kernel
-// cannot be resident, else the CUDA error of the launch.
+// over (KV, D), 16-byte aligned rows and the given element strides over B
+// and S; cache_len is (B,) int32.  `chunk` (a positive multiple of 64) is
+// the cache rows per attention unit.  part_ml holds B * KV * n_chunks * 2 *
+// G floats, part_acc B * KV * n_chunks * G * D (n_chunks = ceil(S /
+// chunk)), tickets B * KV int32 zeros, left zero by the launch.  sched
+// receives (CTAs launched, of them GEMM CTAs, CTAs per SM, attention
+// units).  Returns -1 for a shape or chunk this build does not take (bf16
+// also needs K % 8 == 0 and N % 8 == 0), -3 if the kernel cannot be
+// resident, else the CUDA error of the launch.
 extern "C" int repro_fused_overlap(
     const void* x, const void* w, void* gemm_out, const void* q, const void* k,
     const void* v, const void* cache_len, void* attn_out, void* part_ml,
     void* part_acc, void* tickets, int dtype, int M, int N, int K, int B,
-    int n_heads, int n_kv, int head_dim, int S, long long k_stride_b,
-    long long k_stride_s, long long v_stride_b, long long v_stride_s,
-    float scale, float gemm_fraction, void* sched, void* stream) {
-  if (n_kv <= 0 || n_heads % n_kv) return -1;
+    int n_heads, int n_kv, int head_dim, int S, int chunk,
+    long long k_stride_b, long long k_stride_s, long long v_stride_b,
+    long long v_stride_s, float scale, float gemm_fraction, void* sched,
+    void* stream) {
+  if (n_kv <= 0 || n_heads % n_kv || chunk <= 0 ||
+      chunk % attn_decode::CHUNK_MULTIPLE)
+    return -1;
   Params p;
   p.x = x;
   p.w = w;
   p.gemm_out = gemm_out;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.cache_len = static_cast<const int32_t*>(cache_len);
-  p.attn_out = attn_out;
-  p.part_ml = static_cast<float*>(part_ml);
-  p.part_acc = static_cast<float*>(part_acc);
-  p.tickets = static_cast<int32_t*>(tickets);
   p.M = M;
   p.N = N;
   p.K = K;
-  p.B = B;
-  p.n_kv = n_kv;
-  p.S = S;
-  p.n_chunks = (S + CHUNK - 1) / CHUNK;
-  p.k_sb = k_stride_b;
-  p.k_ss = k_stride_s;
-  p.v_sb = v_stride_b;
-  p.v_ss = v_stride_s;
-  p.scale = scale;
+  attn_decode::Args& a = p.attn;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.cache_len = static_cast<const int32_t*>(cache_len);
+  a.out = attn_out;
+  a.part_ml = static_cast<float*>(part_ml);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.tickets = static_cast<int32_t*>(tickets);
+  a.B = B;
+  a.n_kv = n_kv;
+  a.S = S;
+  a.chunk = chunk;
+  a.n_chunks = (S + chunk - 1) / chunk;
+  a.k_sb = k_stride_b;
+  a.k_ss = k_stride_s;
+  a.v_sb = v_stride_b;
+  a.v_ss = v_stride_s;
+  a.scale = scale;
   const bool empty_gemm = M == 0 || N == 0;
   if (dtype == 1) {
     if (K % 8 || N % 8) return -1;
@@ -641,7 +386,8 @@ extern "C" int repro_fused_overlap(
   } else {
     return -1;
   }
-  p.n_units = B * n_kv * p.n_chunks;
+  // S == 0 still runs one unit per pair, which writes zeros
+  p.n_units = B * n_kv * (a.n_chunks > 0 ? a.n_chunks : 1);
   p.n_gemm_ctas = 0;
   int* out = static_cast<int*>(sched);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

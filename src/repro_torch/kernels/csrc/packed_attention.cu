@@ -21,13 +21,12 @@
 //     leaves; each row dequantizes in registers as float(x) * scale, the
 //     TPU kernel's `k * ks` (DESIGN.md §15), before the same f32 math.
 // Both together are `_kernel_block_quant`.
-//   REPRO_PA_DECODE (replaces the TPU kernel
-//     src/repro/kernels/decode_attention.py `decode_attention`, the legacy
-//     step's batched decode): token b is the one query of slot b and its
-//     length is the slot's `cache_len[b]`, so no token_slot array is read.
-//     Built without the other two switches, into its own library, so decode
-//     can later get its own schedule (split-KV for few slots over long
-//     caches) without touching the packed step.
+//   REPRO_PA_DECODE: token b is the one query of row b and its length is
+//     `cache_len[b]`, so no token_slot array is read.  It is built only
+//     with REPRO_PA_BLOCK_TABLE (below).  Decode attention over slot caches
+//     (the TPU kernel src/repro/kernels/decode_attention.py
+//     `decode_attention`) lives in csrc/decode_attention.cu, on the
+//     split-KV unit of csrc/attn_decode.cuh.
 //   REPRO_PA_DECODE with REPRO_PA_BLOCK_TABLE (replaces the TPU kernel
 //     src/repro/kernels/decode_attention.py `paged_decode_attention`): decode
 //     through a page table.  Token b reads its logical row r from row r % PS
@@ -61,8 +60,8 @@
 //   * Rows past the token's length are never loaded: the ragged tail is
 //     masked by the loop bound itself.
 // Left for a later change (ROADMAP B1): one q tile per prefill segment so a
-// chunk does not re-read its slot once per token, and split-KV so a
-// decode-only step fills all 132 SMs.
+// chunk does not re-read its slot once per token, and the split-KV unit of
+// csrc/attn_decode.cuh for the decode tokens and the paged build.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -2,9 +2,10 @@
 kernels' wrappers and their plain PyTorch versions.
 
 Row b's one query attends rows ``[0, cache_len[b])`` of its own cache row.
-The kernel is the ``decode_attention`` build of
-``csrc/packed_attention.cu`` (``-DREPRO_PA_DECODE=1``: token b is slot b
-and its length is ``cache_len[b]``); it replaces the TPU kernel
+The kernel (``csrc/decode_attention.cu``, on the unit of
+``csrc/attn_decode.cuh`` that the fused op's attention role shares) runs
+one CTA per (row, KV head, chunk of ``CHUNK`` rows) and merges a row's
+chunks in chunk order; it replaces the TPU kernel
 ``src/repro/kernels/decode_attention.py:decode_attention``.
 ``decode_attention_ref`` ports ``src/repro/kernels/ref.py:
 decode_attention_ref`` and is what the CPU runs and what the card's kernel
@@ -12,7 +13,8 @@ is held against.
 
 Paged decode reads the caches as a global pool of pages through a
 ``(B, MAXP)`` page table.  Its kernel is the ``paged_decode_attention``
-build of the same source (``-DREPRO_PA_DECODE=1 -DREPRO_PA_BLOCK_TABLE=1``);
+build of ``csrc/packed_attention.cu`` (``-DREPRO_PA_DECODE=1
+-DREPRO_PA_BLOCK_TABLE=1``);
 it replaces ``src/repro/kernels/decode_attention.py:
 paged_decode_attention``, and ``paged_decode_attention_ref`` ports
 ``src/repro/kernels/ref.py:paged_decode_attention_ref``.  In the port it is
@@ -20,11 +22,20 @@ called only through ``kernels.ops.paged_decode_attention``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import packed_attention as pa
+
+# cache rows per unit of csrc/decode_attention.cu, the fastest of 64-1024
+# at the legacy step's 8 slots x 8 KV heads, where its ~150 live units fill
+# the 132 SMs (PERF.md §6)
+CHUNK = 128
+# per-(device, stream) split-KV ticket counters; each launch leaves them 0
+_TICKETS: dict = {}
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
@@ -48,16 +59,105 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, h, dv).to(q.dtype)
 
 
+def split_kv_tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """Zeroed int32 counters for ``n`` (row, KV head) pairs, kept per device
+    and stream and shared by every split-KV kernel (decode attention and the
+    fused op's attention role): the launch that uses them sets them back to
+    0, and launches on one stream run in order."""
+    key = (dev, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[key] = torch.zeros(max(n, 1), dtype=torch.int32,
+                                          device=dev)
+    return buf
+
+
+def check_caches(check, q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor) -> None:
+    """What the unit's cp.async ring needs of q and the caches: each cache
+    row a contiguous (KV, D) block, and every row 16-byte aligned."""
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        check(x.stride(3) == 1 and x.stride(2) == x.shape[3],
+              f"{name} rows must hold contiguous (KV, D) blocks")
+        check(all(x.stride(i) * x.element_size() % 16 == 0 for i in (0, 1)),
+              f"{name} strides must keep rows 16-byte aligned")
+    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        check(x.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
+
+
+def _check(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(f"decode_attention kernel: {what}")
+
+
+def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           cache_len: torch.Tensor, *, chunk: int = CHUNK) -> torch.Tensor:
+    """Check the operands and launch ``csrc/decode_attention.cu`` with
+    units of ``chunk`` cache rows (a positive multiple of 64).  Leaves
+    (units launched, chunk) in ``launch.units``."""
+    dev = q.device
+    _check(dev.type == "cuda", "q is not a CUDA tensor")
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache),
+                    ("cache_len", cache_len)):
+        _check(x.device == dev, f"{name} is on {x.device}, q on {dev}")
+    _check(q.dtype in pa._DTYPES, f"dtype {q.dtype} (float32 or bfloat16)")
+    _check(k_cache.dtype == q.dtype and v_cache.dtype == q.dtype,
+           f"k_cache and v_cache must be {q.dtype} for q {q.dtype}")
+    _check(q.dim() == 3 and k_cache.dim() == 4 and v_cache.dim() == 4,
+           "q (B, H, D), caches (B, S, KV, D)")
+    b, h, d = q.shape
+    n, s, kvh, dk = k_cache.shape
+    _check(tuple(v_cache.shape) == (n, s, kvh, d) and dk == d,
+           f"shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
+           f"v {tuple(v_cache.shape)}")
+    _check(h % kvh == 0 and h // kvh in pa.GROUPS,
+           f"group {h}/{kvh} not in {pa.GROUPS}")
+    _check(d in pa.HEAD_DIMS, f"head_dim {d} not in {pa.HEAD_DIMS}")
+    _check(b == n, f"decode: {b} queries for {n} slots")
+    _check(cache_len.dtype == torch.int32 and tuple(cache_len.shape) == (b,)
+           and cache_len.is_contiguous(),
+           "cache_len must be contiguous int32 (B,)")
+    _check(q.is_contiguous(), "q must be contiguous")
+    check_caches(_check, q, k_cache, v_cache)
+    _check(chunk > 0 and chunk % 64 == 0,
+           f"chunk {chunk} is not a positive multiple of 64")
+    n_chunks = max(1, -(-s // chunk))
+    group = h // kvh
+    out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
+    part_ml = torch.empty(b * kvh * n_chunks * 2 * group,
+                          dtype=torch.float32, device=dev)
+    part_acc = torch.empty(b * kvh * n_chunks * group * d,
+                           dtype=torch.float32, device=dev)
+    sched = (ctypes.c_int * 2)()
+    fn = build.build().fn("decode_attention")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        tickets = split_kv_tickets(dev, stream, b * kvh)
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                cache_len.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
+                part_acc.data_ptr(), tickets.data_ptr(),
+                pa._DTYPES[q.dtype], b, h, kvh, d, s, chunk,
+                k_cache.stride(0), k_cache.stride(1), v_cache.stride(0),
+                v_cache.stride(1), float(d ** -0.5), sched, stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: {rc}")
+    launch.units = tuple(sched)
+    return out
+
+
+launch.units = None
+
+
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor,
                           cache_len: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel (same contract as ``decode_attention_ref``,
     with ``cache_len >= 1``: a row with no valid key gives zeros).  The
     caches are read in place through their (row, position) strides, rows
-    past ``cache_len`` are never read.  Raises on any input the kernel does
-    not take and on a failed launch; counts launches in
-    ``decode_attention_cuda.launches``."""
-    out = pa.launch("decode_attention", q, k_cache, v_cache, None, cache_len)
+    past ``cache_len`` are never read, and ``cache_len`` is never read on
+    the host.  Raises on any input the kernel does not take and on a failed
+    launch; counts launches in ``decode_attention_cuda.launches``."""
+    out = launch(q, k_cache, v_cache, cache_len)
     decode_attention_cuda.launches += 1
     return out
 

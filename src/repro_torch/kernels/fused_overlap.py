@@ -16,13 +16,16 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import decode_attention_ref
+from repro_torch.kernels.decode_attention import (check_caches,
+                                                  decode_attention_ref,
+                                                  split_kv_tickets)
 from repro_torch.kernels.packed_attention import GROUPS, HEAD_DIMS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-CHUNK = 256        # cache rows per attention unit (csrc/fused_overlap.cu)
-# per-(device, stream) ticket counters; each launch leaves them zero
-_TICKETS: dict = {}
+# cache rows per attention unit (csrc/attn_decode.cuh): the fastest of
+# 128-1024 for the attention role alone at chip_smoke's shape (PERF.md §6;
+# the TPU kernel's block_s is 256)
+CHUNK = 512
 
 
 def fused_overlap_ref(x: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
@@ -42,18 +45,6 @@ def _check(cond: bool, what: str) -> None:
         raise ValueError(f"fused_overlap kernel: {what}")
 
 
-def _tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    """Zeroed int32 counters for ``n`` (row, KV head) pairs, kept per device
-    and stream: the launch that uses them sets them back to 0, and launches
-    on one stream run in order."""
-    key = (dev, stream)
-    buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _TICKETS[key] = torch.zeros(max(n, 1), dtype=torch.int32,
-                                          device=dev)
-    return buf
-
-
 def fused_overlap_cuda(x: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
                        k_cache: torch.Tensor, v_cache: torch.Tensor,
                        cache_len: torch.Tensor, *,
@@ -68,6 +59,25 @@ def fused_overlap_cuda(x: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
     kernel does not take and on a failed launch; counts launches in
     ``fused_overlap_cuda.launches`` and leaves the launch's (CTAs, GEMM
     CTAs, CTAs per SM) in ``fused_overlap_cuda.schedule``."""
+    outs = launch(x, w, q, k_cache, v_cache, cache_len,
+                  gemm_fraction=gemm_fraction)
+    fused_overlap_cuda.launches += 1
+    fused_overlap_cuda.schedule = launch.schedule
+    return outs
+
+
+fused_overlap_cuda.launches = 0
+fused_overlap_cuda.schedule = None
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
+           k_cache: torch.Tensor, v_cache: torch.Tensor,
+           cache_len: torch.Tensor, *, gemm_fraction: float = 0.5,
+           chunk: int = CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+    """Check the operands and launch ``csrc/fused_overlap.cu`` with
+    attention units of ``chunk`` cache rows (a positive multiple of 64).
+    Leaves (CTAs, GEMM CTAs, CTAs per SM) in ``launch.schedule`` and
+    (attention units, chunk) in ``launch.units``."""
     dev = x.device
     _check(dev.type == "cuda", "x is not a CUDA tensor")
     named = (("w", w), ("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
@@ -99,20 +109,14 @@ def fused_overlap_cuda(x: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
            "cache_len must be contiguous int32 (B,)")
     _check(x.is_contiguous() and w.is_contiguous() and q.is_contiguous(),
            "x, w and q must be contiguous")
-    vec = d // 32                  # elements each lane loads per row
-    for name, a in (("k_cache", k_cache), ("v_cache", v_cache)):
-        _check(a.stride(3) == 1 and a.stride(2) == d,
-               f"{name} rows must hold contiguous (KV, D) blocks")
-        _check(a.stride(0) % vec == 0 and a.stride(1) % vec == 0,
-               f"{name} strides must keep rows vector-aligned")
-    for name, a in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        _check(a.data_ptr() % (vec * a.element_size()) == 0,
-               f"{name} is not aligned for vector loads")
+    check_caches(_check, q, k_cache, v_cache)
+    _check(chunk > 0 and chunk % 64 == 0,
+           f"chunk {chunk} is not a positive multiple of 64")
     if x.dtype == torch.bfloat16:
         _check(kdim % 8 == 0 and n % 8 == 0, "bf16 needs K and N % 8 == 0")
         _check(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
                "x and w must be 16-byte aligned")
-    n_chunks = -(-s // CHUNK)
+    n_chunks = max(1, -(-s // chunk))
     group = h // kvh
     gemm_out = torch.empty((m, n), dtype=x.dtype, device=dev)
     attn_out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
@@ -120,24 +124,23 @@ def fused_overlap_cuda(x: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
                           device=dev)
     part_acc = torch.empty(b * kvh * n_chunks * group * d,
                            dtype=torch.float32, device=dev)
-    sched = (ctypes.c_int * 3)()
+    sched = (ctypes.c_int * 4)()
     fn = build.build().fn("fused_overlap")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        tickets = _tickets(dev, stream, b * kvh)
+        tickets = split_kv_tickets(dev, stream, b * kvh)
         rc = fn(x.data_ptr(), w.data_ptr(), gemm_out.data_ptr(),
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 cache_len.data_ptr(), attn_out.data_ptr(), part_ml.data_ptr(),
                 part_acc.data_ptr(), tickets.data_ptr(), _DTYPES[x.dtype],
-                m, n, kdim, b, h, kvh, d, s, k_cache.stride(0),
+                m, n, kdim, b, h, kvh, d, s, chunk, k_cache.stride(0),
                 k_cache.stride(1), v_cache.stride(0), v_cache.stride(1),
                 float(d ** -0.5), float(gemm_fraction), sched, stream)
     if rc != 0:
         raise RuntimeError(f"fused_overlap kernel launch failed: {rc}")
-    fused_overlap_cuda.launches += 1
-    fused_overlap_cuda.schedule = tuple(sched)
+    launch.schedule = tuple(sched[:3])
+    launch.units = (sched[3], chunk)
     return gemm_out, attn_out
 
 
-fused_overlap_cuda.launches = 0
-fused_overlap_cuda.schedule = None
+launch.schedule = launch.units = None

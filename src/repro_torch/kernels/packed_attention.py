@@ -164,8 +164,7 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
            v_scale: Optional[torch.Tensor] = None,
            scale: Optional[float] = None) -> torch.Tensor:
     """Check the operands and launch build ``target`` of
-    ``csrc/packed_attention.cu``: one of the four packed variants,
-    ``decode_attention`` (``token_slot=None``: token t is slot t), or
+    ``csrc/packed_attention.cu``: one of the four packed variants, or
     ``paged_decode_attention`` (``token_slot=None`` with ``block_tables``:
     the caches are (NP, PS, KV, D) page pools and row t of the (T, MAXP)
     table holds token t's page ids).  ``scale`` multiplies the scores
@@ -175,10 +174,10 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
     quant = k_scale is not None
     _check((v_scale is not None) == quant, "k_scale and v_scale go together")
     blocked = block_tables is not None
-    decode = token_slot is None
-    paged = decode and blocked
-    _check(not (decode and quant), "the decode builds read native caches")
-    per_token = [("lengths", lengths)] + ([] if decode else
+    paged = token_slot is None
+    _check(not paged or blocked, "paged decode needs a page table")
+    _check(not (paged and quant), "paged decode reads native caches")
+    per_token = [("lengths", lengths)] + ([] if paged else
                                           [("token_slot", token_slot)])
     named = [("k_cache", k_cache), ("v_cache", v_cache)] + per_token
     scales = [("k_scale", k_scale), ("v_scale", v_scale)] if quant else []
@@ -202,8 +201,6 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
            f"group {h}/{kvh} not in {GROUPS}")
     _check(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
     _check(t < 65536, "at most 65535 tokens per launch")
-    _check(not decode or paged or t == n,
-           f"decode: {t} queries for {n} slots")
     for name, x in per_token:
         _check(x.dtype == torch.int32 and tuple(x.shape) == (t,)
                and x.is_contiguous(), f"{name} must be contiguous int32 (T,)")

@@ -58,6 +58,15 @@ class EngineConfig:
         if self.prefill_mode not in ("incremental", "recompute") or \
                 self.step_mode not in (None, "packed", "legacy"):
             raise ValueError((self.prefill_mode, self.step_mode))
+        # values the JAX config refuses whatever the step
+        for bad, what in (
+                (self.tp < 1, f"tp {self.tp} < 1"),
+                (self.async_depth is not None and self.async_depth < 0,
+                 f"async_depth {self.async_depth} < 0"),
+                (self.spec_k < 0, f"spec_k {self.spec_k} < 0"),
+                (self.temperature < 0, f"temperature {self.temperature} < 0")):
+            if bad:
+                raise ValueError(what)
         if self.resolved_step_mode == "packed":
             if self.prefill_mode == "recompute":
                 raise ValueError("the packed step runs incremental prefill "

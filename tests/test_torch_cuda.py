@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.configs import FFN_DENSE, get_config, scale_down
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssm_scan as ssm_scan_mod
 from repro_torch.kernels.decode_attention import (
@@ -192,6 +193,94 @@ def test_decode_attention_kernel(cuda, group, d, dtype):
     assert decode_attention_cuda.launches == before + 1
     torch.testing.assert_close(out.float(), decode_attention_ref(
         q, k, v, clen).float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+def test_decode_attention_chunk_edges(cuda, group, d, dtype):
+    """Lengths at every edge of the split-KV chunks: 1, C - 1, C, C + 1, S
+    and S + 1 over an S-row cache of several chunks, against the plain
+    version; the launch covers B x KV x ceil(S / C) units."""
+    c, s, kv = da.CHUNK, 300, 2
+    rng = np.random.default_rng(group * d + 1)
+    lens = [1, c - 1, c, c + 1, s, s + 1]
+    q = _normal(rng, cuda, dtype, len(lens), kv * group, d)
+    k = _normal(rng, cuda, dtype, len(lens), s, kv, d)
+    v = _normal(rng, cuda, dtype, len(lens), s, kv, d)
+    clen = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = decode_attention_cuda(q, k, v, clen)
+    torch.cuda.synchronize()
+    assert da.launch.units == (len(lens) * kv * -(-s // c), c)
+    torch.testing.assert_close(out.float(), decode_attention_ref(
+        q, k, v, clen).float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_ticket_buffer_grows(cuda, dtype):
+    """A launch over 64 rows after one over 2 needs more (row, KV head)
+    tickets than the stream's buffer holds: it grows, and both launches and
+    a third over 2 rows match the plain version (every ticket was left
+    0)."""
+    rng = np.random.default_rng(5)
+    kv, s = 8, 700
+    for b in (2, 64, 2):
+        q = _normal(rng, cuda, dtype, b, kv * 4, 128)
+        k = _normal(rng, cuda, dtype, b, s, kv, 128)
+        v = _normal(rng, cuda, dtype, b, s, kv, 128)
+        clen = torch.from_numpy(rng.integers(1, s + 1, b).astype(np.int32)
+                                ).to(cuda)
+        out = decode_attention_cuda(q, k, v, clen)
+        torch.cuda.synchronize()
+        stream = torch.cuda.current_stream(cuda).cuda_stream
+        assert da._TICKETS[(q.device, stream)].numel() >= b * kv
+        torch.testing.assert_close(out.float(), decode_attention_ref(
+            q, k, v, clen).float(), **_tol(dtype))
+    assert int(da._TICKETS[(q.device, stream)].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_and_fused_share_one_ticket_buffer(cuda, dtype):
+    """Decode and fused launches interleaved on one stream with no sync
+    between them use the same per-stream tickets; each output still
+    matches its plain version."""
+    rng = np.random.default_rng(9)
+    fused_args = _overlap_args(cuda, dtype, 70, 136, 200, b=5, s=1100)
+    q, kc, vc = (_normal(rng, cuda, dtype, 6, 8, 128),
+                 _normal(rng, cuda, dtype, 6, 500, 2, 128),
+                 _normal(rng, cuda, dtype, 6, 500, 2, 128))
+    clen = torch.tensor([1, 63, 64, 65, 499, 500], dtype=torch.int32,
+                        device=cuda)
+    outs = []
+    for _ in range(3):
+        outs.append(decode_attention_cuda(q, kc, vc, clen))
+        outs.append(fused_overlap_cuda(*fused_args, gemm_fraction=0.25))
+    torch.cuda.synchronize()
+    want_d = decode_attention_ref(q, kc, vc, clen)
+    want_g, want_a = fused_overlap_ref(*fused_args)
+    gemm_tol = _tol(dtype) if dtype == "bfloat16" \
+        else dict(rtol=1e-4, atol=1e-4)
+    for i in range(0, len(outs), 2):
+        torch.testing.assert_close(outs[i].float(), want_d.float(),
+                                   **_tol(dtype))
+        go, ao = outs[i + 1]
+        torch.testing.assert_close(go.float(), want_g.float(), **gemm_tol)
+        torch.testing.assert_close(ao.float(), want_a.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give bitwise-equal outputs: the
+    chunks of a row merge in chunk order whichever CTA finishes last."""
+    rng = np.random.default_rng(3)
+    q = _normal(rng, cuda, dtype, 8, 32, 128)
+    k = _normal(rng, cuda, dtype, 8, 1024, 8, 128)
+    v = _normal(rng, cuda, dtype, 8, 1024, 8, 128)
+    clen = torch.from_numpy(rng.integers(1, 1025, 8).astype(np.int32)
+                            ).to(cuda)
+    first = decode_attention_cuda(q, k, v, clen)
+    second = decode_attention_cuda(q, k, v, clen)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_flash_and_decode_wrappers_raise_instead_of_falling_back(cuda):

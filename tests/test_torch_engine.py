@@ -99,10 +99,15 @@ def test_kv_bytes_per_token_from_cache_shapes():
     # ValueError
     (dict(step_mode="legacy", prefix_caching=True), ValueError),
     (dict(step_mode="legacy", kv_dtype="int8"), ValueError),
+    # values the JAX config refuses whatever the step
+    (dict(async_depth=-1), ValueError),
+    (dict(temperature=-0.5), ValueError),
+    (dict(spec_k=-1), ValueError),
+    (dict(tp=0), ValueError),
 ])
 def test_config_rejects_unported_features(kw, exc):
-    """Unported values raise NotImplementedError; combinations the JAX
-    config refuses raise ValueError."""
+    """Unported values raise NotImplementedError; values and combinations
+    the JAX config refuses raise ValueError."""
     with pytest.raises(exc):
         EngineConfig(**kw)
 
