@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; no phase is caught):
                PyTorch library call of the same function (where there is
                one) and the card's bound for the same work.  The four
                packed-attention variants: contiguous, int8 KV, block-table
-               (shuffled table, block 16) and block-table + int8; flash
+               (shuffled table, block 16) and block-table + int8, each with
+               the K/V megabytes its tile kernel streams beside what a
+               per-token loop reads and the distinct rows; flash
                attention at the legacy chunk's and the recompute prefill's
                shapes; decode attention over 8 slots of 1024 rows (with
                its TB/s and the split-KV units and chunk size); the
@@ -42,7 +44,11 @@ Phases (any failure exits non-zero; no phase is caught):
                SwiGLU must have launched, and the greedy tokens must agree
                with a teacher-forced forward through the plain versions.
   6. profile — the same requests again under torch.profiler: device busy
-               share and the kernels that take the device time.
+               share, packed attention's share of the busy time and the
+               kernels that take the device time, summed from the trace's
+               device events; once per kind of engine (this one, the
+               legacy step, block tables, the hybrid's two steps) the sum
+               must agree with ``key_averages`` within 1%.
   7. legacy  — the serve phase's requests on the legacy step, once with
                incremental and once with recompute prefill (profiled as in
                6): flash and decode attention launch 36 times per dispatch
@@ -56,7 +62,7 @@ Phases (any failure exits non-zero; no phase is caught):
                4200 cached tokens with 7 copy-on-write block copies and
                agree with the runs without prefix caching; an int8 request
                agrees with a teacher-forced plain forward through an int8
-               cache.
+               cache.  Each mode's run is then profiled as in 6.
   9. hybrid  — Qwen3-8B's weights freed, Jamba-1.5-Large at full width cut
                to one 8-layer group (7 Mamba + 1 attention) with dense FFNs:
                a two-chunk ``forward_chunk`` through the kernels against the
@@ -66,8 +72,10 @@ Phases (any failure exits non-zero; no phase is caught):
                dispatch on legacy and recompute and never on the packed
                step; each attention kernel once per dispatch of its kind,
                SwiGLU 8 times; tokens agree between the steps and with a
-               teacher-forced plain ``forward_full``; the legacy run is
-               profiled.
+               teacher-forced plain ``forward_full``; the legacy and packed
+               runs are profiled.  Then one line per profiled packed serve
+               (Qwen3-8B, the four shared-prefix modes, the hybrid): packed
+               attention's device time and share of the busy time.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -267,6 +275,61 @@ def variant_case(torch, cfg, seed: int, q_dtype, blocked: bool, quant: bool):
     nbytes = (sum(rows.values()) * row_bytes + 2 * q.numel() * q.element_size()
               + 2 * q.shape[0] * 4 + (n * s // KV_BLOCK * 4 if blocked else 0))
     return (q, k, v, slot, lens), kw, nbytes, flops
+
+
+def tiles(token_slot, lengths, n_slots: int, sweep: int, tq: int) -> list:
+    """The packed-attention kernel's tiles replayed on the host, for the
+    accounting below: ``(first token, tokens, largest clamped length)`` of
+    each run of one slot inside each group of ``tq`` tokens.  A token with
+    an out-of-range slot or a non-positive length counts as length 0."""
+    slot = [int(x) for x in token_slot]
+    lens = [min(max(int(x), 0), sweep) if 0 <= s < n_slots else 0
+            for s, x in zip(slot, lengths)]
+    out = []
+    for g0 in range(0, len(slot), tq):
+        a, end = g0, min(g0 + tq, len(slot))
+        while a < end:
+            b = a + 1
+            while b < end and slot[b] == slot[a]:
+                b += 1
+            out.append((a, b - a, max(lens[a:b])))
+            a = b
+    return out
+
+
+def kv_stream(args, kw, bucket: int, tq=None) -> dict:
+    """K/V megabytes of a packed case: what the tile kernel streams (each
+    tile reads rows [0, its largest length) once, whatever its chunks) at
+    ``tq`` tokens per group (``tile_plan``'s by default), what a per-token
+    loop reads (one CTA per token and KV head), and the distinct rows the
+    bound counts;
+    with the plan's ``tq``, ``chunk`` and ``n_chunks``."""
+    from repro_torch.kernels import packed_attention as pa
+    q, k, _, slot, lens = args
+    n, s, kv, d = k.shape
+    sweep = min(bucket, s)
+    row = kv * d * 2 * k.element_size() + (kv * 8 if "k_scale" in kw else 0)
+    plan = pa.tile_plan(q.shape[0], q.shape[1] // kv, sweep, tq=tq)
+    sl, ln = slot.tolist(), lens.tolist()
+    clamped = [min(max(x, 0), sweep) if 0 <= a < n else 0
+               for a, x in zip(sl, ln)]
+    distinct = {}
+    for a, x in zip(sl, clamped):
+        distinct[a] = max(distinct.get(a, 0), x)
+    streamed = sum(top for _, _, top in tiles(sl, ln, n, sweep, plan[0]))
+    return dict(zip(("tq", "chunk", "n_chunks"), plan),
+                tiled=streamed * row / 1e6, per_token=sum(clamped) * row / 1e6,
+                distinct=sum(distinct.values()) * row / 1e6)
+
+
+def streamed_mb(args, kw, bucket: int) -> str:
+    """``kv_stream`` as a line of the log."""
+    x = kv_stream(args, kw, bucket)
+    group = args[0].shape[1] // args[1].shape[2]
+    return (f"K/V streamed by the tiles ({x['tq']} tokens x {group} heads, "
+            f"chunks of {x['chunk']} rows, {x['n_chunks']} chunks) "
+            f"{x['tiled']:.1f} MB, by a per-token loop {x['per_token']:.1f} "
+            f"MB, distinct rows {x['distinct']:.1f} MB")
 
 
 def sdpa_inputs(torch, args, bucket: int):
@@ -779,6 +842,7 @@ def phase_kernels(torch, cfg, timer, bw, peak):
             f"plain_ms {plain_ms:.4f}  sdpa_ms {lib_ms:.4f}  bound_ms "
             f"{max(t_bytes, t_ops):.4f} ({nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP)")
+        log(f"packed_attention bucket={bucket}: {streamed_mb(args, {}, bucket)}")
         if bucket == 1024:
             record["packed_attention"] = dict(
                 shape=f"T={args[0].shape[0]} (8 decode + 200 + 37 prefill), "
@@ -818,6 +882,7 @@ def phase_kernels(torch, cfg, timer, bw, peak):
             f"{ms:.4f}  plain_ms {plain_ms:.4f}  bound_ms "
             f"{max(t_bytes, t_ops):.4f} ({nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP)")
+        log(f"{kname}: {streamed_mb(args, kw, 1024)}")
         record[kname] = dict(
             shape=f"T={args[0].shape[0]} (8 decode + 200 + 37 prefill), H=32 "
                   f"KV=8 D=128, kv_bucket=1024, bf16 q, "
@@ -1010,12 +1075,18 @@ def phase_serve(torch, cfg):
 
 
 def phase_profile(torch, cfg, params, prompts, serve_wall: float,
-                  tag: str = "profile", **engine_kw):
+                  tag: str = "profile", waves: int = 1,
+                  cross_check: bool = False, **engine_kw):
     """Where a serve's device time goes: the same requests on a fresh
     engine (``engine_kw`` on top of the serve's configuration) under
     ``torch.profiler``, summing the device's own events (kernels and
     copies).  The profiler stretches the host's wall clock, so the busy
-    share is also given against the unprofiled serve's wall."""
+    share is also given against the unprofiled serve's wall.  ``waves=2``
+    serves the first request alone, then the rest (the shared-prefix
+    phase); ``cross_check`` also sums the device time through the
+    profiler's public ``key_averages`` (~45 s for 250k events) and fails
+    unless the two sums agree within 1%.  Returns (device busy ms, packed
+    attention's ms), or None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.config import EngineConfig
@@ -1023,39 +1094,61 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
     from repro_torch.serving.request import Request
     eng = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=1024,
                                                 async_depth=0, **engine_kw))
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=32))
+    batches = [prompts[:1], prompts[1:]] if waves == 2 else [prompts]
     # device activity only: the host's op events would multiply the
     # profiler's post-processing, and the busy share needs none of them
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.run()
+        rid = 0
+        for batch in batches:
+            for p in batch:
+                eng.submit(Request(rid=rid, prompt=p, max_new_tokens=32))
+                rid += 1
+            eng.run()
         torch.cuda.synchronize()
         t_stop = time.perf_counter()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+    # the device's events straight from the trace (a private attribute of
+    # the profiler), summed by name: building the profiler's per-event
+    # objects for ~250k events takes most of a minute, so ``cross_check``
+    # does it once per kind of engine
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            us, n = totals.get(e.name(), (0.0, 0))
+            totals[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
     log(f"{tag}: profiler stop and post-processing "
         f"{time.perf_counter() - t_stop:.1f} s")
-    dev_us = sum(e.self_device_time_total for e in events)
+    dev_us = sum(us for us, _ in totals.values())
+    if cross_check:
+        ka = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        log(f"{tag}: the same device time through key_averages: "
+            f"{ka / 1e3:.1f} ms (trace events {dev_us / 1e3:.1f} ms)")
+        if abs(ka - dev_us) > 0.01 * max(ka, dev_us):
+            raise AssertionError(f"{tag}: the trace's device time "
+                                 f"{dev_us / 1e3:.1f} ms disagrees with "
+                                 f"key_averages' {ka / 1e3:.1f} ms")
     wall_us = eng.stats.wall_time * 1e6
     if dev_us == 0:
         log(f"{tag}: the profiler saw no device time")
-        return
+        return None
+    pa_us = sum(us for name, (us, _) in totals.items()
+                if "packed_attention" in name)
     log(f"{tag}: device busy {dev_us / 1e3:.1f} ms over "
         f"{eng.stats.iterations} iterations: {dev_us / wall_us:.3f} of the "
         f"profiled wall ({wall_us / 1e3:.1f} ms), {dev_us / 1e6 / serve_wall:.3f}"
         f" of the unprofiled serve's wall ({serve_wall * 1e3:.1f} ms); "
-        f"{sum(e.count for e in events) / eng.stats.iterations:.0f} device "
-        f"events per iteration")
+        f"{sum(n for _, n in totals.values()) / eng.stats.iterations:.0f} device "
+        f"events per iteration; packed attention {pa_us / 1e3:.1f} ms = "
+        f"{pa_us / dev_us:.3f} of the busy time")
     # the twelve costliest, and the port's own kernels wherever they rank
-    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
-    ours = ("packed_attention_kernel", "flash_bf16_kernel", "swiglu_bf16",
+    ranked = sorted(totals.items(), key=lambda kv: -kv[1][0])
+    ours = ("packed_attention", "flash_bf16_kernel", "swiglu_bf16",
             "ssm_scan_kernel")
-    for e in ranked[:12] + [e for e in ranked[12:]
-                            if any(k in e.key for k in ours)]:
-        log(f"{tag}:   {e.self_device_time_total / 1e3:9.2f} ms "
-            f"{e.self_device_time_total / dev_us:6.3f}  x{e.count:<6d} "
-            f"{e.key[:90]}")
+    for name, (us, n) in ranked[:12] + [
+            kv for kv in ranked[12:] if any(k in kv[0] for k in ours)]:
+        log(f"{tag}:   {us / 1e3:9.2f} ms {us / dev_us:6.3f}  x{n:<6d} "
+            f"{name[:90]}")
+    return dev_us / 1e3, pa_us / 1e3
 
 
 def teacher_forced(torch, cfg, params, seq: list, kv_dtype=None):
@@ -1143,7 +1236,8 @@ def phase_legacy(torch, cfg, params, prompts, packed: dict) -> dict:
             raise AssertionError(f"{mode}: token id out of range")
         outs[mode] = {r.rid: r.output for r in done}
         phase_profile(torch, cfg, params, prompts, s.wall_time,
-                      tag=f"{mode} profile", **kw)
+                      tag=f"{mode} profile", cross_check=mode == "legacy",
+                      **kw)
         del eng
         torch.cuda.empty_cache()
     for a, b, bound in (("legacy", "packed", True),
@@ -1161,14 +1255,15 @@ def phase_legacy(torch, cfg, params, prompts, packed: dict) -> dict:
     return counts["legacy"]
 
 
-def phase_shared_prefix(torch, cfg, params) -> dict:
+def phase_shared_prefix(torch, cfg, params, busy: dict) -> dict:
     """A shared system prompt, in each of the four KV modes: wave 1 is one
     request (600 shared tokens + a 10-token suffix); wave 2, after it
     finished, is seven requests with the same 600 tokens and their own
     suffixes (first suffix tokens all distinct), 32 greedy tokens each.
     With prefix caching each wave-2 request finds 37 full blocks of 16
     cached and 8 more tokens in wave 1's 38th block, which it copies:
-    7 x 600 = 4200 hit tokens and 7 copies.  Returns each attention
+    7 x 600 = 4200 hit tokens and 7 copies.  Each mode's run is then
+    profiled on a fresh engine, into ``busy``.  Returns each attention
     variant's launches in the run of its KV mode."""
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import ServeEngine
@@ -1225,8 +1320,13 @@ def phase_shared_prefix(torch, cfg, params) -> dict:
                                  "copy-on-write copies")
         launches[kname] = counts[kname]
         outs[(blocked, quant)] = {r.rid: r.output for r in done}
+        wall = s.wall_time
         del eng
         torch.cuda.empty_cache()
+        busy[tag] = phase_profile(
+            torch, cfg, params, prompts, wall, tag=f"{tag} profile", waves=2,
+            cross_check=blocked and not quant, kv_block_size=KV_BLOCK,
+            prefix_caching=blocked, kv_dtype=kv_dtype)
 
     for quant in (False, True):
         same_ctx, raw, first = context_agreement(outs[(True, quant)],
@@ -1358,9 +1458,10 @@ def check_hybrid_counts(mode: str, cfg, c: dict, s) -> None:
                              f"{s.model_dispatches} dispatches")
 
 
-def phase_hybrid(torch) -> dict:
-    """The hybrid model on the three steps (see the module docstring).
-    Returns the scan's launches in the legacy run."""
+def phase_hybrid(torch, busy: dict) -> dict:
+    """The hybrid model on the three steps (see the module docstring); the
+    legacy and packed runs are profiled into ``busy``.  Returns the scan's
+    launches in the legacy run."""
     from repro_torch.models import model
     from repro_torch.models.param import count_params
     from repro_torch.serving.config import EngineConfig
@@ -1431,9 +1532,10 @@ def phase_hybrid(torch) -> dict:
         wall = s.wall_time
         del eng, lg
         torch.cuda.empty_cache()
-        if mode == "legacy":
-            phase_profile(torch, cfg, params, prompts, wall,
-                          tag="hybrid legacy profile", **kw)
+        if mode in ("legacy", "packed"):
+            busy[f"hybrid {mode}"] = phase_profile(
+                torch, cfg, params, prompts, wall, tag=f"hybrid {mode} profile",
+                cross_check=True, **kw)
     for a, b in (("legacy", "packed"), ("legacy", "recompute"),
                  ("recompute", "packed")):
         same_ctx, raw, first = context_agreement(outs[a], outs[b])
@@ -1501,7 +1603,8 @@ def main() -> int:
     lap("forward")
     launches, params, prompts, serve_wall, packed = phase_serve(torch, cfg)
     lap("serve")
-    phase_profile(torch, cfg, params, prompts, serve_wall)
+    busy = {"packed": phase_profile(torch, cfg, params, prompts, serve_wall,
+                                    cross_check=True)}
     lap("profile")
     # the serve phase's counts stand for the kernels it drives; the legacy
     # phase's incremental run gives flash and decode attention's, and the
@@ -1510,14 +1613,18 @@ def main() -> int:
     for kname in LEGACY:
         launches[kname] = legacy[kname]
     lap("legacy")
-    for kname, n in phase_shared_prefix(torch, cfg, params).items():
+    for kname, n in phase_shared_prefix(torch, cfg, params, busy).items():
         launches.setdefault(kname, n)
     lap("shared-prefix")
     # the hybrid's legacy run gives the scan's count
     del params
     torch.cuda.empty_cache()
-    launches["ssm_scan"] = phase_hybrid(torch)
+    launches["ssm_scan"] = phase_hybrid(torch, busy)
     lap("hybrid")
+    for tag, got in busy.items():
+        if got is not None and "legacy" not in tag:
+            log(f"packed attention in the {tag} serve: {got[1]:.1f} ms of "
+                f"{got[0]:.1f} ms device busy = {got[1] / got[0]:.3f}")
     launches.update(ops_only)
 
     sources = {kname: (f"{_CSRC}/packed_attention.cu", replaces)

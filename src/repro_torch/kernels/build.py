@@ -54,7 +54,7 @@ _void_p, _int, _ll, _float = _c.c_void_p, _c.c_int, _c.c_longlong, _c.c_float
 # argtypes of each source's one C entry point
 SIGNATURES = {
     "packed_attention": ("repro_packed_attention",
-                         [_void_p] * 9 + [_int] * 10 + [_ll] * 6
+                         [_void_p] * 12 + [_int] * 13 + [_ll] * 6
                          + [_float, _void_p]),
     "flash_attention": ("repro_flash_attention",
                         [_void_p] * 5 + [_int] * 8 + [_ll] * 4

@@ -34,8 +34,10 @@ from repro_torch.kernels import packed_attention as pa
 # at the legacy step's 8 slots x 8 KV heads, where its ~150 live units fill
 # the 132 SMs (PERF.md §6)
 CHUNK = 128
-# per-(device, stream) split-KV ticket counters; each launch leaves them 0
-_TICKETS: dict = {}
+# the split-KV ticket counters, per (device, stream), shared with packed
+# attention's tile kernel; each launch leaves them 0
+_TICKETS = pa._TICKETS
+split_kv_tickets = pa.split_kv_tickets
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
@@ -57,19 +59,6 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgk,bkhv->bhgv", probs, v_cache.float())
     return out.reshape(b, h, dv).to(q.dtype)
-
-
-def split_kv_tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    """Zeroed int32 counters for ``n`` (row, KV head) pairs, kept per device
-    and stream and shared by every split-KV kernel (decode attention and the
-    fused op's attention role): the launch that uses them sets them back to
-    0, and launches on one stream run in order."""
-    key = (dev, stream)
-    buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _TICKETS[key] = torch.zeros(max(n, 1), dtype=torch.int32,
-                                          device=dev)
-    return buf
 
 
 def check_caches(check, q: torch.Tensor, k_cache: torch.Tensor,

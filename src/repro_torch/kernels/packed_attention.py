@@ -6,9 +6,13 @@ its own slot ``token_slot[t]`` in the slot caches, and nothing else.  The
 kernel (``csrc/packed_attention.cu``) replaces the TPU kernel
 ``src/repro/kernels/packed_attention.py:packed_attention`` in its four
 variants: contiguous or block-table caches (DESIGN.md §12), each with
-native or int8 K/V (DESIGN.md §15).  ``packed_attention_ref`` ports
-``src/repro/kernels/ref.py:packed_attention_ref`` and is what the CPU runs
-and what the card's kernel is held against.
+native or int8 K/V (DESIGN.md §15).  It runs query tiles over runs of one
+slot (a tile reads each K/V row once for up to ``64 // group`` tokens)
+split into chunks of key rows, on the tensor cores with bf16 q and the
+CUDA cores with f32 q; ``tile_plan`` sizes them and the split-KV scratch
+from T and the sweep alone.  ``packed_attention_ref`` ports ``src/repro/kernels/ref.py:
+packed_attention_ref`` and is what the CPU runs and what the card's kernel
+is held against.
 """
 from __future__ import annotations
 
@@ -28,6 +32,52 @@ VARIANTS = {(False, False): "packed_attention",
             (False, True): "packed_attention_quant",
             (True, False): "packed_attention_block",
             (True, True): "packed_attention_block_quant"}
+# the tile kernel: a tile's rows (tokens x the group's heads), the
+# least key rows per chunk (a power of two >= CHUNK_MULTIPLE: the kernel
+# takes CHUNK << e, the smallest whose items fill no more than its grid;
+# tools/packed_attention_probe.py), and the most (tokens x chunks) of
+# split-KV scratch one launch may use: past it the chunks grow instead
+TILE_ROWS = 64
+CHUNK = 64
+CHUNK_MULTIPLE = 64
+SPLIT_BUDGET = 2048
+# per-(device, stream) split-KV ticket counters; each launch leaves them 0
+_TICKETS: dict = {}
+
+
+def split_kv_tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """Zeroed int32 counters for ``n`` (row or tile, KV head) pairs, kept
+    per device and stream and shared by every split-KV kernel (packed
+    attention's tiles, decode attention and the fused op's attention role):
+    the launch that uses them sets them back to 0, and launches on one
+    stream run in order."""
+    key = (dev, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[key] = torch.zeros(max(n, 1), dtype=torch.int32,
+                                          device=dev)
+    return buf
+
+
+def tile_plan(t: int, group: int, sweep: int, *, tq: Optional[int] = None,
+              chunk: Optional[int] = None) -> tuple[int, int, int]:
+    """(tokens per group ``tq``, key rows per chunk, chunks) of the tile
+    kernel for a T-token stream over ``sweep`` rows, from the shapes alone
+    (never the lengths).  The chunks cover the sweep; when T x chunks would
+    pass ``SPLIT_BUDGET`` the chunks grow so that the scratch stays within
+    it, and a stream of SPLIT_BUDGET tokens or more is not split at all."""
+    tq = TILE_ROWS // group if tq is None else tq
+    chunk = CHUNK if chunk is None else chunk
+    if not (1 <= tq and tq & (tq - 1) == 0 and tq * group <= TILE_ROWS):
+        raise ValueError(f"tq {tq} must be a power of two, and tq x group "
+                         f"{group} at most {TILE_ROWS} rows")
+    if chunk < CHUNK_MULTIPLE or chunk & (chunk - 1):
+        raise ValueError(f"chunk {chunk} is not a power of two >= "
+                         f"{CHUNK_MULTIPLE}")
+    cap = max(1, SPLIT_BUDGET // max(t, 1))
+    while -(-sweep // chunk) > cap:
+        chunk *= 2
+    return tq, chunk, max(1, -(-sweep // chunk))
 
 
 def _kv_bucket_view(cache: torch.Tensor,
@@ -162,13 +212,16 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
            block_tables: Optional[torch.Tensor] = None,
            k_scale: Optional[torch.Tensor] = None,
            v_scale: Optional[torch.Tensor] = None,
-           scale: Optional[float] = None) -> torch.Tensor:
+           scale: Optional[float] = None, tq: Optional[int] = None,
+           chunk: Optional[int] = None) -> torch.Tensor:
     """Check the operands and launch build ``target`` of
     ``csrc/packed_attention.cu``: one of the four packed variants, or
     ``paged_decode_attention`` (``token_slot=None`` with ``block_tables``:
     the caches are (NP, PS, KV, D) page pools and row t of the (T, MAXP)
     table holds token t's page ids).  ``scale`` multiplies the scores
-    (default ``D ** -0.5``)."""
+    (default ``D ** -0.5``).  ``tq`` and ``chunk`` override
+    ``tile_plan``'s defaults for the tile kernel (the packed variants;
+    tools/packed_attention_probe.py sweeps them)."""
     dev = q.device
     _check(dev.type == "cuda", "q is not a CUDA tensor")
     quant = k_scale is not None
@@ -205,7 +258,7 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
         _check(x.dtype == torch.int32 and tuple(x.shape) == (t,)
                and x.is_contiguous(), f"{name} must be contiguous int32 (T,)")
     _check(q.is_contiguous(), "q must be contiguous")
-    vec = d // 32                  # elements each lane loads per row
+    vec = d // 32                  # paged decode: elements each lane loads
     for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
         _check(x.stride(3) == 1 and x.stride(2) == d,
                f"{name} rows must hold contiguous (KV, D) blocks")
@@ -245,19 +298,40 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
                    "(stride(0) == S * stride(1))")
     out = torch.empty((t, h, d), dtype=q.dtype, device=dev)
     fn = build.build().fn(target)
+    group = h // kvh
+    plan = None
+    part_ml = part_acc = None
+    if not paged:
+        # the tile kernel: cp.async reads 16-byte pieces of every row
+        for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+            _check(all(x.stride(i) * x.element_size() % 16 == 0
+                       for i in (0, 1)) and x.data_ptr() % 16 == 0,
+                   f"{name} rows must be 16-byte aligned")
+        _check(q.data_ptr() % 16 == 0, "q is not 16-byte aligned")
+        plan = tile_plan(t, group, sweep, tq=tq, chunk=chunk)
+        if plan[2] > 1:
+            part_ml = torch.empty(t * kvh * plan[2] * 2 * group,
+                                  dtype=torch.float32, device=dev)
+            part_acc = torch.empty(t * kvh * plan[2] * group * d,
+                                   dtype=torch.float32, device=dev)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        tickets = (split_kv_tickets(dev, stream, t * kvh)
+                   if part_ml is not None else None)
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 ptr(k_scale), ptr(v_scale), ptr(token_slot),
                 lengths.data_ptr(), ptr(block_tables), out.data_ptr(),
+                ptr(part_ml), ptr(part_acc), ptr(tickets),
                 _DTYPES[q.dtype], int(quant), t, h, kvh, d,
-                t if paged else n, sweep, nb_cols, bs, k_cache.stride(0),
-                k_cache.stride(1), v_cache.stride(0), v_cache.stride(1),
-                *s_strides, float(d ** -0.5 if scale is None else scale),
-                torch.cuda.current_stream(dev).cuda_stream)
+                t if paged else n, sweep, nb_cols, bs,
+                *(plan if plan is not None else (0, 0, 0)),
+                k_cache.stride(0), k_cache.stride(1), v_cache.stride(0),
+                v_cache.stride(1), *s_strides,
+                float(d ** -0.5 if scale is None else scale), stream)
     if rc != 0:
         raise RuntimeError(f"{target} kernel launch failed: {rc}")
     return out

@@ -10,7 +10,9 @@ holds the Pallas SwiGLU; the selective scan at 1e-5 in f32 (the N states
 summed in another order) and, with bf16 x, b and c, y at one output
 rounding (1e-3 + 1e-2·|ref|) and the f32 final state at 1e-5; the fused
 overlap's GEMM at 1e-4 in f32 (sums over K in another order) and 2e-2 in
-bf16, its outputs bitwise equal across ``gemm_fraction``.
+bf16, its outputs bitwise equal across ``gemm_fraction``; packed attention
+on the engine-shaped streams in bf16 at one output rounding (1e-3 +
+1e-2·|ref|, as ``chip_smoke.py`` holds it).
 """
 import dataclasses
 
@@ -141,6 +143,168 @@ def test_packed_attention_wrapper_raises_instead_of_falling_back(cuda):
         packed_attention_cuda(args[0], args[0].new_zeros(args[1].shape),
                               *args[2:], kv_bucket=288, **quant)
     assert packed_attention_cuda.launches == before
+
+
+# Streams shaped as the engine packs them (decode tokens, then prefill
+# chunks as runs of one slot), and the edges of the tile kernel's runs:
+#   engine   5 decode tokens, a chunk of 2 * tq + 3 tokens at positions
+#            149.. (its tiles cross the group boundaries), a chunk of
+#            tq // 2 + 1 tokens from position 0 (stops short of one), then
+#            the engine's padding (slot 0, length 1) after a chunk of slot 0
+#   split    a run of one slot cut by another slot, then resumed
+#   shuffled a run of one slot whose lengths are not consecutive
+#   padding  tokens of an out-of-range slot (-1 and N) and of length 0,
+#            inside and between runs
+#   bucket   lengths past the sweep (kv_bucket 160 < lengths up to 300)
+#   empty    T = 0
+# Slots are in [0, 6) over 320-row caches; the sweep is 288 = 18 blocks of
+# 16 rows except in ``bucket``.
+SEGMENTED = ("engine", "split", "shuffled", "padding", "bucket", "empty")
+SEG_SLOTS, SEG_ROWS, SEG_BLOCK = 6, 320, 16
+
+
+def segmented_stream(case: str, group: int, seed: int = 0):
+    """(token_slot, lengths, kv_bucket) of one case as int32 numpy arrays;
+    ``tq = 64 // group`` is the tile kernel's tokens per group."""
+    rng = np.random.default_rng(seed)
+    tq = 64 // group
+    slot, lens = [], []
+
+    def run(sl, ls):
+        slot.extend([sl] * len(ls))
+        lens.extend(int(x) for x in ls)
+
+    bucket = 288
+    if case == "engine":
+        for sl in range(5):
+            run(sl, [int(rng.integers(200, 289))])
+        n = 2 * tq + 3
+        run(5, range(150, 150 + n))
+        run(0, range(1, tq // 2 + 2))
+        run(0, [1, 1, 1])
+    elif case == "split":
+        run(2, range(40, 43))
+        run(1, [250])
+        run(2, range(43, 47))
+        run(3, range(1, 2 * tq))
+        run(4, [7])
+        run(3, range(2 * tq, 2 * tq + 5))
+    elif case == "shuffled":
+        run(1, [99])
+        run(3, rng.permutation(np.arange(1, 2 * tq + 1)) * 2 + 17)
+        run(2, [50, 7, 288, 1, 33])
+    elif case == "padding":
+        run(4, range(100, 100 + tq + 2))
+        run(4, [0])
+        run(-1, [5, 9])
+        run(4, range(100 + tq + 2, 100 + tq + 6))
+        run(SEG_SLOTS, [3])
+        run(1, [0, 0])
+        run(0, [260])
+    elif case == "bucket":
+        bucket = 160
+        run(0, [300])
+        run(1, [160])
+        run(2, range(150, 150 + tq + 4))
+        run(3, rng.integers(1, 301, 6))
+    elif case != "empty":
+        raise ValueError(case)
+    return (np.asarray(slot, np.int32), np.asarray(lens, np.int32), bucket)
+
+
+def segmented_operands(variant: str, group: int, d: int, seed: int = 0,
+                       kv: int = 2):
+    """Caches of one packed-attention variant as numpy arrays (f32, or
+    int8 codes with f32 (N, S, KV) scales) and, for the block-table
+    variants, a shuffled (N, S / 16) table over the N·S rows."""
+    rng = np.random.default_rng(seed + 7 * group + d)
+    n, s = SEG_SLOTS, SEG_ROWS
+    kw = {}
+    if "quant" in variant:
+        k, v = (rng.integers(-127, 128, (n, s, kv, d)).astype(np.int8)
+                for _ in range(2))
+        kw["k_scale"], kw["v_scale"] = (
+            rng.uniform(1e-3, 2e-2, (n, s, kv)).astype(np.float32)
+            for _ in range(2))
+    else:
+        k, v = (rng.normal(size=(n, s, kv, d)).astype(np.float32)
+                for _ in range(2))
+    if "block" in variant:
+        kw["block_tables"] = rng.permutation(n * s // SEG_BLOCK).astype(
+            np.int32).reshape(n, s // SEG_BLOCK)
+    return k, v, kw
+
+
+def _segmented_case(cuda, case, variant, group, d, dtype, seed=0):
+    slot, lens, bucket = segmented_stream(case, group, seed)
+    k, v, kw = segmented_operands(variant, group, d, seed)
+    rng = np.random.default_rng(seed + 1)
+    q = rng.normal(size=(len(slot), 2 * group, d)).astype(np.float32)
+    dt = TORCH[dtype]
+    q = torch.from_numpy(q).to(cuda, dt)
+    k, v = (torch.from_numpy(x).to(cuda) for x in (k, v))
+    if k.dtype == torch.float32:
+        k, v = k.to(dt), v.to(dt)
+    kw = {name: torch.from_numpy(x).to(cuda) for name, x in kw.items()}
+    args = (q, k, v, torch.from_numpy(slot).to(cuda),
+            torch.from_numpy(lens).to(cuda))
+    return args, kw, bucket
+
+
+def _segmented_want(args, kw, bucket):
+    """The plain version on the tokens it defines (slot in range, length
+    >= 1); zeros for the others, as the kernel's contract says."""
+    q, k, v, slot, lens = args
+    want = torch.zeros_like(q)
+    ok = (slot >= 0) & (slot < k.shape[0]) & (lens > 0)
+    if bool(ok.any()):
+        want[ok] = packed_attention_ref(q[ok], k, v, slot[ok], lens[ok],
+                                        kv_bucket=bucket, **kw)
+    return want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", ["packed_attention",
+                                     "packed_attention_quant",
+                                     "packed_attention_block",
+                                     "packed_attention_block_quant"])
+@pytest.mark.parametrize("case", SEGMENTED)
+def test_packed_attention_segmented_streams(cuda, case, variant, group, d,
+                                            dtype):
+    """Every variant on streams shaped as the engine packs them and on the
+    tile kernel's edges (see ``segmented_stream``), against the plain
+    version: bf16 q on the tensor cores (int8 caches stay int8 codes), f32
+    q on the CUDA cores from the same tiles, chunks and merge."""
+    args, kw, bucket = _segmented_case(cuda, case, variant, group, d, dtype)
+    before = packed_attention_cuda.launches[variant]
+    out = packed_attention_cuda(*args, kv_bucket=bucket, **kw)
+    torch.cuda.synchronize()
+    assert packed_attention_cuda.launches[variant] == before + 1
+    assert out.shape == args[0].shape and out.dtype == args[0].dtype
+    want = _segmented_want(args, kw, bucket)
+    tol = dict(atol=1e-3, rtol=1e-2) if dtype == "bfloat16" else _tol(dtype)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", ["packed_attention",
+                                     "packed_attention_quant",
+                                     "packed_attention_block",
+                                     "packed_attention_block_quant"])
+def test_packed_attention_tiles_are_deterministic(cuda, variant, dtype):
+    """Two launches of the tile kernel on the engine-shaped stream give
+    bitwise-equal outputs: a tile's chunks merge in chunk order whichever
+    CTA takes the last ticket, and every ticket is left 0."""
+    args, kw, bucket = _segmented_case(cuda, "engine", variant, 4, 128,
+                                       dtype, seed=3)
+    first = packed_attention_cuda(*args, kv_bucket=bucket, **kw)
+    second = packed_attention_cuda(*args, kv_bucket=bucket, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert int(da._TICKETS[(first.device, stream)].abs().sum()) == 0
 
 
 def _normal(rng, cuda, dtype, *shape):

@@ -170,3 +170,116 @@ def test_ops_choose_by_device():
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         swiglu_cuda(x, torch.ones(8, 8), torch.ones(8, 8))
     assert (packed_attention_cuda.launches, swiglu_cuda.launches) == launches
+
+
+# ---- the streams of the card's tile-kernel tests -------------------------
+# (tests/test_torch_cuda.py: decode tokens then prefill chunks as runs of
+# one slot, runs cut by another slot, shuffled lengths, padding tokens, a
+# sweep below some lengths, T = 0)
+from test_torch_cuda import (SEG_SLOTS, SEGMENTED,  # noqa: E402
+                             segmented_operands, segmented_stream)
+from repro_torch.kernels import packed_attention as pa  # noqa: E402
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", ["packed_attention",
+                                     "packed_attention_quant",
+                                     "packed_attention_block",
+                                     "packed_attention_block_quant"])
+@pytest.mark.parametrize("case", [c for c in SEGMENTED if c != "empty"])
+def test_packed_attention_ref_on_segmented_streams(case, variant, group):
+    """The card's oracle on exactly the card tests' streams: the plain
+    version against the JAX ref in f32 (numpy-seeded, head dim 64), on the
+    tokens both define (slot in range, length >= 1; the kernel's zeros for
+    the others are checked on the card)."""
+    slot, lens, bucket = segmented_stream(case, group)
+    k, v, kw = segmented_operands(variant, group, 64)
+    q = np.random.default_rng(1).normal(
+        size=(len(slot), 2 * group, 64)).astype(np.float32)
+    ok = (slot >= 0) & (slot < SEG_SLOTS) & (lens > 0)
+    args = (q[ok], k, v, slot[ok], lens[ok])
+    out = packed_attention_ref(*(torch.from_numpy(a) for a in args),
+                               kv_bucket=bucket,
+                               **{n: torch.from_numpy(a) for n, a in kw.items()})
+    want = jax_ref.packed_attention_ref(*(jnp.asarray(a) for a in args),
+                                        kv_bucket=bucket,
+                                        **{n: jnp.asarray(a)
+                                           for n, a in kw.items()})
+    np.testing.assert_allclose(_f32(out), _f32(want), **_tol("float32"))
+
+
+def _chip_smoke():
+    """The root ``chip_smoke.py`` as a module (it imports torch only inside
+    its functions)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", SEGMENTED)
+def test_tiles_cover_the_stream(case, group):
+    """chip_smoke's host replay of the tile kernel's tiling, which its K/V
+    megabytes are counted from: tiles cover the stream in order, stay
+    inside one group of tq tokens and one slot, end where the slot
+    changes, and carry their tokens' largest clamped length; the megabytes
+    they stream lie between the distinct rows' and a per-token loop's."""
+    cs = _chip_smoke()
+    slot, lens, bucket = segmented_stream(case, group)
+    tq, _, _ = pa.tile_plan(len(slot), group, bucket)
+    assert tq == 64 // group
+    tiles = cs.tiles(slot, lens, SEG_SLOTS, bucket, tq)
+    clamped = [min(max(int(x), 0), bucket) if 0 <= s < SEG_SLOTS else 0
+               for s, x in zip(slot, lens)]
+    t = 0
+    for first, n, top in tiles:
+        assert first == t and n >= 1
+        assert first // tq == (first + n - 1) // tq
+        assert len(set(slot[first:first + n].tolist())) == 1
+        end = first + n
+        assert end == len(slot) or end % tq == 0 or slot[end] != slot[first]
+        assert top == max(clamped[first:end])
+        t = end
+    assert t == len(slot)
+    k, _, _ = segmented_operands("packed_attention", group, 64)
+    args = (torch.zeros(len(slot), 2 * group, 64), torch.from_numpy(k), None,
+            torch.from_numpy(slot), torch.from_numpy(lens))
+    mb = cs.kv_stream(args, {}, bucket)
+    row = 2 * 64 * 2 * 4 / 1e6
+    assert mb["tq"] == tq
+    assert mb["tiled"] == pytest.approx(sum(top for _, _, top in tiles) * row)
+    assert mb["per_token"] == pytest.approx(sum(clamped) * row)
+    assert mb["distinct"] <= mb["tiled"] <= mb["per_token"]
+
+
+@pytest.mark.parametrize("t,group,sweep", [(8, 4, 1024), (245, 4, 1024),
+                                           (256, 1, 4096), (1024, 8, 1024),
+                                           (4096, 2, 512), (0, 4, 64),
+                                           (3, 2, 0)])
+def test_tile_plan_sizes_the_scratch_from_shapes(t, group, sweep):
+    """tile_plan's (tq, chunk, chunks): 64 rows per tile, power-of-two
+    chunks of at least CHUNK rows that cover the sweep, and split-KV
+    scratch within SPLIT_BUDGET tokens x chunks (one chunk for a stream of
+    that many tokens)."""
+    tq, chunk, n = pa.tile_plan(t, group, sweep)
+    assert tq * group == pa.TILE_ROWS
+    assert chunk >= pa.CHUNK and chunk & (chunk - 1) == 0
+    assert n >= 1 and n * chunk >= sweep
+    assert t * n <= max(pa.SPLIT_BUDGET, t)
+    if t >= pa.SPLIT_BUDGET:
+        assert n == 1
+    if t * -(-sweep // pa.CHUNK) <= pa.SPLIT_BUDGET:
+        assert chunk == pa.CHUNK
+    assert pa.tile_plan(t, group, sweep, tq=2, chunk=256)[:2] == (2, max(
+        256, chunk))
+
+
+@pytest.mark.parametrize("bad", [dict(tq=3), dict(tq=128), dict(chunk=96),
+                                 dict(chunk=32), dict(chunk=0)])
+def test_tile_plan_refuses_what_the_kernel_does_not_take(bad):
+    with pytest.raises(ValueError):
+        pa.tile_plan(16, 4, 1024, **bad)
