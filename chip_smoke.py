@@ -20,7 +20,11 @@ Phases (any failure exits non-zero; no phase is caught):
                its TB/s and the split-KV units and chunk size); the
                selective scan (f32 and bf16) at Jamba-1.5-Large's 16384
                channels and 16 states, on a 256-token chunk from a carried
-               state and a 513-token prompt from zero state.
+               state and a 513-token prompt from zero state; SwiGLU (bf16)
+               at Qwen3-8B's widths for T = 8, 64, 256, 257 and at
+               Jamba-1.5-Large's (8192 -> 24576) for T = 8, 256, each with
+               its tiles and CTA groups, beside the library pair (two
+               torch.matmul, then F.silu(g) * u).
      paged   — paged decode attention through ``ops.paged_decode_attention``
                (its only caller) at Qwen3-8B's heads: 8 rows of the serve
                phase's lengths + 16 over a shuffled pool of 16-row pages,
@@ -44,8 +48,9 @@ Phases (any failure exits non-zero; no phase is caught):
                SwiGLU must have launched, and the greedy tokens must agree
                with a teacher-forced forward through the plain versions.
   6. profile — the same requests again under torch.profiler: device busy
-               share, packed attention's share of the busy time and the
-               kernels that take the device time, summed from the trace's
+               share, packed attention's, SwiGLU's and the library GEMMs'
+               (cuBLAS) shares of the busy time and the kernels that take
+               the device time, summed from the trace's
                device events; once per kind of engine (this one, the
                legacy step, block tables, the hybrid's two steps) the sum
                must agree with ``key_averages`` within 1%.
@@ -75,7 +80,9 @@ Phases (any failure exits non-zero; no phase is caught):
                teacher-forced plain ``forward_full``; the legacy and packed
                runs are profiled.  Then one line per profiled packed serve
                (Qwen3-8B, the four shared-prefix modes, the hybrid): packed
-               attention's device time and share of the busy time.
+               attention's device time and share of the busy time, then
+               one line per profiled serve (the legacy runs too) with
+               SwiGLU's and the library GEMMs' shares.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -139,6 +146,11 @@ OPS_ONLY = {
                       "src/repro/kernels/fused_overlap.py:89"),
 }
 PAGE = 16               # rows per page of the paged phase
+# device-kernel names of PyTorch's library GEMMs (cuBLAS, cuBLASLt) in a
+# profile, and names of the port's own kernels, which are never counted so
+LIBRARY_GEMMS = ("nvjet", "gemm", "xmma", "cutlass")
+OUR_KERNELS = ("packed_attention", "flash", "swiglu", "ssm_scan",
+               "decode_attention", "fused_overlap")
 OVERLAP_FRACTIONS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 # the fused GEMM in f32 against torch.matmul: 4096-term sums in another order
 GEMM_F32_TOL = (1e-4, 1e-4)
@@ -804,7 +816,6 @@ def phase_overlap(torch, cfg, timer, bw, peak) -> tuple[dict, int]:
 def phase_kernels(torch, cfg, timer, bw, peak):
     from repro_torch.kernels.packed_attention import (packed_attention_cuda,
                                                       packed_attention_ref)
-    from repro_torch.kernels.swiglu import swiglu_cuda, swiglu_ref
     F = torch.nn.functional
     record = {}
 
@@ -896,34 +907,76 @@ def phase_kernels(torch, cfg, timer, bw, peak):
         del args, kw, got, want
 
     # ---- SwiGLU ------------------------------------------------------------
-    d, ff = cfg.d_model, cfg.d_ff
-    gen = torch.Generator(device="cuda").manual_seed(7)
+    record["swiglu"] = phase_swiglu(torch, cfg, timer, bw, peak)
+    return record
+
+
+def swiglu_case(torch, d: int, ff: int, seed: int = 7):
+    """SwiGLU's weights at (d, ff), seeded on the card, and the library pair
+    (``torch.matmul`` twice, then ``F.silu(g) * u``, on one stream): the
+    yardstick one PyTorch call per piece gives for the same function."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     wg = (torch.randn(d, ff, generator=gen, device="cuda") / d ** 0.5) \
         .to(torch.bfloat16)
     wu = (torch.randn(d, ff, generator=gen, device="cuda") / d ** 0.5) \
         .to(torch.bfloat16)
-    for t in (8, 64, 256, 257):
-        x = torch.randn(t, d, generator=gen, device="cuda").to(torch.bfloat16)
-        got = swiglu_cuda(x, wg, wu)
-        want = swiglu_ref(x, wg, wu)
-        torch.cuda.synchronize()
-        err = check_close(f"swiglu T={t}", got, want)
-        ms = timer(lambda: swiglu_cuda(x, wg, wu))
-        plain_ms = timer(lambda: swiglu_ref(x, wg, wu))
-        nbytes = (t * d + 2 * d * ff + t * ff) * 2
-        flops = 4 * t * d * ff
-        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
-        log(f"swiglu T={t} ({d}x{ff}): max_abs_err {err:.3e} (tol {BF16_TOL[0]}"
-            f" + {BF16_TOL[1]}·|ref|)  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
-            f"bound_ms {max(t_bytes, t_ops):.4f} ({nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP)  {flops / ms / 1e9:.1f} TFLOP/s")
-        if t == 256:
-            record["swiglu"] = dict(
-                shape=f"x ({t},{d}) x ({d},{ff}) twice, bf16",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None)
+
+    def library(x):
+        return F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu)
+    return gen, wg, wu, library
+
+
+def phase_swiglu(torch, cfg, timer, bw, peak) -> dict:
+    """SwiGLU (bf16) at Qwen3-8B's widths for T = 8, 64, 256 and 257 and at
+    Jamba-1.5-Large's (8192 -> 24576) for T = 8 and 256: kernel against
+    plain, its schedule (``swiglu.plan``), its time beside the plain
+    version's, the library pair's and the bound.  Returns the record at
+    Qwen3-8B's T = 256."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import swiglu as sw
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    jamba = get_config(JAMBA)
+    record = None
+    for i, ((d, ff), ts) in enumerate(
+            (((cfg.d_model, cfg.d_ff), (8, 64, 256, 257)),
+             ((jamba.d_model, jamba.d_ff), (8, 256)))):
+        gen, wg, wu, library = swiglu_case(torch, d, ff)
+        for t in ts:
+            x = torch.randn(t, d, generator=gen, device="cuda") \
+                .to(torch.bfloat16)
+            got = sw.swiglu_cuda(x, wg, wu)
+            want = sw.swiglu_ref(x, wg, wu)
+            torch.cuda.synchronize()
+            err = check_close(f"swiglu T={t} ({d}x{ff})", got, want)
+            check_close(f"swiglu library pair T={t} ({d}x{ff})", library(x),
+                        want, LIB_TOL)
+            ms = timer(lambda: sw.swiglu_cuda(x, wg, wu))
+            plain_ms = timer(lambda: sw.swiglu_ref(x, wg, wu))
+            lib_ms = timer(lambda: library(x))
+            nbytes = (t * d + 2 * d * ff + t * ff) * 2
+            flops = 4 * t * d * ff
+            t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+            bm, bn, groups = sw.plan(t, ff, sms)
+            log(f"swiglu T={t} ({d}x{ff}): max_abs_err {err:.3e} (tol "
+                f"{BF16_TOL[0]} + {BF16_TOL[1]}·|ref|)  kernel_ms {ms:.4f}  "
+                f"plain_ms {plain_ms:.4f}  library_ms {lib_ms:.4f} (2 matmul "
+                f"+ silu·mul)  bound_ms {max(t_bytes, t_ops):.4f} "
+                f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)  "
+                f"{nbytes / ms / 1e9:.3f} TB/s, {flops / ms / 1e9:.1f} TFLOP/s;"
+                f" {bm}x{bn} tiles{' (swap AB)' if bm < 128 else ''}, "
+                f"{groups} groups x {-(-t // bm)} CTAs (whole strips of {bn} "
+                f"columns)")
+            if (i, t) == (0, 256):
+                record = dict(
+                    shape=f"x ({t},{d}) x ({d},{ff}) twice, bf16",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=lib_ms)
+            del x, got, want
+        del wg, wu, library
+        torch.cuda.empty_cache()
     return record
 
 
@@ -1133,22 +1186,28 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
         return None
     pa_us = sum(us for name, (us, _) in totals.items()
                 if "packed_attention" in name)
+    sw_us = sum(us for name, (us, _) in totals.items() if "swiglu" in name)
+    lib_us = sum(us for name, (us, _) in totals.items()
+                 if any(k in name.lower() for k in LIBRARY_GEMMS)
+                 and not any(k in name for k in OUR_KERNELS))
     log(f"{tag}: device busy {dev_us / 1e3:.1f} ms over "
         f"{eng.stats.iterations} iterations: {dev_us / wall_us:.3f} of the "
         f"profiled wall ({wall_us / 1e3:.1f} ms), {dev_us / 1e6 / serve_wall:.3f}"
         f" of the unprofiled serve's wall ({serve_wall * 1e3:.1f} ms); "
         f"{sum(n for _, n in totals.values()) / eng.stats.iterations:.0f} device "
         f"events per iteration; packed attention {pa_us / 1e3:.1f} ms = "
-        f"{pa_us / dev_us:.3f} of the busy time")
+        f"{pa_us / dev_us:.3f} of the busy time; SwiGLU {sw_us / 1e3:.1f} ms "
+        f"= {sw_us / dev_us:.3f}; library GEMMs (cuBLAS) {lib_us / 1e3:.1f} "
+        f"ms = {lib_us / dev_us:.3f}")
     # the twelve costliest, and the port's own kernels wherever they rank
     ranked = sorted(totals.items(), key=lambda kv: -kv[1][0])
     ours = ("packed_attention", "flash_bf16_kernel", "swiglu_bf16",
-            "ssm_scan_kernel")
+            "ssm_scan_kernel", "decode_attention")
     for name, (us, n) in ranked[:12] + [
             kv for kv in ranked[12:] if any(k in kv[0] for k in ours)]:
         log(f"{tag}:   {us / 1e3:9.2f} ms {us / dev_us:6.3f}  x{n:<6d} "
             f"{name[:90]}")
-    return dev_us / 1e3, pa_us / 1e3
+    return dev_us / 1e3, pa_us / 1e3, sw_us / 1e3, lib_us / 1e3
 
 
 def teacher_forced(torch, cfg, params, seq: list, kv_dtype=None):
@@ -1625,6 +1684,11 @@ def main() -> int:
         if got is not None and "legacy" not in tag:
             log(f"packed attention in the {tag} serve: {got[1]:.1f} ms of "
                 f"{got[0]:.1f} ms device busy = {got[1] / got[0]:.3f}")
+    for tag, got in busy.items():
+        if got is not None:
+            log(f"SwiGLU in the {tag} serve: {got[2]:.1f} ms of {got[0]:.1f} "
+                f"ms device busy = {got[2] / got[0]:.3f}; library GEMMs "
+                f"(cuBLAS) {got[3]:.1f} ms = {got[3] / got[0]:.3f}")
     launches.update(ops_only)
 
     sources = {kname: (f"{_CSRC}/packed_attention.cu", replaces)

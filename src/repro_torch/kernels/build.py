@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # target -> (source, its compile-time switches).  The four packed-attention
 # variants and paged decode attention are one source built with three
 # switches (csrc/packed_attention.cu); decode attention and the fused op
-# share the unit of csrc/attn_decode.cuh.
+# share the unit of csrc/attn_decode.cuh, SwiGLU and the fused op the GEMM
+# mainloop of csrc/gemm_sm90.cuh.
 def _pa(quant: int, block_table: int) -> tuple[str, tuple[str, ...]]:
     return ("packed_attention", (f"-DREPRO_PA_QUANT={quant}",
                                  f"-DREPRO_PA_BLOCK_TABLE={block_table}"))
@@ -59,7 +60,7 @@ SIGNATURES = {
     "flash_attention": ("repro_flash_attention",
                         [_void_p] * 5 + [_int] * 8 + [_ll] * 4
                         + [_float, _void_p]),
-    "swiglu": ("repro_swiglu", [_void_p] * 4 + [_int] * 4 + [_void_p]),
+    "swiglu": ("repro_swiglu", [_void_p] * 4 + [_int] * 7 + [_void_p]),
     "ssm_scan": ("repro_ssm_scan",
                  [_void_p] * 9 + [_int] * 5 + [_ll] * 4 + [_void_p]),
     "decode_attention": ("repro_decode_attention",

@@ -26,13 +26,17 @@
 //     gemm_fraction = 1.0 still leaves one CTA to the attention.  Blocks are
 //     handed out one per SM before the second, so at G = P / 2 each SM holds
 //     one CTA of each role (intra-SM overlap).
-//   * GEMM role, bf16: 128 x 128 output tiles, 8 warps each owning 64 x 32,
-//     mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix from padded
-//     shared memory and a 3-stage cp.async ring (the tile code of
-//     csrc/swiglu.cu with one product); f32: 64 x 64 tiles of plain FMA,
-//     kept for exact checks.  Ragged M, N and K edges are masked in the
-//     kernel (zero-filled loads, guarded stores); nothing is padded.  bf16
-//     moves 16-byte chunks, so it needs K and N to be multiples of 8.
+//   * GEMM role, bf16: csrc/gemm_sm90.cuh's mainloop with one weight
+//     matrix: 128 x 128 output tiles, two consumer warpgroups each running
+//     wgmma m64n128k16 (64 f32 accumulators a thread, inside the 128
+//     registers that two CTAs per SM allow), a 3-stage TMA ring of 32 KB
+//     stages (97 KB with its barriers, so two CTAs still fit an SM) with
+//     full and empty mbarriers, thread 0 keeping the loads STAGES steps
+//     ahead across the CTA's tiles (the unit fixes the CTA at 256
+//     threads, so there is no producer warp).  TMA zero-fills ragged M, N
+//     and K edges; stores are guarded.  bf16 needs K > 0 and K, N
+//     multiples of 8.  f32: 64 x 64 tiles of plain FMA, kept for exact
+//     checks (masked loads).
 //   * Attention role: csrc/attn_decode.cuh's unit, shared with decode
 //     attention: a unit is (row, KV head, chunk of `chunk` rows, 512 by
 //     default; the TPU kernel's block_s is 256), and units past cache_len
@@ -45,23 +49,19 @@
 //     it, nor on the order in which CTAs finish, so the outputs are bitwise
 //     equal at every gemm_fraction.
 //   * Shared memory is one dynamic buffer sized to the larger role (the bf16
-//     GEMM ring, 55.5 KB, above the 48 KB default; the attention ring takes
+//     GEMM ring, 97 KB, above the 48 KB default; the attention ring takes
 //     at most 54 KB).
-// Left for a later change: wgmma and TMA for the GEMM role, and choosing G
-// from the two roles' measured rates instead of a caller's fraction.
+// Left for a later change: choosing G from the two roles' measured rates
+// instead of a caller's fraction.
 #include "attn_decode.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
-using attn_decode::cp_async16;
-using attn_decode::cp_async_commit;
-using attn_decode::cp_async_wait;
-using attn_decode::ldmatrix_x4;
-using attn_decode::ldmatrix_x4_trans;
-using attn_decode::mma_bf16;
 using attn_decode::THREADS;
 
 struct Params {
+  CUtensorMap x_map, w_map;   // bf16: the GEMM role's operands for TMA
   const void* x;
   const void* w;
   void* gemm_out;
@@ -71,119 +71,49 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// GEMM role, bf16: mma.sync tensor-core tiles
+// GEMM role, bf16: wgmma tiles on csrc/gemm_sm90.cuh's mainloop
 // ---------------------------------------------------------------------------
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 32;
 constexpr int STAGES = 3;
-constexpr int A_LD = BK + 8;   // padded row pitch (elements) of the x tile
-constexpr int B_LD = BN + 8;   // padded row pitch of the w tile
-constexpr int BF16_SMEM = STAGES * (BM * A_LD + BK * B_LD) * 2;
+using GemmTile = gemm_sm90::RowTile;
+using GemmRing = gemm_sm90::Ring<GemmTile, 1, STAGES>;
+constexpr int BM = GemmTile::BM;
+constexpr int BN = GemmTile::BN;
+constexpr int BF16_SMEM = GemmRing::SMEM;
+static_assert(GemmRing::CONSUMERS == THREADS, "one CTA size for both roles");
 
-__device__ void gemm_tile(const Params& p, int tile, __nv_bfloat16* /*tag*/,
+// The tiles cta, cta + stride, ... (row-major over the tile grid), each
+// over all of K.
+struct Strided {
+  int cta, stride, n_tiles, n_tn, kt;
+  __device__ int steps() const {
+    return cta < n_tiles ? ((n_tiles - 1 - cta) / stride + 1) * kt : 0;
+  }
+  __device__ gemm_sm90::Step at(int i) const {
+    const int t = cta + (i / kt) * stride;
+    return gemm_sm90::Step{(t / n_tn) * BM, (t % n_tn) * BN,
+                           (i % kt) * gemm_sm90::BK};
+  }
+  __device__ int span(int) const { return kt; }
+};
+
+__device__ void gemm_role(const Params& p, int cta, __nv_bfloat16* /*tag*/,
                           unsigned char* smem) {
-  typedef __nv_bfloat16 ATile[BM][A_LD];
-  typedef __nv_bfloat16 BTile[BK][B_LD];
-  ATile* sa = reinterpret_cast<ATile*>(smem);
-  BTile* sb = reinterpret_cast<BTile*>(smem + STAGES * sizeof(ATile));
-  const __nv_bfloat16* __restrict__ x = static_cast<const __nv_bfloat16*>(p.x);
-  const __nv_bfloat16* __restrict__ w = static_cast<const __nv_bfloat16*>(p.w);
   __nv_bfloat16* __restrict__ out = static_cast<__nv_bfloat16*>(p.gemm_out);
-  const int M = p.M, N = p.N, K = p.K;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 2;   // warp's 64-row half of the tile
-  const int wn = warp & 3;    // warp's 32-column quarter
-  const int n_tn = (N + BN - 1) / BN;
-  const int m0 = (tile / n_tn) * BM;
-  const int n0 = (tile % n_tn) * BN;
-
-  auto load_tile = [&](int stage, int k0) {
+  const Strided sched{cta, p.n_gemm_ctas, p.n_tiles, (p.N + BN - 1) / BN,
+                      (p.K + gemm_sm90::BK - 1) / gemm_sm90::BK};
+  const CUtensorMap* const b_maps[1] = {&p.w_map};
+  gemm_sm90::run<GemmTile, 1, STAGES, false>(
+      smem, &p.x_map, b_maps, sched,
+      [&](const gemm_sm90::Step& st, float (&acc)[1][GemmTile::ACC]) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {   // x tile: 128 rows x 4 chunks of 8
-      const int c = tid + i * THREADS;
-      const int row = c >> 2;
-      const int col = (c & 3) * 8;
-      const bool ok = (m0 + row < M) && (k0 + col < K);
-      const __nv_bfloat16* src = ok ? x + (long long)(m0 + row) * K + k0 + col : x;
-      cp_async16(&sa[stage][row][col], src, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {   // w tile: 32 rows x 16 chunks of 8
-      const int c = tid + i * THREADS;
-      const int row = c >> 4;
-      const int col = (c & 15) * 8;
-      const bool ok = (k0 + row < K) && (n0 + col < N);
-      const __nv_bfloat16* src = ok ? w + (long long)(k0 + row) * N + n0 + col : w;
-      cp_async16(&sb[stage][row][col], src, ok);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
-
-  const int ktiles = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_tile(s, s * BK);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nk = kt + STAGES - 1;
-    if (nk < ktiles) load_tile(nk % STAGES, nk * BK);
-    cp_async_commit();
-
-    const int st = kt % STAGES;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(af[mt], &sa[st][wm * 64 + mt * 16 + (lane & 15)]
-                               [kk + (lane >> 4) * 8]);
-      const int brow = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int bcol = wn * 32 + np * 16 + (lane >> 4) * 8;
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, &sb[st][brow][bcol]);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_bf16(acc[mt][np * 2], af[mt], bf[0], bf[1]);
-          mma_bf16(acc[mt][np * 2 + 1], af[mt], bf[2], bf[3]);
+        for (int i = 0; i < GemmTile::ACC; i += 2) {
+          const int row = st.m0 + GemmTile::row(i);
+          const int col = st.n0 + GemmTile::col(i);
+          if (row < p.M && col < p.N)
+            *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * p.N + col) =
+                __floats2bfloat162_rn(acc[0][i], acc[0][i + 1]);
         }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();   // the next tile's prologue overwrites the ring
-
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + wn * 32 + nt * 8 + (lane & 3) * 2;
-      if (col >= N) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 64 + mt * 16 + (lane >> 2) + h * 8;
-        if (row >= M) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * N + col) =
-            __floats2bfloat162_rn(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-      }
-    }
-  }
+      });
 }
 
 // ---------------------------------------------------------------------------
@@ -259,14 +189,19 @@ __device__ void gemm_tile(const Params& p, int tile, float* /*tag*/,
   }
 }
 
+__device__ void gemm_role(const Params& p, int cta, float* tag,
+                          unsigned char* smem) {
+  for (int t = cta; t < p.n_tiles; t += p.n_gemm_ctas)
+    gemm_tile(p, t, tag, smem);
+}
+
 template <typename T, int G, int D>
 __global__ void __launch_bounds__(THREADS, 2)
-fused_overlap_kernel(const Params p) {
+fused_overlap_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int cta = blockIdx.x;
   if (cta < p.n_gemm_ctas) {
-    for (int t = cta; t < p.n_tiles; t += p.n_gemm_ctas)
-      gemm_tile(p, t, static_cast<T*>(nullptr), smem);
+    gemm_role(p, cta, static_cast<T*>(nullptr), smem);
   } else {
     const int stride = gridDim.x - p.n_gemm_ctas;
     for (int u = cta - p.n_gemm_ctas; u < p.n_units; u += stride)
@@ -338,8 +273,9 @@ int dispatch(int group, int head_dim, const Params& p, float frac, int* sched,
 // chunk)), tickets B * KV int32 zeros, left zero by the launch.  sched
 // receives (CTAs launched, of them GEMM CTAs, CTAs per SM, attention
 // units).  Returns -1 for a shape or chunk this build does not take (bf16
-// also needs K % 8 == 0 and N % 8 == 0), -3 if the kernel cannot be
-// resident, else the CUDA error of the launch.
+// also needs K > 0, K % 8 == 0 and N % 8 == 0), -3 if the kernel cannot be
+// resident, -2 if cuTensorMapEncodeTiled refuses a tensor map of the bf16
+// GEMM, else the CUDA error of the launch.
 extern "C" int repro_fused_overlap(
     const void* x, const void* w, void* gemm_out, const void* q, const void* k,
     const void* v, const void* cache_len, void* attn_out, void* part_ml,
@@ -381,6 +317,10 @@ extern "C" int repro_fused_overlap(
   if (dtype == 1) {
     if (K % 8 || N % 8) return -1;
     p.n_tiles = empty_gemm ? 0 : ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+    if (p.n_tiles > 0 &&
+        (K <= 0 || !gemm_sm90::encode(&p.x_map, x, M, K, BM) ||
+         !gemm_sm90::encode(&p.w_map, w, K, N, gemm_sm90::BK)))
+      return K <= 0 ? -1 : -2;
   } else if (dtype == 0) {
     p.n_tiles = empty_gemm ? 0 : ((M + FM - 1) / FM) * ((N + FN - 1) / FN);
   } else {

@@ -12,194 +12,130 @@
 // it is bound by operations (4 M N K flops on the tensor cores).
 //
 // What the design does about it:
-//   * bf16: a 64 x 64 output tile per block, 4 warps each owning 32 x 32 of
-//     both products, mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by
-//     ldmatrix from padded (bank-conflict-free) shared memory, and a 3-stage
-//     cp.async ring so the next K tiles load while the current one
-//     multiplies.  x is read once per N tile, each weight tile once per M
-//     tile: at decode sizes (one M tile) the weights stream through exactly
-//     once.
+//   * bf16: csrc/gemm_sm90.cuh's mainloop with two weight matrices: TMA
+//     copies of the x tile and of the gate and up tiles at the same
+//     coordinates into one ring, wgmma into two accumulators per
+//     warpgroup, one x tile shared by both products, a producer warp (12%
+//     faster than thread 0 at T = 256, PERF.md §6), 4 stages, one CTA per
+//     SM.  The wrapper picks the tile (kernels/swiglu.py `plan`): up to 64
+//     rows the swap-AB tile, TN = 8, 16, 32 or 64 rows of x on wgmma's N
+//     side by 128 weight columns (two warpgroups of 64 on its M side,
+//     stages of 33-40 KB), so no product row is padding; above, 128 x 128
+//     tiles of x rows (two warpgroups stacked, stages of 48 KB).
+//   * Schedule (the wrapper chooses it too): the grid is `groups` x mt
+//     CTAs, mt = the M tiles.  Group g takes a run of whole column strips
+//     over all of K, one CTA per M tile, so a strip's M tiles read each
+//     weight tile at the same time (it crosses device memory once; the
+//     others find it in L2).  No split of K, so no merge of partial sums.
 //   * f32: a plain shared-memory tiled FMA kernel (4 x 4 outputs of both
 //     products per thread), kept for exact f32 checks.
-//   * Ragged M, N and K edges are masked in the kernel (zero-filled loads,
-//     guarded stores); nothing is padded in device memory.  The bf16 path
-//     moves 16-byte chunks, so it needs K and N to be multiples of 8.
-// Left for a later change: wgmma, TMA and warp specialisation, and a
-// split-K or persistent schedule for the decode shapes.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+//   * Ragged M, N and K: TMA fills out-of-bounds box elements with zeros
+//     and the epilogue guards its stores; nothing is padded in device
+//     memory.  bf16 needs K and N to be multiples of 8 (TMA's strides).
+#include "gemm_sm90.cuh"
 
 namespace {
+
+using gemm_sm90::BK;
+using gemm_sm90::Step;
 
 __device__ __forceinline__ float silu_mul(float g, float u) {
   return g / (1.f + expf(-g)) * u;
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync tensor-core kernel
+// bf16: wgmma tensor-core kernel
 // ---------------------------------------------------------------------------
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int STAGES = 3;
-constexpr int A_LD = BK + 8;   // padded row pitch (elements) of the x tile
-constexpr int B_LD = BN + 8;   // padded row pitch of the weight tiles
-constexpr int MMA_THREADS = 128;
+struct Params {
+  CUtensorMap x_map, wg_map, wu_map;
+  __nv_bfloat16* out;
+  int M, N, K;
+  int mt, ns, kt, groups;
+};
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  // src-size 0 zero-fills the 16 destination bytes without reading src
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__global__ void __launch_bounds__(MMA_THREADS)
-swiglu_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ wg,
-                   const __nv_bfloat16* __restrict__ wu,
-                   __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) __nv_bfloat16 sa[STAGES][BM][A_LD];
-  __shared__ __align__(16) __nv_bfloat16 sg[STAGES][BK][B_LD];
-  __shared__ __align__(16) __nv_bfloat16 su[STAGES][BK][B_LD];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 1;   // warp's 32-row half of the tile
-  const int wn = warp & 1;    // warp's 32-column half
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  auto load_tile = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {   // x tile: 64 rows x 4 chunks of 8
-      const int c = tid + i * MMA_THREADS;
-      const int row = c >> 2;
-      const int col = (c & 3) * 8;
-      const bool ok = (m0 + row < M) && (k0 + col < K);
-      const __nv_bfloat16* src = ok ? x + (long long)(m0 + row) * K + k0 + col : x;
-      cp_async16(&sa[stage][row][col], src, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {   // weight tiles: 32 rows x 8 chunks of 8
-      const int c = tid + i * MMA_THREADS;
-      const int row = c >> 3;
-      const int col = (c & 7) * 8;
-      const bool ok = (k0 + row < K) && (n0 + col < N);
-      const long long off = ok ? (long long)(k0 + row) * N + n0 + col : 0;
-      cp_async16(&sg[stage][row][col], wg + off, ok);
-      cp_async16(&su[stage][row][col], wu + off, ok);
-    }
-  };
-
-  float acc_g[2][4][4];
-  float acc_u[2][4][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc_g[a][b][c] = acc_u[a][b][c] = 0.f;
-
-  const int ktiles = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_tile(s, s * BK);
-    cp_async_commit();
+// Group g's column strips [g ns / groups, (g + 1) ns / groups), each over
+// all kt K tiles: a CTA's steps are strip-major.
+template <int BM, int BN>
+struct Strips {
+  int mtile, first, count, kt;
+  __device__ int steps() const { return count * kt; }
+  __device__ Step at(int i) const {
+    return Step{mtile * BM, (first + i / kt) * BN, (i % kt) * BK};
   }
+  __device__ int span(int) const { return kt; }
+};
 
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nk = kt + STAGES - 1;
-    if (nk < ktiles) load_tile(nk % STAGES, nk * BK);
-    cp_async_commit();
+constexpr int STAGES = 4;
 
-    const int st = kt % STAGES;
+template <class Tile>
+__global__ void __launch_bounds__(Tile::WGS * gemm_sm90::WG_THREADS + 32, 1)
+swiglu_bf16_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int g = blockIdx.x / p.mt;
+  const int first = static_cast<int>(static_cast<long long>(g) * p.ns / p.groups);
+  const int end = static_cast<int>(static_cast<long long>(g + 1) * p.ns / p.groups);
+  const Strips<Tile::BM, Tile::BN> strips{static_cast<int>(blockIdx.x % p.mt),
+                                          first, end - first, p.kt};
+  const CUtensorMap* const b_maps[2] = {&p.wg_map, &p.wu_map};
+  gemm_sm90::run<Tile, 2, STAGES, true>(
+      smem, &p.x_map, b_maps, strips,
+      [&](const Step& st, float (&acc)[2][Tile::ACC]) {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(af[mt], &sa[st][wm * 32 + mt * 16 + (lane & 15)]
-                               [kk + (lane >> 4) * 8]);
-      const int brow = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int bcol = wn * 32 + np * 16 + (lane >> 4) * 8;
-        uint32_t bg[4], bu[4];
-        ldmatrix_x4_trans(bg, &sg[st][brow][bcol]);
-        ldmatrix_x4_trans(bu, &su[st][brow][bcol]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc_g[mt][np * 2], af[mt], bg[0], bg[1]);
-          mma_bf16(acc_g[mt][np * 2 + 1], af[mt], bg[2], bg[3]);
-          mma_bf16(acc_u[mt][np * 2], af[mt], bu[0], bu[1]);
-          mma_bf16(acc_u[mt][np * 2 + 1], af[mt], bu[2], bu[3]);
+        for (int i = 0; i < Tile::ACC; i += 2) {
+          const int row = st.m0 + Tile::row(i);
+          const int col = st.n0 + Tile::col(i);
+          const float a = silu_mul(acc[0][i], acc[1][i]);
+          const float b = silu_mul(acc[0][i + 1], acc[1][i + 1]);
+          if (!Tile::SWAP) {   // sums i and i + 1: one row, two columns
+            if (row < p.M && col < p.N)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  p.out + static_cast<long long>(row) * p.N + col) =
+                  __floats2bfloat162_rn(a, b);
+          } else if (col < p.N) {  // one column, two rows
+            if (row < p.M)
+              p.out[static_cast<long long>(row) * p.N + col] = __float2bfloat16_rn(a);
+            if (row + 1 < p.M)
+              p.out[static_cast<long long>(row + 1) * p.N + col] = __float2bfloat16_rn(b);
+          }
         }
-      }
-    }
-  }
-  cp_async_wait<0>();
+      });
+}
 
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + wn * 32 + nt * 8 + (lane & 3) * 2;
-      if (col >= N) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 32 + mt * 16 + (lane >> 2) + h * 8;
-        if (row >= M) continue;
-        const float o0 = silu_mul(acc_g[mt][nt][2 * h], acc_u[mt][nt][2 * h]);
-        const float o1 =
-            silu_mul(acc_g[mt][nt][2 * h + 1], acc_u[mt][nt][2 * h + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * N + col) =
-            __floats2bfloat162_rn(o0, o1);
-      }
-    }
+template <class Tile>
+int launch_bf16(Params& p, const void* x, const void* wg, const void* wu,
+                cudaStream_t stream) {
+  using R = gemm_sm90::Ring<Tile, 2, STAGES>;
+  p.mt = (p.M + Tile::BM - 1) / Tile::BM;
+  p.ns = (p.N + Tile::BN - 1) / Tile::BN;
+  if (p.groups < 1 || p.groups > p.ns) return -1;
+  if (!gemm_sm90::encode(&p.x_map, x, p.M, p.K, Tile::BM) ||
+      !gemm_sm90::encode(&p.wg_map, wg, p.K, p.N, BK) ||
+      !gemm_sm90::encode(&p.wu_map, wu, p.K, p.N, BK))
+    return -2;
+  auto kernel = swiglu_bf16_kernel<Tile>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<p.groups * p.mt, R::CONSUMERS + 32, R::SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TN>
+using Swap = gemm_sm90::SwapTile<TN>;
+
+// The bf16 tiles the wrapper may pick (kernels/swiglu.py `TILES`), by their
+// rows of x and weight columns.
+int launch_tile(Params& p, int bm, int bn, const void* x, const void* wg,
+                const void* wu, cudaStream_t s) {
+  if (bn != 128) return -1;
+  switch (bm) {
+    case 8: return launch_bf16<Swap<8>>(p, x, wg, wu, s);
+    case 16: return launch_bf16<Swap<16>>(p, x, wg, wu, s);
+    case 32: return launch_bf16<Swap<32>>(p, x, wg, wu, s);
+    case 64: return launch_bf16<Swap<64>>(p, x, wg, wu, s);
+    case 128: return launch_bf16<gemm_sm90::RowTile>(p, x, wg, wu, s);
   }
+  return -1;
 }
 
 // ---------------------------------------------------------------------------
@@ -281,29 +217,35 @@ swiglu_f32_kernel(const float* __restrict__ x, const float* __restrict__ wg,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  x (M, K), w_gate and w_up (K, N) and
-// out (M, N) are contiguous row-major.  Returns -1 for an input this build
-// does not take (bf16 needs K % 8 == 0 and N % 8 == 0), else
+// out (M, N) are contiguous row-major.  bf16 only: the tile of `bm` rows of x
+// by `bn` weight columns and `groups` groups of CTAs, at most the column
+// strips (kernels/swiglu.py `plan`).  Returns -1 for an input this build
+// does not take (bf16 needs K > 0, K % 8 == 0, N % 8 == 0 and a tile of
+// `TILES`), -2 if cuTensorMapEncodeTiled refuses a tensor map, else
 // cudaGetLastError() after the launch.
 extern "C" int repro_swiglu(const void* x, const void* w_gate,
                             const void* w_up, void* out, int dtype, int M,
-                            int N, int K, void* stream) {
+                            int N, int K, int bm, int bn, int groups,
+                            void* stream) {
   if (M == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (K % 8 || N % 8) return -1;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    swiglu_bf16_kernel<<<grid, MMA_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w_gate),
-        static_cast<const __nv_bfloat16*>(w_up),
-        static_cast<__nv_bfloat16*>(out), M, N, K);
-  } else if (dtype == 0) {
+    if (K <= 0 || K % 8 || N % 8) return -1;
+    Params p;
+    p.out = static_cast<__nv_bfloat16*>(out);
+    p.M = M;
+    p.N = N;
+    p.K = K;
+    p.kt = (K + BK - 1) / BK;
+    p.groups = groups;
+    return launch_tile(p, bm, bn, x, w_gate, w_up, s);
+  }
+  if (dtype == 0) {
     dim3 grid((N + FN - 1) / FN, (M + FM - 1) / FM);
     swiglu_f32_kernel<<<grid, F_THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w_gate),
         static_cast<const float*>(w_up), static_cast<float*>(out), M, N, K);
-  } else {
-    return -1;
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return -1;
 }

@@ -113,7 +113,8 @@ def launch(x: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
     _check(chunk > 0 and chunk % 64 == 0,
            f"chunk {chunk} is not a positive multiple of 64")
     if x.dtype == torch.bfloat16:
-        _check(kdim % 8 == 0 and n % 8 == 0, "bf16 needs K and N % 8 == 0")
+        _check(kdim > 0 and kdim % 8 == 0 and n % 8 == 0,
+               "bf16 needs K > 0 and K and N % 8 == 0")
         _check(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
                "x and w must be 16-byte aligned")
     n_chunks = max(1, -(-s // chunk))

@@ -23,16 +23,17 @@ def test_every_target_source_exists(csrc):
 
 
 @pytest.mark.parametrize("target", ["decode_attention", "fused_overlap",
-                                    "packed_attention"])
+                                    "packed_attention", "swiglu"])
 def test_digest_follows_the_headers(csrc, target):
     """Editing only a header changes every target's key, so a stale
     library is never loaded; the key is stable otherwise."""
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["attn_decode.cuh"]
-    before = build._digest(*build.TARGETS[target])
-    assert build._digest(*build.TARGETS[target]) == before
-    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
-    assert build._digest(*build.TARGETS[target]) != before
+    assert [h.name for h in headers] == ["attn_decode.cuh", "gemm_sm90.cuh"]
+    for header in headers:
+        before = build._digest(*build.TARGETS[target])
+        assert build._digest(*build.TARGETS[target]) == before
+        header.write_text(header.read_text() + "\n// edited\n")
+        assert build._digest(*build.TARGETS[target]) != before
 
 
 def test_digest_follows_source_and_flags(csrc):

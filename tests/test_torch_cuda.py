@@ -540,7 +540,7 @@ def _overlap_args(cuda, dtype, m, k, n, group=4, d=128, b=5, s=600, kv=2,
 @pytest.mark.parametrize("m,k,n", [(1, 8, 8), (70, 136, 200),
                                    (300, 264, 520)])
 def test_fused_overlap_kernel(cuda, m, k, n, group, d, dtype):
-    """Ragged M, N and K edges of the GEMM role's tiles (128 x 128 x 32
+    """Ragged M, N and K edges of the GEMM role's tiles (128 x 128 x 64
     in bf16, 64 x 64 x 16 in f32) beside multi-chunk attention rows,
     against the plain version, through ``ops`` (the counter moves)."""
     args = _overlap_args(cuda, dtype, m, k, n, group, d, seed=m + group)
@@ -635,6 +635,105 @@ def test_swiglu_kernel(cuda, m, k, n, dtype):
     tol = _tol(dtype) if dtype == "bfloat16" else dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(out.float(), swiglu_ref(x, wg, wu).float(),
                                **tol)
+
+
+def _swiglu_args(cuda, m, k, n, dtype="bfloat16", seed=0):
+    rng = np.random.default_rng(seed)
+    x, wg, wu = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+                 .to(cuda) for sh in ((m, k), (k, n), (k, n)))
+    return tuple(a.to(TORCH[dtype]).contiguous()
+                 for a in (x, wg / k ** 0.5, wu / k ** 0.5))
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 32, 63, 64, 65, 257])
+@pytest.mark.parametrize("k,n", [(512, 384), (136, 200)])
+def test_swiglu_bf16_rows_and_ragged_edges(cuda, m, k, n):
+    """bf16 on the wgmma mainloop at every tile (the swap-AB tiles of 8,
+    16, 32 and 64 rows up to M = 64, 128 x 128 above) and their edges; K =
+    136 and N = 200 leave a partial K tile and a partial 64-column box of
+    the swizzled MN-major weights, which TMA fills with zeros."""
+    x, wg, wu = _swiglu_args(cuda, m, k, n, seed=m + k)
+    out = swiglu_cuda(x, wg, wu)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), swiglu_ref(x, wg, wu).float(),
+                               **_tol("bfloat16"))
+
+
+def test_swiglu_bf16_every_row_count_a_serve_gives_it(cuda):
+    """Every M the packed step's buckets, the legacy chunks and the
+    recompute prefill give SwiGLU at Qwen3-8B's widths (1-300, then whole
+    prompts), each against the plain version at one output rounding
+    (chip_smoke's 1e-3 + 1e-2·|ref|)."""
+    rng = np.random.default_rng(3)
+    wg, wu = ((torch.from_numpy(rng.normal(size=(4096, 12288)).astype(
+        np.float32)) / 64).to(cuda) for _ in range(2))
+    wg16, wu16 = wg.to(torch.bfloat16), wu.to(torch.bfloat16)
+    wg, wu = wg16.float(), wu16.float()
+    xs = torch.from_numpy(rng.normal(size=(1024, 4096)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    for m in list(range(1, 301)) + [384, 513, 545, 600, 1024]:
+        x = xs[:m]
+        got = swiglu_cuda(x, wg16, wu16).float()
+        g, u = x.float() @ wg, x.float() @ wu
+        want = (g * torch.sigmoid(g) * u).to(torch.bfloat16).float()
+        bad = (got - want).abs() > 1e-3 + 1e-2 * want.abs()
+        assert not bool(bad.any()), (m, float((got - want).abs().max()))
+
+
+@pytest.mark.parametrize("m", [8, 256])
+def test_swiglu_bf16_at_qwen3_8b_widths(cuda, m):
+    """4096 -> 12288 at a decode batch (the swap-AB tile, 96 CTAs, one
+    128-column strip each) and a prefill batch (48 groups of two CTAs, one
+    per M tile, two strips each), twice in a row, bitwise the same both
+    times."""
+    x, wg, wu = _swiglu_args(cuda, m, 4096, 12288, seed=m)
+    first = swiglu_cuda(x, wg, wu)
+    again = swiglu_cuda(x, wg, wu)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    torch.testing.assert_close(first.float(), swiglu_ref(x, wg, wu).float(),
+                               **_tol("bfloat16"))
+
+
+def test_swiglu_wrapper_raises_instead_of_falling_back(cuda):
+    """bf16 K or N not a multiple of 8, a misaligned base and K = 0 raise,
+    and nothing launches."""
+    x, wg, wu = _swiglu_args(cuda, 16, 64, 64)
+    before = swiglu_cuda.launches
+    flat = torch.empty(16 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    for bad in ((x[:, :60].contiguous(), wg[:60].contiguous(),
+                 wu[:60].contiguous()),
+                (x, wg[:, :60].contiguous(), wu[:, :60].contiguous()),
+                (flat[1:].view(16, 64), wg, wu),
+                (x[:, :0].contiguous(), wg[:0], wu[:0])):
+        with pytest.raises(ValueError):
+            swiglu_cuda(*bad)
+    assert swiglu_cuda.launches == before
+
+
+def test_fused_overlap_at_chip_smoke_shape_bitwise_across_fractions(cuda):
+    """x (1024, 4096) @ w (4096, 4096), the O projection of a 1024-token
+    nano-batch, beside decode attention: the wgmma GEMM role against the
+    plain version, and both outputs bitwise equal at every fraction."""
+    rng = np.random.default_rng(5)
+    x = _normal(rng, cuda, "bfloat16", 1024, 4096)
+    w = (_normal(rng, cuda, "float32", 4096, 4096) / 64).to(torch.bfloat16)
+    _, _, q, kc, vc, lens = _overlap_args(cuda, "bfloat16", 8, 64, 64, group=4,
+                                          d=128, b=5, s=1100, kv=8)
+    args = (x, w, q, kc, vc, lens)
+    first = None
+    for frac in (0.125, 0.5, 0.75, 1.0):
+        outs = fused_overlap_cuda(*args, gemm_fraction=frac)
+        if first is None:
+            first = outs
+        for got, want in zip(outs, first):
+            assert torch.equal(got, want), frac
+    torch.cuda.synchronize()
+    want_g, want_a = fused_overlap_ref(*args)
+    torch.testing.assert_close(first[0].float(), want_g.float(),
+                               **_tol("bfloat16"))
+    torch.testing.assert_close(first[1].float(), want_a.float(),
+                               **_tol("bfloat16"))
 
 
 @pytest.mark.parametrize("prefix,kv_dtype", [(False, "bf16"),
