@@ -16,7 +16,9 @@ Phases (any failure exits non-zero; no phase is caught):
                the K/V megabytes its tile kernel streams beside what a
                per-token loop reads and the distinct rows; flash
                attention at the legacy chunk's and the recompute prefill's
-               shapes; decode attention over 8 slots of 1024 rows (with
+               shapes (each with its launch's schedule: CTAs, key chunks,
+               CTAs with keys; its TFLOP/s and the host's microseconds per
+               call); decode attention over 8 slots of 1024 rows (with
                its TB/s and the split-KV units and chunk size); the
                selective scan (f32 and bf16) at Jamba-1.5-Large's 16384
                channels and 16 states, on a 256-token chunk from a carried
@@ -48,8 +50,9 @@ Phases (any failure exits non-zero; no phase is caught):
                SwiGLU must have launched, and the greedy tokens must agree
                with a teacher-forced forward through the plain versions.
   6. profile — the same requests again under torch.profiler: device busy
-               share, packed attention's, SwiGLU's and the library GEMMs'
-               (cuBLAS) shares of the busy time and the kernels that take
+               share, packed attention's, SwiGLU's, the library GEMMs'
+               (cuBLAS) and flash attention's shares of the busy time and
+               the kernels that take
                the device time, summed from the trace's
                device events; once per kind of engine (this one, the
                legacy step, block tables, the hybrid's two steps) the sum
@@ -214,6 +217,38 @@ class Timer:
             events.append((start, end))
         torch.cuda.synchronize()
         return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def host_us(torch, call, n: int = 400) -> float:
+    """Host microseconds per call of ``call`` (a kernel's wrapper) while the
+    device sleeps through the loop: the enqueue cost alone."""
+    call()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)          # ~0.1 s at the SM clock
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def flash_schedule(torch, kernel) -> str:
+    """The bf16 flash launch's schedule (``flash_attention.launch.schedule``
+    and the host replay of its items at the case's offsets)."""
+    from repro_torch.kernels import flash_attention as fa
+    kernel()
+    q_tiles, chunk, n_chunks, ctas = fa.launch.schedule
+    q, k, _ = kernel.args
+    off = kernel.keywords.get("q_offset")
+    offs = off.tolist() if off is not None else [0] * q.shape[0]
+    live = sum(1 for it in fa.items(fa.launch.schedule[:3], q.shape[0],
+                                    q.shape[1], k.shape[1], k.shape[2],
+                                    q.shape[2] // k.shape[2], offs)
+               if it.k1 > it.k0)
+    return (f"{ctas} CTAs ({q_tiles} query tiles x {k.shape[2]} KV heads x "
+            f"{q.shape[0]} rows x {n_chunks} chunks of {chunk} keys), {live} "
+            f"with keys")
 
 
 def check_close(name: str, got, want, tol=BF16_TOL) -> float:
@@ -485,6 +520,11 @@ def phase_legacy_kernels(torch, cfg, timer, bw, peak) -> dict:
                     LIB_TOL)
         ms, plain_ms, lib_ms = timer(kernel), timer(plain), timer(lib)
         t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+        if kname == "flash_attention":
+            log(f"flash_attention [{case}] schedule: "
+                f"{flash_schedule(torch, kernel)}; {flops / ms / 1e9:.1f} "
+                f"TFLOP/s achieved; host {host_us(torch, kernel):.2f} us per "
+                f"call (the wrapper, device kept busy)")
         if kname == "decode_attention":
             units = split_units(torch, cfg, kernel)
             log(f"decode_attention split-KV: {units}; {nbytes / ms / 1e9:.3f}"
@@ -1187,6 +1227,8 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
     pa_us = sum(us for name, (us, _) in totals.items()
                 if "packed_attention" in name)
     sw_us = sum(us for name, (us, _) in totals.items() if "swiglu" in name)
+    fa_us = sum(us for name, (us, _) in totals.items()
+                if "flash_bf16_kernel" in name)
     lib_us = sum(us for name, (us, _) in totals.items()
                  if any(k in name.lower() for k in LIBRARY_GEMMS)
                  and not any(k in name for k in OUR_KERNELS))
@@ -1198,7 +1240,8 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
         f"events per iteration; packed attention {pa_us / 1e3:.1f} ms = "
         f"{pa_us / dev_us:.3f} of the busy time; SwiGLU {sw_us / 1e3:.1f} ms "
         f"= {sw_us / dev_us:.3f}; library GEMMs (cuBLAS) {lib_us / 1e3:.1f} "
-        f"ms = {lib_us / dev_us:.3f}")
+        f"ms = {lib_us / dev_us:.3f}; flash attention (bf16) "
+        f"{fa_us / 1e3:.1f} ms = {fa_us / dev_us:.3f}")
     # the twelve costliest, and the port's own kernels wherever they rank
     ranked = sorted(totals.items(), key=lambda kv: -kv[1][0])
     ours = ("packed_attention", "flash_bf16_kernel", "swiglu_bf16",

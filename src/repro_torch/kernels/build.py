@@ -58,7 +58,7 @@ SIGNATURES = {
                          [_void_p] * 12 + [_int] * 13 + [_ll] * 6
                          + [_float, _void_p]),
     "flash_attention": ("repro_flash_attention",
-                        [_void_p] * 5 + [_int] * 8 + [_ll] * 4
+                        [_void_p] * 7 + [_int] * 10 + [_ll] * 4
                         + [_float, _void_p]),
     "swiglu": ("repro_swiglu", [_void_p] * 4 + [_int] * 7 + [_void_p]),
     "ssm_scan": ("repro_ssm_scan",

@@ -16,40 +16,71 @@
 // What bounds it on the card: at the legacy step's shapes (a 256-token chunk
 // over a 768-row prefix, or a 513-token prompt recomputed from 0) it does
 // 2-3 GFLOP over 7-11 MB, about 250 flops per byte: near the H100's ridge
-// (~295 flops/byte in bf16), so both the tensor-core rate and the bytes
-// matter; the bound is a few microseconds either way.
+// (~295 flops/byte in bf16), so the bound is a few microseconds either way.
+// What bounds this kernel is neither: each 64-row query tile streams all of
+// its KV head's rows through shared memory (the head's 16 query tiles read
+// the same rows, 44 MB of loads for 3 MB of K/V at the chunk shape), and
+// the ring alone, with no products, takes about two thirds of the kernel's
+// time whatever its depth or the bytes a CTA streams (tools/flash_probe.py,
+// PERF.md).
 //
-// What the design does about it:
-//   * bf16: one block of 4 warps per (64-row query tile, KV head, batch row).
-//     The tile's 64 rows are 64 / group positions times the group's query
-//     heads (row r = position r / group, head r % group), so each K/V tile
-//     is loaded once for all the query heads that share it.  Q stays in
-//     shared memory; K/V tiles of BN rows stream through a 2-stage cp.async
-//     ring; S = Q K^T and O += P V run on mma.sync m16n8k16 (bf16 in, f32
-//     accumulate) from ldmatrix loads of padded (bank-conflict-free) rows,
-//     with P kept in registers between the two products, split into bf16
-//     hi + lo parts so that P V sees P at near-f32 precision (half again
-//     the tensor work, against an error of up to 2^-9 |V| on rows with few
-//     keys).  Each warp keeps an f32 online softmax for its 16 rows.
-//   * Causal skipping: a block stops at key q_offset[b] + its last position
-//     + 1, so a prefill chunk never reads the slot-cache rows beyond its own
-//     end, and rows past that limit are zero-filled in shared memory (a
-//     stale row can then never reach the output, even as NaN * 0).
-//   * K/V are read in their stored (B, S, KV, D) layout through strides (the
-//     slot's view of the serving cache); ragged Sq and Skv are masked in the
-//     kernel.  Nothing is padded or transposed in device memory (the TPU
-//     wrapper pads both and transposes to head-major).
+// What the design does about it (bf16):
+//   * Items: a work item is (64-row query tile, KV head, batch row, key
+//     chunk).  The tile's 64 rows are 64 / group positions times the
+//     group's query heads (row r = position r / group, head r % group), so
+//     each K/V tile is loaded once for all the query heads that share it.
+//     The wrapper's plan (kernels/flash_attention.py) splits a tile's keys
+//     into chunks of at least 16 stages only where the tiles leave SMs
+//     idle, and only into as many chunks as the idle SMs take, from the
+//     shapes and the SM count alone (never the device offset); the grid
+//     holds every (tile, chunk): items whose chunk starts past the tile's
+//     causal end exit at once; items run chunk-major, the last query
+//     tiles (the most keys) first.  A split tile's chunks write f32
+//     partials; the CTA that takes the tile's last ticket (the split-KV
+//     counters decode attention shares) merges them in chunk order and sets
+//     the ticket back to 0, so results do not depend on which CTA ran what.
+//   * Loads: a producer warp issues TMA copies into an mbarrier ring: the Q
+//     tile through a 4-D tensor map over (D, H, Sq, B) in boxes of (64,
+//     group, 64 / group, 1), so its rows land in the order above, and K and
+//     V stages of 64 keys through maps over the strided (D, KV, Skv, B)
+//     view (the slot's view of the serving cache), all with the 128-byte
+//     swizzle.  K and V have their own full and empty barriers, so the next
+//     K stage loads while this V stage is still read.  A tile's first chunk
+//     starts its Q tile and first stage before the offset is read.  TMA
+//     zero-fills past Sq and Skv, so ragged shapes need no masked loads.
+//   * Products: S = Q K^T is wgmma m64n64k16 with both operands K-major in
+//     shared memory; O += P V takes P from registers (the score
+//     accumulators convert in place into wgmma's A fragments) and V
+//     MN-major through the transpose bit, P split into bf16 hi + lo parts
+//     so that P V sees P at near-f32 precision (two products per k-step).
+//     The online softmax runs in log2 units, one FFMA and one ex2 a score.
+//   * Two consumer warpgroups per CTA at head_dim <= 128, on the same 64
+//     query rows, take alternate key tiles (two stages each): each walks
+//     half the tile's keys, and one warpgroup's softmax runs while the
+//     other's products do (two warps per scheduler).  The second
+//     warpgroup's state joins the first's through shared memory in a
+//     fixed order.  One CTA per SM; at head_dim 256 one warpgroup (the
+//     accumulators take 254 registers).
+//   * Causal limits: a chunk stops at key q_offset[b] + the tile's last
+//     position + 1; the boxes of its last stage may still hold rows past
+//     that limit inside the view (another request's rows or uninitialised
+//     cache), so those V rows are zeroed in shared memory before that P V
+//     and their scores masked with a select: a stale row can never reach
+//     the output, even as NaN * 0.
 //   * f32 (kept for exact checks): one block of 8 warps per (query
 //     position, KV head, batch row), each warp owning a strided share of the
 //     keys with its own online softmax state for the group's heads, merged
 //     once at the end in a fixed order, as in csrc/packed_attention.cu.
-// Left for a later change: wgmma/TMA, warp specialisation and a persistent
-// schedule; d_v != d_qk (absorbed MLA, ROADMAP A5).
+// Left for a later change: d_v != d_qk (absorbed MLA, ROADMAP A5).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_sm90.cuh"
+
 namespace {
+
+namespace g9 = gemm_sm90;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -63,6 +94,10 @@ struct Params {
   int sq, skv, n_heads, n_kv, q_offset_scalar;
   long long k_sb, k_ss, v_sb, v_ss;   // element strides over batch and row
   float scale;
+  // bf16: the items (see flash_bf16_kernel) and the split tiles' scratch
+  int batch, q_tiles, chunk, n_chunks;
+  float* part;        // (tiles, n_chunks, Cfg<D>::PART) f32 partials
+  int32_t* tickets;   // (tiles,), 0 between launches
 };
 
 __device__ __forceinline__ int row_offset(const Params& p, int b) {
@@ -70,55 +105,49 @@ __device__ __forceinline__ int row_offset(const Params& p, int b) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync tensor-core kernel
+// bf16: TMA ring, wgmma, a producer warp; key ranges split into chunks
 // ---------------------------------------------------------------------------
-constexpr int BM = 64;          // query rows (position x head) per block
-constexpr int MMA_THREADS = 128;
+constexpr int BM = 64;          // query rows (position x head) per tile
+constexpr int BN = 64;          // keys per K/V stage
+constexpr int WG = 128;         // threads of a warpgroup
+constexpr int ROW = 128;        // bytes of one swizzled row: 64 bf16
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// The layout of a head dim's CTA: WGS consumer warpgroups on one 64-row
+// query tile (two at head_dim <= 128, one at 256), warpgroup w taking key
+// tiles w, w + WGS, ..., and a producer warp; two K/V stages a warpgroup,
+// tile j in stage j % STAGES (so each stage belongs to one warpgroup).  Its shared memory: the Q tile, the K stages,
+// the V stages (each D / 64 boxes of 128-byte rows, a box being 64 columns
+// of every row), the exchange of the second warpgroup's softmax state,
+// then the barriers; the slack aligns it to 1024 (the swizzle's period).
+template <int D>
+struct Cfg {
+  static constexpr int WGS = D <= 128 ? 2 : 1;
+  static constexpr int CONSUMERS = WG * WGS;
+  static constexpr int THREADS = CONSUMERS + 32;
+  static constexpr int STAGES = 2 * WGS;
+  static constexpr int BOXES = D / 64;
+  static constexpr int Q_BYTES = BOXES * BM * ROW;
+  static constexpr int KV_BYTES = BOXES * BN * ROW;   // one K or V stage
+  // f32 floats of one thread-minor softmax state of a warpgroup: the output
+  // sums, then m and l of each thread's two rows (the exchange between the
+  // warpgroups, and a split chunk's partial in device memory)
+  static constexpr int PART = (D / 2 + 4) * WG;
+  static constexpr int XCHG = WGS > 1 ? PART * 4 : 0;
+  static constexpr int BARS = 1 + 4 * STAGES;   // q, full K, full V, empty K, empty V
+  static constexpr int BYTES =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + XCHG + BARS * 8;
+};
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  // src-size 0 zero-fills the 16 destination bytes without reading src
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
+// Named barrier `id` over the first n threads (0 is __syncthreads').
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // (a, b) -> bf16 pairs hi + lo with hi + lo = (a, b) to ~2^-17 relative:
@@ -134,195 +163,398 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-template <int D, int BN>
-constexpr int smem_bytes() {
-  return (BM + 4 * BN) * (D + 8) * 2;   // Q tile + 2 stages of K and V
-}
-
-// G: query heads per KV head; D: head dim; BN: keys per K/V tile.
-template <int G, int D, int BN>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_bf16_kernel(const Params p) {
-  constexpr int PT = BM / G;   // positions per tile
-  constexpr int LD = D + 8;    // padded row pitch (elements)
-  constexpr int NT = BN / 8;   // score n-tiles of a warp
-  constexpr int OT = D / 8;    // output n-tiles of a warp
-  constexpr int CH = D / 8;    // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sk = sq + BM * LD;        // [2][BN][LD]
-  __nv_bfloat16* sv = sk + 2 * BN * LD;    // [2][BN][LD]
-
-  const int pos0 = blockIdx.x * PT;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int off = row_offset(p, b);
-  const int last_pos = min(pos0 + PT, p.sq) - 1;
-  // keys this block needs: [0, kend); rows past it are never read
-  const int kend = max(0, min(p.skv, off + last_pos + 1));
-  const int n_kt = (kend + BN - 1) / BN;
-  const int min_lim = min(p.skv, off + pos0 + 1);   // first row's limit
-
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
-  const __nv_bfloat16* kb =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * D;
-  const __nv_bfloat16* vb =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * D;
-
-  for (int c = tid; c < BM * CH; c += MMA_THREADS) {
-    const int r = c / CH;
-    const int col = (c % CH) * 8;
-    const int pos = pos0 + r / G;
-    const bool ok = pos < p.sq;
-    const __nv_bfloat16* src =
-        ok ? q + (((long long)b * p.sq + pos) * p.n_heads + kvh * G + r % G) * D + col
-           : q;
-    cp_async16(sq + r * LD + col, src, ok);
-  }
-  auto load_kv = [&](int stage, int kt) {
-    for (int c = tid; c < BN * CH; c += MMA_THREADS) {
-      const int r = c / CH;
-      const int col = (c % CH) * 8;
-      const int key = kt * BN + r;
-      const bool ok = key < kend;
-      cp_async16(sk + (stage * BN + r) * LD + col,
-                 ok ? kb + key * p.k_ss + col : kb, ok);
-      cp_async16(sv + (stage * BN + r) * LD + col,
-                 ok ? vb + key * p.v_ss + col : vb, ok);
-    }
-  };
-  if (n_kt > 0) load_kv(0, 0);
-  cp_async_commit();
-
-  // this thread's two rows: r0 and r0 + 8 of the tile
-  const int r0 = warp * 16 + (lane >> 2);
+// What a consumer thread keeps for one item: its two rows' limits and
+// softmax states (m in log2 units of the scaled scores), the output sums,
+// the scores and P's bf16 parts.
+template <int D>
+struct Consumer {
+  static constexpr int NO = D / 2;                 // output sums
+  static constexpr int NH = D <= 128 ? D : 128;    // columns of one PV product
   int lim[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    lim[h] = min(p.skv, off + pos0 + (r0 + h * 8) / G + 1);
-  const float sl2 = p.scale * LOG2E;
+  float m[2], l[2];
+  float o[NO];
+  float s[32];                                     // a 64 x 64 score tile
+  uint32_t ph[BN / 16][4], pl[BN / 16][4];
 
-  float o[OT][4];
+  // S = Q K^T of the stage at `k` (shared addresses)
+  __device__ __forceinline__ void scores(uint32_t q, uint32_t k) {
+    g9::wgmma_fence();
 #pragma unroll
-  for (int t = 0; t < OT; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF};
-  float l[2] = {0.f, 0.f};
+    for (int kk = 0; kk < D / 16; ++kk)
+      g9::mma_kk_n64(s,
+                     g9::kmajor_desc(q + (kk / 4) * BM * ROW + (kk % 4) * 32),
+                     g9::kmajor_desc(k + (kk / 4) * BN * ROW + (kk % 4) * 32),
+                     kk > 0);
+    g9::wgmma_commit();
+  }
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) load_kv((kt + 1) & 1, kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const __nv_bfloat16* skt = sk + (kt & 1) * BN * LD;
-    const __nv_bfloat16* svt = sv + (kt & 1) * BN * LD;
-
-    // S = Q K^T for the warp's 16 rows x BN keys
-    float s[NT][4];
+  // O += P V of the stage at `v`, P as hi + lo (two products per k-step)
+  __device__ __forceinline__ void pv(uint32_t v) {
+    g9::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, sq + (warp * 16 + (lane & 15)) * LD + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, skt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD
-                            + kk + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], a, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+      for (int h = 0; h < D / NH; ++h) {
+        float(&acc)[NH / 2] = *reinterpret_cast<float(*)[NH / 2]>(o + h * NH / 2);
+        const uint64_t desc =
+            g9::mnmajor_desc(v + h * (NH / 64) * BN * ROW + kk * 16 * ROW);
+        g9::mma_rs<NH>(acc, ph[kk], desc, 1);
+        g9::mma_rs<NH>(acc, pl[kk], desc, 1);
       }
+    g9::wgmma_commit();
+  }
+
+  // The online softmax of the tile whose first key is key0: s -> P in f32
+  // in place, p = 2^(s sl2 - m) (one FFMA and one ex2 a score); alpha
+  // rescales the rows' earlier sums.  Keys at or past a row's limit are
+  // NEG_INF (a select: a stale row's NaN never passes), checked only where
+  // the tile crosses the first row's limit.  A row with no key yet
+  // exponentiates against 0, so its masked keys weigh 2^(NEG_INF sl2) = 0.
+  __device__ __forceinline__ void softmax(int key0, bool masked, float sl2,
+                                          float (&alpha)[2]) {
+    const int lane = threadIdx.x % 32;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      if (masked && key0 + (i / 4) * 8 + (lane & 3) * 2 + (i & 1) >= lim[h])
+        s[i] = NEG_INF;
+      mx[h] = fmaxf(mx[h], s[i]);
     }
-
-    // online softmax in log2 units; keys at or past a row's limit masked
-    const bool masked = (kt + 1) * BN > min_lim;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        float x = s[n][e] * sl2;
-        if (masked && kt * BN + n * 8 + (lane & 3) * 2 + (e & 1) >= lim[h])
-          x = NEG_INF;
-        s[n][e] = x;
-        mx[h] = fmaxf(mx[h], x);
-      }
-    float alpha[2];
+    float use[2], rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      alpha[h] = exp2f(m[h] - mx[h]);
-      m[h] = mx[h];
+      const float mn = mx[h] == NEG_INF ? m[h] : fmaxf(m[h], mx[h] * sl2);
+      use[h] = mn == NEG_INF ? 0.f : mn;
+      alpha[h] = ex2(m[h] - use[h]);
+      m[h] = mn;
     }
-    float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = exp2f(s[n][e] - mx[e >> 1]);
-        s[n][e] = pe;
-        rs[e >> 1] += pe;
-      }
+    for (int i = 0; i < 32; ++i) {
+      const float pe = ex2(fmaf(s[i], sl2, -use[(i >> 1) & 1]));
+      s[i] = pe;
+      rs[(i >> 1) & 1] += pe;
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
-#pragma unroll
-    for (int t = 0; t < OT; ++t) {
-      o[t][0] *= alpha[0];
-      o[t][1] *= alpha[0];
-      o[t][2] *= alpha[1];
-      o[t][3] *= alpha[1];
-    }
-
-    // O += P V, P taken from the score registers as hi + lo bf16 A
-    // fragments (two products per V fragment)
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t ah[4], al[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], ah[0], al[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], ah[1], al[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ah[2], al[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ah[3], al[3]);
-      const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int dp = 0; dp < OT / 2; ++dp) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, svt + vrow * LD + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], ah, bv[0], bv[1]);
-        mma_bf16(o[2 * dp], al, bv[0], bv[1]);
-        mma_bf16(o[2 * dp + 1], ah, bv[2], bv[3]);
-        mma_bf16(o[2 * dp + 1], al, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();   // the next iteration refills this stage
   }
-  cp_async_wait<0>();
 
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  __device__ __forceinline__ void rescale(const float (&alpha)[2]) {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+  }
+
+  // P (f32, the accumulator layout) -> the A fragments of P V: keys
+  // 16 kk .. 16 kk + 15 are the score sums 8 kk .. 8 kk + 7
+  __device__ __forceinline__ void to_p() {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        split_bf16(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1], ph[kk][f],
+                   pl[kk][f]);
+  }
+
+  // Writes this thread's state to x, thread-minor (t = its thread of the
+  // warpgroup).
+  __device__ __forceinline__ void save(float* x, int t) const {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) x[i * WG + t] = o[i];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      x[(NO + h) * WG + t] = m[h];
+      x[(NO + 2 + h) * WG + t] = l[h];
+    }
+  }
+
+  // The weight of a state of maximum mc against the common maximum mg
+  __device__ __forceinline__ static float weight(float mc, float mg) {
+    return ex2(mc - (mg == NEG_INF ? 0.f : mg));
+  }
+
+  // Merges the state at x (as save writes it; CG: another CTA's, read
+  // past L1) into this thread's: against the rows' common maximum, its
+  // own sums first, then x's.
+  template <bool CG>
+  __device__ __forceinline__ void merge(const float* x, int t) {
+    float w0[2], w1[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mx = CG ? __ldcg(x + (NO + h) * WG + t) : x[(NO + h) * WG + t];
+      const float lx = CG ? __ldcg(x + (NO + 2 + h) * WG + t)
+                          : x[(NO + 2 + h) * WG + t];
+      const float mg = fmaxf(m[h], mx);
+      w0[h] = weight(m[h], mg);
+      w1[h] = weight(mx, mg);
+      l[h] = l[h] * w0[h] + lx * w1[h];
+      m[h] = mg;
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+      const float ox = CG ? __ldcg(x + i * WG + t) : x[i * WG + t];
+      o[i] = o[i] * w0[(i >> 1) & 1] + ox * w1[(i >> 1) & 1];
+    }
+  }
+
+  // rows r0 and r0 + 8 of the tile as position pos0 + r / G, head
+  // kvh G + r % G, divided by the rows' sums
+  template <int G>
+  __device__ __forceinline__ void store(const Params& p, int b, int kvh,
+                                        int pos0, int r0) const {
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + h * 8;
+      const int pos = pos0 + r / G;
+      if (pos >= p.sq) continue;
+      const float inv = 1.f / fmaxf(l[h], 1e-30f);
+      __nv_bfloat16* dst =
+          out + (((long long)b * p.sq + pos) * p.n_heads + kvh * G + r % G) * D;
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + (lane & 3) * 2) =
+            __floats2bfloat162_rn(o[4 * j + 2 * h] * inv,
+                                  o[4 * j + 2 * h + 1] * inv);
+    }
+  }
+};
+
+// Zeroes rows [z0, z1) of every box of the V stage at `v` (whole 128-byte
+// rows, so the swizzle does not matter) and orders the writes before the
+// warpgroup's next wgmma; t is the thread of the warpgroup, bar its
+// named barrier.
+template <int D>
+__device__ __forceinline__ void zero_rows(uint32_t v, int z0, int z1, int t,
+                                          int bar) {
+  constexpr int PER_ROW = (D / 64) * (ROW / 16);   // 16-byte pieces
+  for (int idx = t; idx < (z1 - z0) * PER_ROW; idx += WG) {
+    const int row = z0 + idx / PER_ROW;
+    const int piece = idx % PER_ROW;
+    const uint32_t addr =
+        v + (piece / (ROW / 16)) * BN * ROW + row * ROW + (piece % (ROW / 16)) * 16;
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr),
+                 "r"(0)
+                 : "memory");
+  }
+  g9::fence_proxy_async();
+  named_sync<WG>(bar);
+}
+
+// One CTA per item (64-row query tile, KV head, batch row, key chunk).
+// Items run chunk-major, and within a chunk from the last query tile (the
+// most keys) down; an item whose chunk starts at or past the tile's causal
+// end exits at once.  A tile of one chunk with keys writes its output; the
+// chunks of a split tile write partials, and the CTA that takes the tile's
+// last ticket merges them in chunk order and sets the ticket back to 0.
+template <int G, int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map, const Params p) {
+  using L = Cfg<D>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int PT = BM / G;   // positions per tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int last;
+  const uint32_t raw = g9::smem_u32(smem_raw);
+  const uint32_t sq_s = (raw + 1023u) & ~1023u;
+  const uint32_t sk = sq_s + L::Q_BYTES;
+  const uint32_t sv = sk + STAGES * L::KV_BYTES;
+  const uint32_t sx = sv + STAGES * L::KV_BYTES;   // the exchange
+  const uint32_t q_bar = sx + L::XCHG;
+  const uint32_t full_k = q_bar + 8;
+  const uint32_t full_v = full_k + 8 * STAGES;
+  const uint32_t empty_k = full_v + 8 * STAGES;
+  const uint32_t empty_v = empty_k + 8 * STAGES;
+
+  const int tiles = p.q_tiles * p.n_kv * p.batch;
+  const int c = blockIdx.x / tiles;
+  const int rest = blockIdx.x - c * tiles;
+  const int qt = p.q_tiles - 1 - rest / (p.n_kv * p.batch);
+  const int kvh = rest / p.batch % p.n_kv;
+  const int b = rest % p.batch;
+  const int tile = (b * p.n_kv + kvh) * p.q_tiles + qt;
+  const int pos0 = qt * PT;
+  const int k0 = c * p.chunk;
+  const int tid = threadIdx.x;
+  // a tile's first chunk loads its Q tile and first K/V stage before the
+  // offset is read (whenever the tile has keys, they start at key 0)
+  const bool early = c == 0 && p.skv > 0;
+
+  if (tid == L::CONSUMERS) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&q_map)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&k_map)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&v_map)) : "memory");
+    g9::mbar_init(q_bar, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      g9::mbar_init(full_k + 8 * s, 1);
+      g9::mbar_init(full_v + 8 * s, 1);
+      g9::mbar_init(empty_k + 8 * s, WG / 32);
+      g9::mbar_init(empty_v + 8 * s, WG / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the producer: the Q tile, then each stage's K and V boxes, waiting
+  // only on the empty barriers
+  auto load_q = [&]() {
+    g9::mbar_expect_tx(q_bar, L::Q_BYTES);
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h)
+      g9::tma_load_4d(sq_s + h * BM * ROW, &q_map, q_bar, 64 * h, kvh * G,
+                      pos0, b);
+  };
+  auto load_kv = [&](int j) {
+    const int s = j % STAGES;
+    const uint32_t parity = ((j / STAGES) + 1) & 1;
+    const int key = k0 + j * BN;
+    if (j >= STAGES) g9::mbar_wait(empty_k + 8 * s, parity);
+    g9::mbar_expect_tx(full_k + 8 * s, L::KV_BYTES);
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h)
+      g9::tma_load_4d(sk + s * L::KV_BYTES + h * BN * ROW, &k_map,
+                      full_k + 8 * s, 64 * h, kvh, key, b);
+    if (j >= STAGES) g9::mbar_wait(empty_v + 8 * s, parity);
+    g9::mbar_expect_tx(full_v + 8 * s, L::KV_BYTES);
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h)
+      g9::tma_load_4d(sv + s * L::KV_BYTES + h * BN * ROW, &v_map,
+                      full_v + 8 * s, 64 * h, kvh, key, b);
+  };
+  if (tid == L::CONSUMERS && early) {
+    load_q();
+    load_kv(0);
+  }
+
+  const int off = row_offset(p, b);
+  const int last_pos = min(pos0 + PT, p.sq) - 1;
+  // keys this tile needs: [0, kend); rows past it are never read
+  const int kend = max(0, min(p.skv, off + last_pos + 1));
+  if (k0 >= kend && c > 0) return;
+  const int k1 = min(kend, k0 + p.chunk);
+  const int n_kt = (k1 - k0 + BN - 1) / BN;   // 0 only when kend == 0
+  const int n_live = (kend + p.chunk - 1) / p.chunk;
+
+  if (tid >= L::CONSUMERS) {
+    if (tid == L::CONSUMERS && n_kt > 0) {
+      if (!early) load_q();
+      for (int j = early ? 1 : 0; j < n_kt; ++j) load_kv(j);
+    }
+    return;
+  }
+
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int lane = tid % 32;
+  const bool lead = lane == 0;
+  const int r0 = (t / 32) * 16 + lane / 4;   // rows r0 and r0 + 8
+  Consumer<D> cs;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    float lh = l[h];
-    lh += __shfl_xor_sync(0xffffffffu, lh, 1);
-    lh += __shfl_xor_sync(0xffffffffu, lh, 2);
-    const float inv = 1.f / fmaxf(lh, 1e-30f);
-    const int r = r0 + h * 8;
-    const int pos = pos0 + r / G;
-    if (pos >= p.sq) continue;
-    __nv_bfloat16* dst =
-        out + (((long long)b * p.sq + pos) * p.n_heads + kvh * G + r % G) * D;
-#pragma unroll
-    for (int t = 0; t < OT; ++t)
-      *reinterpret_cast<__nv_bfloat162*>(dst + t * 8 + (lane & 3) * 2) =
-          __floats2bfloat162_rn(o[t][2 * h] * inv, o[t][2 * h + 1] * inv);
+    cs.lim[h] = min(kend, off + pos0 + (r0 + h * 8) / G + 1);
+    cs.m[h] = NEG_INF;
+    cs.l[h] = 0.f;
   }
+#pragma unroll
+  for (int i = 0; i < Consumer<D>::NO; ++i) cs.o[i] = 0.f;
+  const int min_lim = min(p.skv, off + pos0 + 1);   // the first row's limit
+  const float sl2 = p.scale * LOG2E;
+
+  if (n_kt == 0 && early && wg == 0) {
+    // no key at all: wait for the early loads before the CTA exits
+    g9::mbar_wait(q_bar, 0);
+    g9::mbar_wait(full_k, 0);
+    g9::mbar_wait(full_v, 0);
+  }
+  if (n_kt > wg) {
+    g9::mbar_wait(q_bar, 0);
+    // this warpgroup's key tiles are j = wg, wg + WGS, ..., its last jl;
+    // tile n_kt - 1 (the last of the warpgroup that has it) gets its V rows
+    // at or past kend (stale cache rows inside the view) zeroed before its
+    // P V: TMA loads whole boxes
+    const int jl = wg + (n_kt - 1 - wg) / L::WGS * L::WGS;
+    // S = Q K^T of tile j, then its softmax: P in registers
+    auto scores = [&](int j) {
+      const int s = j % STAGES;
+      g9::mbar_wait(full_k + 8 * s, (j / STAGES) & 1);
+      cs.scores(sq_s, sk + s * L::KV_BYTES);
+      g9::wgmma_wait<0>();
+      g9::fence_acc(cs.s);
+      if (lead) g9::mbar_arrive(empty_k + 8 * s);
+      const int key0 = k0 + j * BN;
+      float alpha[2];
+      cs.softmax(key0, key0 + BN > min_lim, sl2, alpha);
+      cs.rescale(alpha);
+      cs.to_p();
+    };
+    // O += P V of tile j
+    auto pv = [&](int j) {
+      const int s = j % STAGES;
+      g9::mbar_wait(full_v + 8 * s, (j / STAGES) & 1);
+      cs.pv(sv + s * L::KV_BYTES);
+      g9::wgmma_wait<0>();
+      g9::fence_acc(cs.o);
+      if (lead) g9::mbar_arrive(empty_v + 8 * s);
+    };
+    for (int j = wg; j < jl; j += L::WGS) {
+      scores(j);
+      pv(j);
+    }
+    scores(jl);
+    const int z0 = k1 - (k0 + jl * BN);
+    const int z1 = min(BN, p.skv - (k0 + jl * BN));
+    if (jl == n_kt - 1 && z0 < z1) {
+      const int s = jl % STAGES;
+      g9::mbar_wait(full_v + 8 * s, (jl / STAGES) & 1);
+      zero_rows<D>(sv + s * L::KV_BYTES, z0, z1, t, 2 + wg);
+    }
+    pv(jl);
+  }
+
+  // each row's sum over the four lanes that hold it
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    cs.l[h] += __shfl_xor_sync(0xffffffffu, cs.l[h], 1);
+    cs.l[h] += __shfl_xor_sync(0xffffffffu, cs.l[h], 2);
+  }
+  if (L::WGS > 1) {
+    // the second warpgroup's state joins the first's through shared memory
+    float* x = reinterpret_cast<float*>(smem_raw + (sx - raw));
+    if (wg == 1) cs.save(x, t);
+    named_sync<L::CONSUMERS>(1);
+    if (wg == 1) return;
+    cs.template merge<false>(x, t);
+  }
+  if (n_live <= 1) {
+    cs.template store<G>(p, b, kvh, pos0, r0);
+    return;
+  }
+
+  // a split tile: this chunk's partial, then the merge by the last chunk
+  float* part = p.part + (long long)tile * p.n_chunks * L::PART;
+  cs.save(part + (long long)c * L::PART, t);
+  __threadfence();
+  named_sync<WG>(2);
+  if (t == 0) last = atomicAdd(p.tickets + tile, 1) == n_live - 1;
+  named_sync<WG>(2);
+  if (!last) return;
+  __threadfence();
+  cs.m[0] = cs.m[1] = NEG_INF;
+  cs.l[0] = cs.l[1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < Consumer<D>::NO; ++i) cs.o[i] = 0.f;
+  for (int cc = 0; cc < n_live; ++cc)
+    cs.template merge<true>(part + (long long)cc * L::PART, t);
+  cs.template store<G>(p, b, kvh, pos0, r0);
+  if (t == 0) p.tickets[tile] = 0;   // ready for the next launch
 }
 
 // ---------------------------------------------------------------------------
@@ -469,16 +701,47 @@ flash_f32_kernel(const Params p) {
   }
 }
 
+// Sets the bf16 kernel's shared-memory size once per device and encodes its
+// three tensor maps.  Returns 0, a CUDA error, or -2 when a map is refused.
 template <int G, int D>
-int launch_bf16(int batch, const Params& p, cudaStream_t stream) {
-  constexpr int BN = D <= 128 ? 64 : 32;
-  constexpr int bytes = smem_bytes<D, BN>();
-  auto kernel = flash_bf16_kernel<G, D, BN>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+int launch_bf16(int batch, Params p, cudaStream_t stream) {
+  using L = Cfg<D>;
+  p.q_tiles = (p.sq + BM / G - 1) / (BM / G);
+  auto kernel = flash_bf16_kernel<G, D>;
+  static int sized = -1;   // the device whose attribute is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.sq + BM / G - 1) / (BM / G), p.n_kv, batch);
-  kernel<<<grid, MMA_THREADS, bytes, stream>>>(p);
+  if (sized != dev) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = dev;
+  }
+  const cuuint64_t e = 2;   // bytes per element
+  const cuuint64_t skv = p.skv > 0 ? p.skv : 1;
+  CUtensorMap q_map, k_map, v_map;
+  const cuuint64_t q_dims[4] = {D, (cuuint64_t)p.n_heads, (cuuint64_t)p.sq,
+                                (cuuint64_t)batch};
+  const cuuint64_t q_strides[3] = {D * e, p.n_heads * D * e,
+                                   (cuuint64_t)p.sq * p.n_heads * D * e};
+  const cuuint32_t q_box[4] = {64, G, BM / G, 1};
+  const cuuint64_t kv_dims[4] = {D, (cuuint64_t)p.n_kv, skv,
+                                 (cuuint64_t)batch};
+  const cuuint64_t k_strides[3] = {D * e, (cuuint64_t)p.k_ss * e,
+                                   (cuuint64_t)p.k_sb * e};
+  const cuuint64_t v_strides[3] = {D * e, (cuuint64_t)p.v_ss * e,
+                                   (cuuint64_t)p.v_sb * e};
+  const cuuint32_t kv_box[4] = {64, 1, BN, 1};
+  if (!g9::encode_4d(&q_map, p.q, q_dims, q_strides, q_box) ||
+      !g9::encode_4d(&k_map, p.k, kv_dims, k_strides, kv_box) ||
+      !g9::encode_4d(&v_map, p.v, kv_dims, v_strides, kv_box))
+    return -2;
+  const long long items =
+      (long long)p.q_tiles * p.n_kv * batch * p.n_chunks;
+  if (items > 0x7fffffffLL) return -1;
+  kernel<<<static_cast<int>(items), L::THREADS, L::BYTES, stream>>>(
+      q_map, k_map, v_map, p);
   return 0;
 }
 
@@ -507,14 +770,19 @@ int launch(int dtype, int group, int head_dim, int batch, const Params& p,
 // out (B, Sq, H, D) are contiguous; k and v are (B, Skv, KV, D) with unit
 // stride over (KV, D) and the given element strides over B and rows.
 // q_offset is a (B,) int32 device array, or null for q_offset_scalar on
-// every row.  Returns -1 for a shape this build does not instantiate, else
-// the launch's CUDA error code.
+// every row.  bf16 only: the plan's key chunk (a multiple of 64) and
+// n_chunks = ceil(Skv / chunk) (1 for Skv = 0); when n_chunks > 1, part
+// holds ceil(Sq / (64 / group)) * KV * B * n_chunks * (head_dim / 2 + 4) *
+// 128 floats and tickets ceil(Sq / (64 / group)) * KV * B int32 zeros, left
+// zero by the launch.  Returns -1 for a shape or plan this build does not
+// take, -2 for a tensor map cuTensorMapEncodeTiled refuses (strides or
+// bases not 16-byte multiples), else the launch's CUDA error code.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, const void* q_offset,
-    void* out, int dtype, int batch, int sq, int skv, int n_heads, int n_kv,
-    int head_dim, int q_offset_scalar, long long k_stride_b,
-    long long k_stride_s, long long v_stride_b, long long v_stride_s,
-    float scale, void* stream) {
+    void* out, void* part, void* tickets, int dtype, int batch, int sq,
+    int skv, int n_heads, int n_kv, int head_dim, int q_offset_scalar,
+    int chunk, int n_chunks, long long k_stride_b, long long k_stride_s,
+    long long v_stride_b, long long v_stride_s, float scale, void* stream) {
   if (batch == 0 || sq == 0) return 0;
   if ((dtype != 0 && dtype != 1) || n_kv <= 0 || n_heads % n_kv) return -1;
   Params p;
@@ -533,7 +801,19 @@ extern "C" int repro_flash_attention(
   p.v_sb = v_stride_b;
   p.v_ss = v_stride_s;
   p.scale = scale;
-  const int rc = launch(dtype, n_heads / n_kv, head_dim, batch, p,
+  const int group = n_heads / n_kv;
+  p.batch = batch;
+  p.q_tiles = 0;   // set by the bf16 launch from its tile
+  p.chunk = chunk;
+  p.n_chunks = n_chunks;
+  p.part = static_cast<float*>(part);
+  p.tickets = static_cast<int32_t*>(tickets);
+  if (dtype == 1 &&
+      (chunk <= 0 || chunk % BN ||
+       n_chunks != (skv > 0 ? (skv + chunk - 1) / chunk : 1) ||
+       (n_chunks > 1 && (part == nullptr || tickets == nullptr))))
+    return -1;
+  const int rc = launch(dtype, group, head_dim, batch, p,
                         static_cast<cudaStream_t>(stream));
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

@@ -340,6 +340,90 @@ def test_flash_attention_kernel(cuda, group, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_stale_rows_never_reach_the_output(cuda, dtype):
+    """Rows of the slot views past each batch row's causal end hold NaN
+    (another request's rows or uninitialised cache): the output is finite
+    and equals the plain version on the clean views.  The causal ends
+    (37 + offset) fall inside a 64-key stage, whose boxes TMA loads
+    whole."""
+    rng = np.random.default_rng(21)
+    kv, d, group, sq = 2, 128, 4, 37
+    cache_k = _normal(rng, cuda, dtype, 4, 300, kv, d)
+    cache_v = _normal(rng, cuda, dtype, 4, 300, kv, d)
+    q = _normal(rng, cuda, dtype, 3, sq, kv * group, d)
+    offsets = [0, 100, 203]
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    want = flash_attention_ref(q, cache_k[1:], cache_v[1:], q_offset=off)
+    for i, o in enumerate(offsets):
+        cache_k[1 + i, o + sq:] = float("nan")
+        cache_v[1 + i, o + sq:] = float("nan")
+    out = flash_attention_cuda(q, cache_k[1:], cache_v[1:], q_offset=off)
+    torch.cuda.synchronize()
+    assert bool(out.float().isfinite().all())
+    torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_flash_attention_bf16_ragged_shapes(cuda, group, d):
+    """Every bf16 instantiation at a ragged Sq (not a multiple of 64 /
+    group positions), with offsets whose causal ends are not multiples of
+    the 64-key stage, and with Skv below one stage, against the plain
+    version."""
+    rng = np.random.default_rng(group * 1000 + d)
+    kv, sq = 2, 64 // group + 3
+    k = _normal(rng, cuda, "bfloat16", 3, 330, kv, d)[:, :301]
+    v = _normal(rng, cuda, "bfloat16", 3, 330, kv, d)[:, :301]
+    q = _normal(rng, cuda, "bfloat16", 3, sq, kv * group, d)
+    off = torch.tensor([5, 130, 301 - sq], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(
+        flash_attention_cuda(q, k, v, q_offset=off).float(),
+        flash_attention_ref(q, k, v, q_offset=off).float(),
+        **_tol("bfloat16"))
+    q, k, v = (_normal(rng, cuda, "bfloat16", 2, 29, h, d)
+               for h in (kv * group, kv, kv))
+    torch.testing.assert_close(flash_attention_cuda(q, k, v).float(),
+                               flash_attention_ref(q, k, v).float(),
+                               **_tol("bfloat16"))
+
+
+@pytest.mark.parametrize("group,d", [(4, 128), (8, 256)])
+def test_flash_attention_split_tiles_merge_in_order(cuda, group, d):
+    """A 256-token chunk at device offset 1536 over a 2048-row view of one
+    KV head: the plan splits each tile's keys into several chunks, merged
+    by the last one; two calls are bitwise equal, each counts one launch,
+    and the tickets are back at 0.  The first call runs on an emptied
+    pool, where an output of 1 MB (group 8, head_dim 256) would be carved
+    from the partials' block if the wrapper freed it before the launch."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(17)
+    kv = 1
+    k = _normal(rng, cuda, "bfloat16", 2, 2048, kv, d)[1:]
+    v = _normal(rng, cuda, "bfloat16", 2, 2048, kv, d)[1:]
+    q = _normal(rng, cuda, "bfloat16", 1, 256, kv * group, d)
+    off = torch.tensor([1536], dtype=torch.int32, device=cuda)
+    want = flash_attention_ref(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = flash_attention_cuda.launches
+    first = flash_attention_cuda(q, k, v, q_offset=off)
+    assert flash_attention_cuda.launches == before + 1
+    second = flash_attention_cuda(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 2
+    q_tiles, chunk, n_chunks, ctas = fa.launch.schedule
+    assert n_chunks > 1 and ctas == q_tiles * kv * n_chunks
+    live = [it for it in fa.items(fa.launch.schedule[:3], 1, 256, 2048, kv,
+                                  group, [1536]) if it.k1 > it.k0]
+    assert min(it.live for it in live) > 1
+    assert torch.equal(first, second)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert int(da._TICKETS[(q.device, stream)].abs().sum()) == 0
+    torch.testing.assert_close(first.float(), want.float(),
+                               **_tol("bfloat16"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
 def test_decode_attention_kernel(cuda, group, d, dtype):
     """5 slots of 300 rows with lengths 1, 299, 300 and S + 1 (a decode at
