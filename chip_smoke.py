@@ -30,7 +30,9 @@ Phases (any failure exits non-zero; no phase is caught):
      paged   — paged decode attention through ``ops.paged_decode_attention``
                (its only caller) at Qwen3-8B's heads: 8 rows of the serve
                phase's lengths + 16 over a shuffled pool of 16-row pages,
-               tables padded with -1; kernel vs plain in bf16 and f32.
+               tables padded with -1; kernel (the split-KV unit's paged
+               form, csrc/decode_attention.cu's second C entry, with its
+               units and chunk) vs plain in bf16 and f32.
      overlap — the fused GEMM + decode-attention op through
                ``ops.fused_overlap``: x (1024, 4096) @ w (4096, 4096) beside
                decode attention of 64 rows over (64, 1024, 8, 128) caches;
@@ -80,8 +82,10 @@ Phases (any failure exits non-zero; no phase is caught):
                dispatch on legacy and recompute and never on the packed
                step; each attention kernel once per dispatch of its kind,
                SwiGLU 8 times; tokens agree between the steps and with a
-               teacher-forced plain ``forward_full``; the legacy and packed
-               runs are profiled.  Then one line per profiled packed serve
+               teacher-forced plain ``forward_full``; the legacy, recompute
+               and packed runs are profiled (the legacy and recompute
+               lines with the scan's device ms, launches and share of the
+               busy time).  Then one line per profiled packed serve
                (Qwen3-8B, the four shared-prefix modes, the hybrid): packed
                attention's device time and share of the busy time, then
                one line per profiled serve (the legacy runs too) with
@@ -143,7 +147,7 @@ SCAN_F32_TOL = (1e-5, 1e-5)
 # the two kernels that only their ``ops`` entries call: source and the TPU
 # kernel each replaces; no serve phase may launch them
 OPS_ONLY = {
-    "paged_decode_attention": (f"{_CSRC}/packed_attention.cu",
+    "paged_decode_attention": (f"{_CSRC}/decode_attention.cu",
                                "src/repro/kernels/decode_attention.py:154"),
     "fused_overlap": (f"{_CSRC}/fused_overlap.cu",
                       "src/repro/kernels/fused_overlap.py:89"),
@@ -674,6 +678,7 @@ def phase_paged(torch, cfg, timer, bw, peak) -> tuple[dict, int]:
     bf16 beside it.  No one PyTorch call gathers through a page table.
     Returns (record, launches)."""
     from functools import partial
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention_cuda, paged_decode_attention_ref)
@@ -694,6 +699,10 @@ def phase_paged(torch, cfg, timer, bw, peak) -> tuple[dict, int]:
     ms = timer(partial(paged_decode_attention_cuda, *args))
     plain_ms = timer(partial(paged_decode_attention_ref, *args))
     t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+    units, chunk = da.launch.units
+    log(f"paged_decode_attention route: the split-KV unit's paged form "
+        f"(csrc/attn_decode.cuh through csrc/decode_attention.cu's "
+        f"repro_paged_decode_attention), {units} units of {chunk} rows")
     log(f"paged_decode_attention {desc}: launches through ops {launches}, "
         f"max_abs_err f32 {errs[torch.float32]:.3e} (tol {F32_TOL[0]} + "
         f"{F32_TOL[1]}·|ref|), bf16 {errs[torch.bfloat16]:.3e} (tol "
@@ -1179,7 +1188,8 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
     phase); ``cross_check`` also sums the device time through the
     profiler's public ``key_averages`` (~45 s for 250k events) and fails
     unless the two sums agree within 1%.  Returns (device busy ms, packed
-    attention's ms), or None when the profiler saw no device time."""
+    attention's, SwiGLU's and the library GEMMs' ms), or None when the
+    profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.config import EngineConfig
@@ -1232,6 +1242,9 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
     lib_us = sum(us for name, (us, _) in totals.items()
                  if any(k in name.lower() for k in LIBRARY_GEMMS)
                  and not any(k in name for k in OUR_KERNELS))
+    scan = [(us, n) for name, (us, n) in totals.items()
+            if "ssm_scan" in name]
+    scan_us, scan_n = sum(us for us, _ in scan), sum(n for _, n in scan)
     log(f"{tag}: device busy {dev_us / 1e3:.1f} ms over "
         f"{eng.stats.iterations} iterations: {dev_us / wall_us:.3f} of the "
         f"profiled wall ({wall_us / 1e3:.1f} ms), {dev_us / 1e6 / serve_wall:.3f}"
@@ -1241,7 +1254,10 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
         f"{pa_us / dev_us:.3f} of the busy time; SwiGLU {sw_us / 1e3:.1f} ms "
         f"= {sw_us / dev_us:.3f}; library GEMMs (cuBLAS) {lib_us / 1e3:.1f} "
         f"ms = {lib_us / dev_us:.3f}; flash attention (bf16) "
-        f"{fa_us / 1e3:.1f} ms = {fa_us / dev_us:.3f}")
+        f"{fa_us / 1e3:.1f} ms = {fa_us / dev_us:.3f}"
+        + (f"; ssm_scan {scan_us / 1e3:.3f} ms = {scan_us / dev_us:.4f} of "
+           f"the busy time over {scan_n} launches "
+           f"({scan_us / scan_n:.1f} us each)" if scan_n else ""))
     # the twelve costliest, and the port's own kernels wherever they rank
     ranked = sorted(totals.items(), key=lambda kv: -kv[1][0])
     ours = ("packed_attention", "flash_bf16_kernel", "swiglu_bf16",
@@ -1561,9 +1577,9 @@ def check_hybrid_counts(mode: str, cfg, c: dict, s) -> None:
 
 
 def phase_hybrid(torch, busy: dict) -> dict:
-    """The hybrid model on the three steps (see the module docstring); the
-    legacy and packed runs are profiled into ``busy``.  Returns the scan's
-    launches in the legacy run."""
+    """The hybrid model on the three steps (see the module docstring); each
+    run is profiled into ``busy``.  Returns the scan's launches in the
+    legacy run."""
     from repro_torch.models import model
     from repro_torch.models.param import count_params
     from repro_torch.serving.config import EngineConfig
@@ -1634,10 +1650,10 @@ def phase_hybrid(torch, busy: dict) -> dict:
         wall = s.wall_time
         del eng, lg
         torch.cuda.empty_cache()
-        if mode in ("legacy", "packed"):
-            busy[f"hybrid {mode}"] = phase_profile(
-                torch, cfg, params, prompts, wall, tag=f"hybrid {mode} profile",
-                cross_check=True, **kw)
+        # the recompute step is the legacy engine's kind: no cross-check
+        busy[f"hybrid {mode}"] = phase_profile(
+            torch, cfg, params, prompts, wall, tag=f"hybrid {mode} profile",
+            cross_check=mode != "recompute", **kw)
     for a, b in (("legacy", "packed"), ("legacy", "recompute"),
                  ("recompute", "packed")):
         same_ctx, raw, first = context_agreement(outs[a], outs[b])
@@ -1724,7 +1740,7 @@ def main() -> int:
     launches["ssm_scan"] = phase_hybrid(torch, busy)
     lap("hybrid")
     for tag, got in busy.items():
-        if got is not None and "legacy" not in tag:
+        if got is not None and not any(k in tag for k in LEGACY_MODES):
             log(f"packed attention in the {tag} serve: {got[1]:.1f} ms of "
                 f"{got[0]:.1f} ms device busy = {got[1] / got[0]:.3f}")
     for tag, got in busy.items():

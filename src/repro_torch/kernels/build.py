@@ -26,10 +26,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 # target -> (source, its compile-time switches).  The four packed-attention
-# variants and paged decode attention are one source built with three
-# switches (csrc/packed_attention.cu); decode attention and the fused op
-# share the unit of csrc/attn_decode.cuh, SwiGLU and the fused op the GEMM
-# mainloop of csrc/gemm_sm90.cuh.
+# variants are one source built with two switches (csrc/packed_attention.cu);
+# decode attention, paged decode attention (a second C entry of
+# csrc/decode_attention.cu, in its library) and the fused op share the unit
+# of csrc/attn_decode.cuh, SwiGLU and the fused op the GEMM mainloop of
+# csrc/gemm_sm90.cuh.
 def _pa(quant: int, block_table: int) -> tuple[str, tuple[str, ...]]:
     return ("packed_attention", (f"-DREPRO_PA_QUANT={quant}",
                                  f"-DREPRO_PA_BLOCK_TABLE={block_table}"))
@@ -41,9 +42,6 @@ TARGETS = {
     "packed_attention_block": _pa(0, 1),
     "packed_attention_block_quant": _pa(1, 1),
     "decode_attention": ("decode_attention", ()),
-    "paged_decode_attention": ("packed_attention",
-                               ("-DREPRO_PA_DECODE=1",
-                                "-DREPRO_PA_BLOCK_TABLE=1")),
     "fused_overlap": ("fused_overlap", ()),
     "flash_attention": ("flash_attention", ()),
     "swiglu": ("swiglu", ()),
@@ -52,7 +50,7 @@ TARGETS = {
 
 _c = ctypes
 _void_p, _int, _ll, _float = _c.c_void_p, _c.c_int, _c.c_longlong, _c.c_float
-# argtypes of each source's one C entry point
+# argtypes of each source's first C entry point
 SIGNATURES = {
     "packed_attention": ("repro_packed_attention",
                          [_void_p] * 12 + [_int] * 13 + [_ll] * 6
@@ -70,11 +68,20 @@ SIGNATURES = {
                       [_void_p] * 11 + [_int] * 10 + [_ll] * 4
                       + [_float, _float, _void_p, _void_p]),
 }
+# name -> (target whose library holds it, C entry, argtypes): the further C
+# entry points of a library
+ENTRIES = {
+    "paged_decode_attention": ("decode_attention",
+                               "repro_paged_decode_attention",
+                               [_void_p] * 9 + [_int] * 8 + [_ll] * 2
+                               + [_float, _void_p, _void_p]),
+}
 
 
 class KernelLibs:
     """The loaded kernel libraries: ``fn(name)`` is the ctypes function of
-    target ``name``; ``build_seconds`` and ``ptxas_log`` record the build."""
+    target ``name``'s first C entry, or of the further entry ``name`` of
+    ``ENTRIES``; ``build_seconds`` and ``ptxas_log`` record the build."""
 
     def __init__(self, fns: dict, build_seconds: float, ptxas_log: str):
         self._fns = fns
@@ -143,10 +150,11 @@ def build() -> KernelLibs:
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
     fns = {}
-    for name, so in targets.items():
-        lib = ctypes.CDLL(str(so))
-        sym, argtypes = SIGNATURES[TARGETS[name][0]]
-        fn = getattr(lib, sym)
+    bound = [(name, name, *SIGNATURES[TARGETS[name][0]]) for name in TARGETS]
+    bound += [(name, *entry) for name, entry in ENTRIES.items()]
+    libs = {name: ctypes.CDLL(str(so)) for name, so in targets.items()}
+    for name, target, sym, argtypes in bound:
+        fn = getattr(libs[target], sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[name] = fn

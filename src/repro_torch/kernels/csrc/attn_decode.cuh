@@ -45,6 +45,15 @@
 //     result depends on which CTA ran which unit, or in which order.
 //   * The launch is sized from S, never from a host read of cache_len: a
 //     unit past its row's length returns before it reads anything.
+//   * The paged form (PAGED = true, csrc/decode_attention.cu's
+//     `repro_paged_decode_attention`) reads row b's logical row r from row
+//     r % PS of page max(table[b, r / PS], 0) of (NP, PS, KV, D) pools (a -1
+//     inside the length reads page 0, as the TPU kernel's `safe_table` and
+//     its reference do).  Each stage's physical rows are looked up one stage
+//     ahead, one table read per row by the first ROWS threads, and kept in
+//     shared memory past the ring for the stage's 16-byte copies; table
+//     entries past the row's length are never read.  Everything else is the
+//     unit as it is.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -78,6 +87,14 @@ struct Args {
   int B, n_kv, S, chunk, n_chunks;
   long long k_sb, k_ss, v_sb, v_ss;
   float scale;
+};
+
+// The paged form's extra operands: the (B, max_pages) table of page ids and
+// the rows per page; its caches are the pools, k_sb and v_sb are 0 and a
+// page's flat row f = page * page_size + r % page_size is read at f * k_ss.
+struct PagedArgs : Args {
+  const int32_t* table;
+  int max_pages, page_size;
 };
 
 // ---------------------------------------------------------------------------
@@ -180,10 +197,16 @@ struct Ring {
 // dynamic shared memory of one unit: the ring (the merge reuses it), plus q
 // in f32, or in bf16 at D = 256 (MAX_G padded rows, those >= G zero)
 template <typename T, int G, int D>
-constexpr int smem_bytes() {
+__host__ __device__ constexpr int smem_bytes() {
   return Ring<T, D>::RING_BYTES +
          (!Ring<T, D>::BF16 ? G * D * 4
                             : Ring<T, D>::Q_SMEM ? MAX_G * Ring<T, D>::LD * 2 : 0);
+}
+
+// the paged form adds each stage's physical rows, [STAGES][ROWS] int32
+template <typename T, int G, int D>
+__host__ __device__ constexpr int paged_smem_bytes() {
+  return smem_bytes<T, G, D>() + STAGES * Ring<T, D>::ROWS * 4;
 }
 
 // ---------------------------------------------------------------------------
@@ -247,9 +270,10 @@ __device__ void finish(const Args& a, int b, int kvh, int pair, int chunk,
 // one unit
 // ---------------------------------------------------------------------------
 // T: q/cache/out type (float or __nv_bfloat16); G: query heads per KV head
-// (<= 8); D: head dim.  `u` = chunk * (B * KV) + (b * KV + kvh).  All
-// THREADS threads of the CTA call it; it leaves the shared buffer free.
-template <typename T, int G, int D>
+// (<= 8); D: head dim; PAGED: `a` is a PagedArgs and the caches are read
+// through its table.  `u` = chunk * (B * KV) + (b * KV + kvh).  All THREADS
+// threads of the CTA call it; it leaves the shared buffer free.
+template <typename T, int G, int D, bool PAGED = false>
 __device__ void unit(const Args& a, int u, unsigned char* smem) {
   using R = Ring<T, D>;
   constexpr int ROWS = R::ROWS;
@@ -281,6 +305,14 @@ __device__ void unit(const Args& a, int u, unsigned char* smem) {
                              (long long)b * a.v_sb + kvh * D;
   T* sk = reinterpret_cast<T*>(smem);          // [STAGES][ROWS][LD]
   T* sv = sk + STAGES * ROWS * LD;             // [STAGES][ROWS][LD]
+  // paged: the flat row of each stage row, [STAGES][ROWS], and the lookup
+  int* const prow = reinterpret_cast<int*>(smem + smem_bytes<T, G, D>());
+  auto phys = [&](int row) -> int {
+    const PagedArgs& pg = static_cast<const PagedArgs&>(a);
+    if (row >= r1) return 0;
+    const int page = max(pg.table[(long long)b * pg.max_pages + row / pg.page_size], 0);
+    return page * pg.page_size + row % pg.page_size;
+  };
 
   auto load = [&](int stage, int t) {
     const int row0 = r0 + t * ROWS;
@@ -289,13 +321,30 @@ __device__ void unit(const Args& a, int u, unsigned char* smem) {
       const int c = tid + i * THREADS;
       const int r = c / PER_ROW;
       const int col = (c % PER_ROW) * (16 / (int)sizeof(T));
-      const int row = row0 + r;
+      int row = row0 + r;
       const bool ok = row < r1;
+      if constexpr (PAGED) row = prow[stage * ROWS + r];
       cp_async16(sk + (stage * ROWS + r) * LD + col,
                  ok ? kb + row * a.k_ss + col : kb, ok);
       cp_async16(sv + (stage * ROWS + r) * LD + col,
                  ok ? vb + row * a.v_ss + col : vb, ok);
     }
+  };
+  if constexpr (PAGED) {
+    if (tid < ROWS) {
+#pragma unroll
+      for (int s = 0; s < STAGES; ++s) prow[s * ROWS + tid] = phys(r0 + s * ROWS + tid);
+    }
+    __syncthreads();
+  }
+  // paged: stage t + STAGES's rows, read before stage t is scored and
+  // stored after it into stage t's slot, whose copies went out STAGES - 1
+  // iterations before
+  auto next_rows = [&](int t) -> int {
+    return PAGED && tid < ROWS ? phys(r0 + (t + STAGES) * ROWS + tid) : 0;
+  };
+  auto store_rows = [&](int t, int rows) {
+    if (PAGED && tid < ROWS) prow[(t % STAGES) * ROWS + tid] = rows;
   };
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -348,6 +397,7 @@ __device__ void unit(const Args& a, int u, unsigned char* smem) {
       const int nt = t + STAGES - 1;
       if (nt < n_tiles) load(nt % STAGES, nt);
       cp_async_commit();
+      const int rows = next_rows(t);
 
       const int stage = t % STAGES;
       const __nv_bfloat16* kt = sk + (stage * ROWS + kg * 16) * LD;
@@ -424,6 +474,7 @@ __device__ void unit(const Args& a, int u, unsigned char* smem) {
         mma_bf16(o[mt], av, bh0, bh1);
         mma_bf16(o[mt], av, bl0, bl1);
       }
+      store_rows(t, rows);
     }
     cp_async_wait<0>();
     __syncthreads();   // the ring becomes the merge buffer
@@ -479,6 +530,7 @@ __device__ void unit(const Args& a, int u, unsigned char* smem) {
       const int nt = t + STAGES - 1;
       if (nt < n_tiles) load(nt % STAGES, nt);
       cp_async_commit();
+      const int rows = next_rows(t);
 
       const int stage = t % STAGES;
       for (int rr = warp; rr < ROWS; rr += NUM_WARPS) {
@@ -506,6 +558,7 @@ __device__ void unit(const Args& a, int u, unsigned char* smem) {
           m[g] = mx;
         }
       }
+      store_rows(t, rows);
     }
     cp_async_wait<0>();
     __syncthreads();   // the ring becomes the merge buffer

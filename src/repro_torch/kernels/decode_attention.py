@@ -12,10 +12,10 @@ decode_attention_ref`` and is what the CPU runs and what the card's kernel
 is held against.
 
 Paged decode reads the caches as a global pool of pages through a
-``(B, MAXP)`` page table.  Its kernel is the ``paged_decode_attention``
-build of ``csrc/packed_attention.cu`` (``-DREPRO_PA_DECODE=1
--DREPRO_PA_BLOCK_TABLE=1``);
-it replaces ``src/repro/kernels/decode_attention.py:
+``(B, MAXP)`` page table.  Its kernel is the same unit in its paged form,
+the second C entry of ``csrc/decode_attention.cu``
+(``repro_paged_decode_attention``): each stage's rows are looked up in the
+table one stage ahead.  It replaces ``src/repro/kernels/decode_attention.py:
 paged_decode_attention``, and ``paged_decode_attention_ref`` ports
 ``src/repro/kernels/ref.py:paged_decode_attention_ref``.  In the port it is
 called only through ``kernels.ops.paged_decode_attention``.
@@ -80,14 +80,21 @@ def _check(cond: bool, what: str) -> None:
 
 
 def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-           cache_len: torch.Tensor, *, chunk: int = CHUNK) -> torch.Tensor:
+           cache_len: torch.Tensor, *,
+           page_table: Optional[torch.Tensor] = None,
+           scale: Optional[float] = None, chunk: int = CHUNK) -> torch.Tensor:
     """Check the operands and launch ``csrc/decode_attention.cu`` with
-    units of ``chunk`` cache rows (a positive multiple of 64).  Leaves
-    (units launched, chunk) in ``launch.units``."""
+    units of ``chunk`` cache rows (a positive multiple of 64).  With
+    ``page_table`` ((B, MAXP) int32) the caches are (NP, PS, KV, D) page
+    pools read through it (the paged C entry).  ``scale`` multiplies the
+    scores (default ``D ** -0.5``).  Leaves (units launched, chunk) in
+    ``launch.units``."""
     dev = q.device
     _check(dev.type == "cuda", "q is not a CUDA tensor")
-    for name, x in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("cache_len", cache_len)):
+    paged = page_table is not None
+    named = [("k_cache", k_cache), ("v_cache", v_cache),
+             ("cache_len", cache_len)]
+    for name, x in named + ([("page_table", page_table)] if paged else []):
         _check(x.device == dev, f"{name} is on {x.device}, q on {dev}")
     _check(q.dtype in pa._DTYPES, f"dtype {q.dtype} (float32 or bfloat16)")
     _check(k_cache.dtype == q.dtype and v_cache.dtype == q.dtype,
@@ -102,7 +109,7 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     _check(h % kvh == 0 and h // kvh in pa.GROUPS,
            f"group {h}/{kvh} not in {pa.GROUPS}")
     _check(d in pa.HEAD_DIMS, f"head_dim {d} not in {pa.HEAD_DIMS}")
-    _check(b == n, f"decode: {b} queries for {n} slots")
+    _check(paged or b == n, f"decode: {b} queries for {n} slots")
     _check(cache_len.dtype == torch.int32 and tuple(cache_len.shape) == (b,)
            and cache_len.is_contiguous(),
            "cache_len must be contiguous int32 (B,)")
@@ -110,7 +117,19 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     check_caches(_check, q, k_cache, v_cache)
     _check(chunk > 0 and chunk % 64 == 0,
            f"chunk {chunk} is not a positive multiple of 64")
-    n_chunks = max(1, -(-s // chunk))
+    if paged:
+        _check(page_table.dtype == torch.int32 and page_table.dim() == 2
+               and page_table.shape[0] == b and page_table.shape[1] >= 1
+               and page_table.is_contiguous(),
+               f"page_table must be contiguous int32 ({b}, MAXP)")
+        for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+            _check(x.stride(0) == s * x.stride(1),
+                   f"{name}: a page pool needs a uniform flat row space "
+                   "(stride(0) == PS * stride(1))")
+        _check(n * s < 2 ** 31 and page_table.shape[1] * s < 2 ** 31,
+               "page pools and tables past 2**31 rows")
+    sweep = page_table.shape[1] * s if paged else s   # rows a unit may reach
+    n_chunks = max(1, -(-sweep // chunk))
     group = h // kvh
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
     part_ml = torch.empty(b * kvh * n_chunks * 2 * group,
@@ -118,18 +137,26 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     part_acc = torch.empty(b * kvh * n_chunks * group * d,
                            dtype=torch.float32, device=dev)
     sched = (ctypes.c_int * 2)()
-    fn = build.build().fn("decode_attention")
+    scale = float(d ** -0.5 if scale is None else scale)
+    target = "paged_decode_attention" if paged else "decode_attention"
+    fn = build.build().fn(target)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         tickets = split_kv_tickets(dev, stream, b * kvh)
-        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                cache_len.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
-                part_acc.data_ptr(), tickets.data_ptr(),
-                pa._DTYPES[q.dtype], b, h, kvh, d, s, chunk,
-                k_cache.stride(0), k_cache.stride(1), v_cache.stride(0),
-                v_cache.stride(1), float(d ** -0.5), sched, stream)
+        common = (out.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
+                  tickets.data_ptr(), pa._DTYPES[q.dtype], b, h, kvh, d)
+        if paged:
+            rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                    page_table.data_ptr(), cache_len.data_ptr(), *common,
+                    page_table.shape[1], s, chunk, k_cache.stride(1),
+                    v_cache.stride(1), scale, sched, stream)
+        else:
+            rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                    cache_len.data_ptr(), *common, s, chunk,
+                    k_cache.stride(0), k_cache.stride(1), v_cache.stride(0),
+                    v_cache.stride(1), scale, sched, stream)
     if rc != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: {rc}")
+        raise RuntimeError(f"{target} kernel launch failed: {rc}")
     launch.units = tuple(sched)
     return out
 
@@ -184,11 +211,11 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     and page ids in ``[-1, NP)``; a row with no valid key gives zeros).  The
     pools are read in place through their (page, row) strides and need a
     uniform flat row space; pages past ``ceil(cache_len[b] / PS)`` are
-    never read.  Raises on any input the kernel does not take and on a
-    failed launch; counts launches in
-    ``paged_decode_attention_cuda.launches``."""
-    out = pa.launch("paged_decode_attention", q, k_pages, v_pages, None,
-                    cache_len, block_tables=page_table, scale=logit_scale)
+    never read, and neither ``cache_len`` nor the table is read on the
+    host.  Raises on any input the kernel does not take and on a failed
+    launch; counts launches in ``paged_decode_attention_cuda.launches``."""
+    out = launch(q, k_pages, v_pages, cache_len, page_table=page_table,
+                 scale=logit_scale)
     paged_decode_attention_cuda.launches += 1
     return out
 

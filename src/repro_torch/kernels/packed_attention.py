@@ -197,7 +197,6 @@ def packed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     block-table mode each leaf's flat row space must be uniform.  Raises on
     any input the kernel does not take and on a failed launch; counts the
     launches of each variant in ``packed_attention_cuda.launches``."""
-    _check(token_slot is not None, "token_slot is required")
     variant = VARIANTS[(block_tables is not None, k_scale is not None)]
     out = launch(variant, q, k_cache, v_cache, token_slot, lengths,
                  kv_bucket=kv_bucket, block_tables=block_tables,
@@ -207,31 +206,24 @@ def packed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
-           v_cache: torch.Tensor, token_slot: Optional[torch.Tensor],
+           v_cache: torch.Tensor, token_slot: torch.Tensor,
            lengths: torch.Tensor, *, kv_bucket: Optional[int] = None,
            block_tables: Optional[torch.Tensor] = None,
            k_scale: Optional[torch.Tensor] = None,
            v_scale: Optional[torch.Tensor] = None,
-           scale: Optional[float] = None, tq: Optional[int] = None,
+           tq: Optional[int] = None,
            chunk: Optional[int] = None) -> torch.Tensor:
     """Check the operands and launch build ``target`` of
-    ``csrc/packed_attention.cu``: one of the four packed variants, or
-    ``paged_decode_attention`` (``token_slot=None`` with ``block_tables``:
-    the caches are (NP, PS, KV, D) page pools and row t of the (T, MAXP)
-    table holds token t's page ids).  ``scale`` multiplies the scores
-    (default ``D ** -0.5``).  ``tq`` and ``chunk`` override
-    ``tile_plan``'s defaults for the tile kernel (the packed variants;
-    tools/packed_attention_probe.py sweeps them)."""
+    ``csrc/packed_attention.cu``, one of the four packed variants.  ``tq``
+    and ``chunk`` override ``tile_plan``'s defaults
+    (tools/packed_attention_probe.py sweeps them)."""
     dev = q.device
     _check(dev.type == "cuda", "q is not a CUDA tensor")
+    _check(token_slot is not None, "token_slot is required")
     quant = k_scale is not None
     _check((v_scale is not None) == quant, "k_scale and v_scale go together")
     blocked = block_tables is not None
-    paged = token_slot is None
-    _check(not paged or blocked, "paged decode needs a page table")
-    _check(not (paged and quant), "paged decode reads native caches")
-    per_token = [("lengths", lengths)] + ([] if paged else
-                                          [("token_slot", token_slot)])
+    per_token = [("lengths", lengths), ("token_slot", token_slot)]
     named = [("k_cache", k_cache), ("v_cache", v_cache)] + per_token
     scales = [("k_scale", k_scale), ("v_scale", v_scale)] if quant else []
     if blocked:
@@ -258,15 +250,14 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
         _check(x.dtype == torch.int32 and tuple(x.shape) == (t,)
                and x.is_contiguous(), f"{name} must be contiguous int32 (T,)")
     _check(q.is_contiguous(), "q must be contiguous")
-    vec = d // 32                  # paged decode: elements each lane loads
     for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
         _check(x.stride(3) == 1 and x.stride(2) == d,
                f"{name} rows must hold contiguous (KV, D) blocks")
-        _check(x.stride(0) % vec == 0 and x.stride(1) % vec == 0,
-               f"{name} strides must keep rows vector-aligned")
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        _check(x.data_ptr() % (vec * x.element_size()) == 0,
-               f"{name} is not aligned for vector loads")
+        # cp.async reads 16-byte pieces of every row
+        _check(all(x.stride(i) * x.element_size() % 16 == 0
+                   for i in (0, 1)) and x.data_ptr() % 16 == 0,
+               f"{name} rows must be 16-byte aligned")
+    _check(q.data_ptr() % 16 == 0, "q is not 16-byte aligned")
     s_strides = (0, 0)
     if quant:
         for name, x in scales:
@@ -280,18 +271,12 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
     sweep = s if kv_bucket is None else min(int(kv_bucket), s)
     nb_cols = bs = 0
     if blocked:
-        rows = t if paged else n
         _check(block_tables.dtype == torch.int32 and block_tables.dim() == 2
-               and block_tables.shape[0] == rows
+               and block_tables.shape[0] == n
                and block_tables.is_contiguous(),
-               f"block_tables must be contiguous int32 ({rows}, "
-               + ("MAXP)" if paged else "S // bs)"))
+               f"block_tables must be contiguous int32 ({n}, S // bs)")
         nb_cols = block_tables.shape[1]
-        if paged:     # a page is a block; MAXP pages bound the sweep
-            _check(nb_cols >= 1, "page_table needs a column")
-            bs, sweep = s, nb_cols * s
-        else:
-            bs, _ = _block_sweep(s, nb_cols, kv_bucket)
+        bs, _ = _block_sweep(s, nb_cols, kv_bucket)
         for name, x in [("k_cache", k_cache), ("v_cache", v_cache)] + scales:
             _check(x.stride(0) == s * x.stride(1),
                    f"{name}: block-table mode needs a uniform flat row space "
@@ -299,21 +284,13 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty((t, h, d), dtype=q.dtype, device=dev)
     fn = build.build().fn(target)
     group = h // kvh
-    plan = None
     part_ml = part_acc = None
-    if not paged:
-        # the tile kernel: cp.async reads 16-byte pieces of every row
-        for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
-            _check(all(x.stride(i) * x.element_size() % 16 == 0
-                       for i in (0, 1)) and x.data_ptr() % 16 == 0,
-                   f"{name} rows must be 16-byte aligned")
-        _check(q.data_ptr() % 16 == 0, "q is not 16-byte aligned")
-        plan = tile_plan(t, group, sweep, tq=tq, chunk=chunk)
-        if plan[2] > 1:
-            part_ml = torch.empty(t * kvh * plan[2] * 2 * group,
-                                  dtype=torch.float32, device=dev)
-            part_acc = torch.empty(t * kvh * plan[2] * group * d,
-                                   dtype=torch.float32, device=dev)
+    plan = tile_plan(t, group, sweep, tq=tq, chunk=chunk)
+    if plan[2] > 1:
+        part_ml = torch.empty(t * kvh * plan[2] * 2 * group,
+                              dtype=torch.float32, device=dev)
+        part_acc = torch.empty(t * kvh * plan[2] * group * d,
+                               dtype=torch.float32, device=dev)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
@@ -323,15 +300,13 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
         tickets = (split_kv_tickets(dev, stream, t * kvh)
                    if part_ml is not None else None)
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                ptr(k_scale), ptr(v_scale), ptr(token_slot),
+                ptr(k_scale), ptr(v_scale), token_slot.data_ptr(),
                 lengths.data_ptr(), ptr(block_tables), out.data_ptr(),
                 ptr(part_ml), ptr(part_acc), ptr(tickets),
-                _DTYPES[q.dtype], int(quant), t, h, kvh, d,
-                t if paged else n, sweep, nb_cols, bs,
-                *(plan if plan is not None else (0, 0, 0)),
-                k_cache.stride(0), k_cache.stride(1), v_cache.stride(0),
-                v_cache.stride(1), *s_strides,
-                float(d ** -0.5 if scale is None else scale), stream)
+                _DTYPES[q.dtype], int(quant), t, h, kvh, d, n, sweep,
+                nb_cols, bs, *plan, k_cache.stride(0), k_cache.stride(1),
+                v_cache.stride(0), v_cache.stride(1), *s_strides,
+                float(d ** -0.5), stream)
     if rc != 0:
         raise RuntimeError(f"{target} kernel launch failed: {rc}")
     return out

@@ -29,7 +29,7 @@ def check_config(cfg: ModelConfig) -> None:
     if cfg.frontend != "none" or cfg.tie_embeddings or not cfg.ffn_gated:
         raise NotImplementedError(
             f"{cfg.name}: frontends, tied embeddings and ungated FFNs are "
-            "not in the port yet (ROADMAP A5, A9)")
+            "not in the port yet (ROADMAP A16)")
     for spec in cfg.layer_specs():
         blocks.check_spec(spec)
 

@@ -37,7 +37,7 @@ def test_digest_follows_the_headers(csrc, target):
 
 
 def test_digest_follows_source_and_flags(csrc):
-    source, defines = build.TARGETS["paged_decode_attention"]
+    source, defines = build.TARGETS["packed_attention_quant"]
     before = build._digest(source, defines)
     assert build._digest(source, defines[:1]) != before
     path = csrc / f"{source}.cu"

@@ -23,6 +23,7 @@ import torch
 from repro_torch.configs import FFN_DENSE, get_config, scale_down
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops
+from repro_torch.kernels import packed_attention as pa
 from repro_torch.kernels import ssm_scan as ssm_scan_mod
 from repro_torch.kernels.decode_attention import (
     decode_attention_cuda, decode_attention_ref, paged_decode_attention_cuda,
@@ -603,6 +604,49 @@ def test_paged_decode_attention_scale_hole_and_strides(cuda):
         q, kp, vp, table, lens, logit_scale=0.05), **_tol("float32"))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+@pytest.mark.parametrize("ps,maxp", [(16, 10), (64, 4)])
+def test_paged_decode_attention_page_edges(cuda, ps, maxp, group, d, dtype):
+    """The unit's paged form: rows of exactly one page, of a page edge
+    inside one stage of the unit (a stage holds 16-64 rows) and just past
+    it, of a last page one row long, and of the whole table, through the
+    split-KV launch of csrc/decode_attention.cu (units of 128 rows over
+    MAXP * PS), against the plain version."""
+    rng = np.random.default_rng(ps + group * d)
+    kv, npages = 2, 60
+    full = maxp * ps
+    lens = [ps, ps + 1, 2 * ps - 1, 17, full - ps + 1, full]
+    q = _normal(rng, cuda, dtype, len(lens), kv * group, d)
+    kp = _normal(rng, cuda, dtype, npages, ps, kv, d)
+    vp = _normal(rng, cuda, dtype, npages, ps, kv, d)
+    table = np.full((len(lens), maxp), -1, np.int32)
+    for i, n in enumerate(lens):
+        used = -(-n // ps)
+        table[i, :used] = rng.choice(npages, size=used, replace=False)
+    args = (q, kp, vp, torch.tensor(table, device=cuda),
+            torch.tensor(lens, dtype=torch.int32, device=cuda))
+    before = paged_decode_attention_cuda.launches
+    got = paged_decode_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_cuda.launches == before + 1
+    assert da.launch.units == (len(lens) * kv * -(-full // da.CHUNK),
+                               da.CHUNK)
+    torch.testing.assert_close(got.float(), paged_decode_attention_ref(
+        *args).float(), **_tol(dtype))
+
+
+def test_packed_attention_launch_takes_no_paged_decode(cuda):
+    """Paged decode left csrc/packed_attention.cu: its launch refuses a
+    stream without token slots, and nothing launches."""
+    q, kp, vp, table, lens = _paged_args(cuda, "bfloat16", 4, 128, 6)
+    before = dict(packed_attention_cuda.launches)
+    for target in ("packed_attention_block", "packed_attention"):
+        with pytest.raises(ValueError, match="token_slot"):
+            pa.launch(target, q, kp, vp, None, lens, block_tables=table)
+    assert packed_attention_cuda.launches == before
+
+
 def _overlap_args(cuda, dtype, m, k, n, group=4, d=128, b=5, s=600, kv=2,
                   seed=0):
     """x (m, k) @ w (k, n) beside decode attention over 5 rows of an
@@ -693,7 +737,7 @@ def test_fused_overlap_wrapper_raises_instead_of_falling_back(cuda):
             fused_overlap_cuda(x, w, q, kc, vc, lens, gemm_fraction=frac)
     pq, kp, vp, table, plens = _paged_args(cuda, "bfloat16", 4, 128, 6)
     for tbl in (table.long(), table[:4], table.t().contiguous()):
-        with pytest.raises(ValueError, match="block_tables"):
+        with pytest.raises(ValueError, match="page_table"):
             paged_decode_attention_cuda(pq, kp, vp, tbl, plens)
     with pytest.raises(ValueError, match="must be"):
         paged_decode_attention_cuda(pq, kp.float(), vp, table, plens)
@@ -907,6 +951,53 @@ def test_ssm_scan_kernel(cuda, ch, n, s, h0, dtype):
     assert ssm_scan_cuda.launches == before + 1
     want_y, want_h = ssm_scan_ref(*args)
     assert y.dtype == TORCH[dtype] and h.dtype == torch.float32
+    tol = dict(rtol=1e-2, atol=1e-3) if dtype == "bfloat16" \
+        else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y.float(), want_y.float(), **tol)
+    torch.testing.assert_close(h, want_h, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 7, 9, 67, 600])
+def test_ssm_scan_kernel_token_edges(cuda, s, dtype):
+    """S of one token, across the 8-token group (7, 9) and two 32-token
+    tiles (67), and a 600-token sweep from a carried state, over 300
+    channels (a ragged edge of the 64-channel blocks)."""
+    args = _scan_args(cuda, dtype, 1, s, 300, 16, True, seed=s)
+    y, h = ssm_scan_cuda(*args)
+    want_y, want_h = ssm_scan_ref(*args)
+    tol = dict(rtol=1e-2, atol=1e-3) if dtype == "bfloat16" \
+        else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y.float(), want_y.float(), **tol)
+    torch.testing.assert_close(h, want_h, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ch,n", [(45, 32), (100, 32), (45, 64), (100, 64)])
+def test_ssm_scan_kernel_wide_states_ragged_channels(cuda, ch, n, dtype):
+    """N 32 and 64 (8 and 16 lanes a channel: the transpose-reduce ends in
+    a butterfly at 16) over channel counts that end mid-block, two batch
+    rows, 45 tokens from a carried state."""
+    args = _scan_args(cuda, dtype, 2, 45, ch, n, True, seed=ch + n)
+    y, h = ssm_scan_cuda(*args)
+    want_y, want_h = ssm_scan_ref(*args)
+    tol = dict(rtol=1e-2, atol=1e-3) if dtype == "bfloat16" \
+        else dict(rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y.float(), want_y.float(), **tol)
+    torch.testing.assert_close(h, want_h, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_kernel_underflowing_factors(cuda, dtype):
+    """dt up to 20 against a in [-16, -1]: exp(dt * a) underflows to 0 for
+    most (token, state) pairs, so the state restarts from the input."""
+    x, dt, a, b, c, d, h0 = _scan_args(cuda, dtype, 1, 70, 130, 16, True,
+                                       seed=5)
+    rng = np.random.default_rng(6)
+    dt = torch.tensor(rng.uniform(0.0, 20.0, dt.shape), dtype=torch.float32,
+                      device=cuda)
+    y, h = ssm_scan_cuda(x, dt, a, b, c, d, h0)
+    want_y, want_h = ssm_scan_ref(x, dt, a, b, c, d, h0)
     tol = dict(rtol=1e-2, atol=1e-3) if dtype == "bfloat16" \
         else dict(rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(y.float(), want_y.float(), **tol)

@@ -4,6 +4,7 @@
     python3 tools/packed_attention_probe.py [--parent DIR]   # 4, 1, 2 (, 3)
     python3 tools/packed_attention_probe.py --parts-only     # 4
     python3 tools/packed_attention_probe.py --ptxas [--parent DIR]   # 5
+    python3 tools/packed_attention_probe.py --unit --parent DIR      # 6
 
 1. The sweep: chip_smoke's packed-attention shape (8 decode tokens, a
    200-token chunk at positions 300-499 and a 37-token chunk over 10 slots
@@ -21,15 +22,22 @@
    timed on the same inputs in turns (parent, this tree, this tree,
    parent), with the host's time per call of each tree's C entry point
    (ctypes, the device kept busy so that only enqueueing is timed), then
-   ``cuobjdump -sass`` of the paged decode build (and of
-   decode_attention.cu and fused_overlap.cu) from both trees, compared
-   function by function.
+   ``cuobjdump -sass`` of decode_attention.cu (decode and paged decode)
+   and fused_overlap.cu from both trees, compared function by function.
 4. Before the sweep: each part of the stream alone (decode tokens, the
    200-token chunk, the 37-token chunk, the whole) by chunk, cold and as
    the kernel's own device time, beside flash attention on the 200-token
    chunk.
 5. ``--ptxas``: stack and spills of every tile-kernel instantiation (f32
    and bf16 q); with ``--parent`` also part 3's SASS comparison.
+6. ``--unit --parent DIR``: the kernels on the split-KV unit of
+   csrc/attn_decode.cuh, each in turns with DIR's build of it (parent,
+   tree, tree, parent) at chip_smoke's shapes: paged decode attention
+   (``paged_case``; DIR's as trees before the unit's paged form built
+   it: the -DREPRO_PA_DECODE per-token loop of packed_attention.cu),
+   decode attention
+   (``decode_case``) and the fused op at gemm_fraction 0.5
+   (``overlap_case``); then part 3's SASS comparison.
 
 Each time is the median of 20 calls after an L2 flush and a spin
 (chip_smoke's ``Timer``) unless it says it is the kernel's own device
@@ -254,6 +262,79 @@ def parent_ab(torch, timer, cfg, parent: Path) -> None:
               f"ctypes; parent, tree, tree, parent)", flush=True)
 
 
+# the C entry of csrc/packed_attention.cu before paged decode left it
+PAGED_PARENT_ARGS = ([_c.c_void_p] * 12 + [_c.c_int] * 13
+                     + [_c.c_longlong] * 6 + [_c.c_float, _c.c_void_p])
+
+
+def unit_ab(torch, timer, cfg, parent: Path) -> None:
+    """Paged decode, decode attention and the fused op, each in turns with
+    DIR's build at chip_smoke's shapes (bf16)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import fused_overlap as fo
+    csrc = parent / "src/repro_torch/kernels/csrc"
+    # DIR's paged decode: the -DREPRO_PA_DECODE build of its packed source
+    so = nvcc_build(csrc / "packed_attention.cu",
+                    ("-DREPRO_PA_DECODE=1", "-DREPRO_PA_BLOCK_TABLE=1"),
+                    OUT_DIR / "parent-paged.so", cubin=False)
+    pfn = ctypes.CDLL(str(so)).repro_packed_attention
+    pfn.argtypes, pfn.restype = PAGED_PARENT_ARGS, ctypes.c_int
+    args, _, _, _ = chip_smoke.paged_case(torch, cfg, torch.bfloat16)
+    q, kp, vp, table, lens = args
+    out = torch.empty_like(q)
+    t, h, d = q.shape
+    npg, ps, kvh, _ = kp.shape
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def old():
+        rc = pfn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), None, None,
+                 None, lens.data_ptr(), table.data_ptr(), out.data_ptr(),
+                 None, None, None, 1, 0, t, h, kvh, d, t,
+                 table.shape[1] * ps, table.shape[1], ps, 0, 0, 0,
+                 kp.stride(0), kp.stride(1), vp.stride(0), vp.stride(1), 0,
+                 0, d ** -0.5, stream)
+        if rc != 0:
+            raise RuntimeError(f"parent paged decode: {rc}")
+        return out
+    new = partial(da.paged_decode_attention_cuda, *args)
+    want = da.paged_decode_attention_ref(*args)
+    chip_smoke.check_close("parent paged decode", old(), want)
+    chip_smoke.check_close("paged decode", new(), want)
+    ms = [timer(old), timer(new), timer(new), timer(old)]
+    print(f"A/B paged_decode_attention: parent {ms[0]:.4f} / {ms[3]:.4f} "
+          f"ms, this tree {ms[1]:.4f} / {ms[2]:.4f} ms (parent, tree, tree, "
+          f"parent); grid {da.launch.units}", flush=True)
+    # DIR's decode_attention.cu and fused_overlap.cu under this tree's
+    # wrappers (their C entries are unchanged)
+    libs = build.build()
+    dargs, _, _, _, _ = chip_smoke.decode_case(torch, cfg, torch.bfloat16)
+    oargs, _, _, _ = chip_smoke.overlap_case(torch, cfg, torch.bfloat16)
+    for target, call, want in (
+            ("decode_attention", partial(da.decode_attention_cuda, *dargs),
+             da.decode_attention_ref(*dargs)),
+            ("fused_overlap", partial(fo.fused_overlap_cuda, *oargs,
+                                      gemm_fraction=0.5),
+             fo.fused_overlap_ref(*oargs)[1])):
+        so = nvcc_build(csrc / f"{target}.cu", (),
+                        OUT_DIR / f"parent-{target}.so", cubin=False)
+        fn = getattr(ctypes.CDLL(str(so)), build.SIGNATURES[target][0])
+        fn.argtypes, fn.restype = build.SIGNATURES[target][1], ctypes.c_int
+        tree_fn = libs.fn(target)
+        ms = []
+        for lib in (fn, tree_fn, tree_fn, fn):
+            libs._fns[target] = lib
+            got = call()
+            chip_smoke.check_close(
+                f"{target} ({'tree' if lib is tree_fn else 'parent'})",
+                got[1] if target == "fused_overlap" else got, want)
+            ms.append(timer(call))
+        libs._fns[target] = tree_fn
+        print(f"A/B {target}: parent {ms[0]:.4f} / {ms[3]:.4f} ms, this "
+              f"tree {ms[1]:.4f} / {ms[2]:.4f} ms (parent, tree, tree, "
+              "parent)", flush=True)
+
+
 def sass_functions(cubin: Path) -> dict:
     """Function name -> its SASS lines.  Names in an anonymous namespace
     carry a hash of the source's path, which differs between two trees, so
@@ -274,8 +355,7 @@ def sass_functions(cubin: Path) -> dict:
 
 def compare_sass(parent: Path) -> None:
     from repro_torch.kernels import build
-    for target in ("paged_decode_attention", "decode_attention",
-                   "fused_overlap"):
+    for target in ("decode_attention", "fused_overlap"):
         source, defines = build.TARGETS[target]
         rel = f"src/repro_torch/kernels/csrc/{source}.cu"
         a = sass_functions(nvcc_build(parent / rel, defines,
@@ -327,6 +407,11 @@ def main() -> int:
     build.build()
     cfg = get_config("qwen3-8b")
     timer = chip_smoke.Timer(torch)
+    if "--unit" in sys.argv:
+        parent = Path(sys.argv[sys.argv.index("--parent") + 1]).resolve()
+        unit_ab(torch, timer, cfg, parent)
+        compare_sass(parent)
+        return 0
     if "--ptxas" in sys.argv:
         ptxas_table()
         if "--parent" in sys.argv:
