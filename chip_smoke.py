@@ -73,7 +73,32 @@ Phases (any failure exits non-zero; no phase is caught):
                agree with the runs without prefix caching; an int8 request
                agrees with a teacher-forced plain forward through an int8
                cache.  Each mode's run is then profiled as in 6.
-  9. hybrid  — Qwen3-8B's weights freed, Jamba-1.5-Large at full width cut
+  9. async   — the serve phase's 8 requests at the default async depth
+               (1) and at depth 0, in turns (1, 0, 0, 1): one dispatch and
+               one sync per iteration, nothing in flight at exit, tokens
+               that agree (the share of token-identical requests printed),
+               each run's blocking syncs per iteration and wall split; the
+               depth-1 serve is then profiled as in 6.
+ 10. spec    — greedy speculative decoding at spec_k 4 in the contiguous
+               and the prefix-caching modes: with f32 weights, a replay
+               drafter built from a plain serve of the 8 requests (depth 0)
+               must be accepted above 0.6, need fewer iterations than that
+               serve and agree with its tokens; on the bf16 model, the
+               n-gram drafter on 8 motif prompts (the default depth) must
+               agree with a plain run of them and be accepted above 0.5.
+ 11. sampling — temperature 0.8, top_k 50: the sampler's Philox bits on
+               the card equal the CPU's over the whole vocab and at
+               gathered indices; the whole-vocab Gumbel noise is finite and
+               4096 rows whose index 0 outweighs each other index by e^30
+               all draw it (no uniform floor); the sampling pass's device
+               time (greedy,
+               whole-vocab Gumbel, top-k) at the serve's 16 sampled rows;
+               two serves with the same seed give identical tokens at depth
+               0, and two at depth 1 (harvesting off).
+               Every run of phases 9-11 sets the kernels' counts to 0
+               before it and fails unless its attention variant and SwiGLU
+               launched and no ops-only kernel did.
+ 12. hybrid  — Qwen3-8B's weights freed, Jamba-1.5-Large at full width cut
                to one 8-layer group (7 Mamba + 1 attention) with dense FFNs:
                a two-chunk ``forward_chunk`` through the kernels against the
                plain versions, then the serve phase's 8 prompt lengths on
@@ -170,7 +195,11 @@ JAMBA = "jamba-1.5-large-398b"
 HYBRID_LAYERS = 8       # one pattern group: 7 Mamba + 1 attention layer
 HYBRID_MODES = {"legacy": dict(step_mode="legacy"),
                 "recompute": dict(prefill_mode="recompute"),
-                "packed": dict(step_mode="packed")}
+                "packed": dict(step_mode="packed", async_depth=0)}
+SPEC_K = 4              # drafts per verify segment in the spec phase
+SPEC_ACCEPT_MIN = 0.6   # the replay drafter's acceptance must exceed it
+SPEC_NGRAM_ACCEPT_MIN = 0.5  # the n-gram drafter's on the motif prompts
+SAMPLING = dict(temperature=0.8, top_k=50)
 
 
 def log(msg: str) -> None:
@@ -1195,8 +1224,8 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.request import Request
-    eng = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=1024,
-                                                async_depth=0, **engine_kw))
+    eng = ServeEngine(cfg, params, EngineConfig(
+        **dict(dict(max_slots=8, max_len=1024, async_depth=0), **engine_kw)))
     batches = [prompts[:1], prompts[1:]] if waves == 2 else [prompts]
     # device activity only: the host's op events would multiply the
     # profiler's post-processing, and the busy share needs none of them
@@ -1480,6 +1509,285 @@ def phase_shared_prefix(torch, cfg, params, busy: dict) -> dict:
     return launches
 
 
+class ReplayDrafter:
+    """Proposes each request's tokens of an earlier run, from its committed
+    output on: near-perfect drafts where the runs agree."""
+
+    def __init__(self, targets: dict):
+        self.targets = targets
+
+    def propose(self, req, k: int) -> list:
+        tgt = self.targets.get(req.rid, [])
+        return tgt[len(req.output):len(req.output) + k]
+
+
+def serve_run(torch, cfg, params, prompts, tag: str, kname: str,
+              drafter=None, **engine_kw):
+    """One serve of ``prompts`` (32 new tokens each) on a fresh engine
+    (``engine_kw`` on top of 8 slots x 1024 rows; ``drafter`` replaces the
+    engine's), with every kernel's count set to 0 just before and read just
+    after.  Fails unless every request finished 32 tokens in range, with one
+    dispatch and one sync per iteration, nothing left in flight, and the
+    attention variant ``kname`` and SwiGLU launched.  Returns (engine,
+    tokens by rid, counts)."""
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import Request
+    eng = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=1024,
+                                                **engine_kw))
+    if drafter is not None:
+        eng.drafter = eng.scheduler.drafter = drafter
+    zero_counts()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=32))
+    done = eng.run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_off_path(tag, counts)
+    s = eng.stats
+    log(f"{tag}: async depth {eng.async_depth}, {len(done)}/{len(prompts)} "
+        f"finished, {s.iterations} iterations, {s.total_tokens} tokens in "
+        f"{s.wall_time:.3f} s = {s.throughput:.1f} tok/s, "
+        f"{s.dispatches_per_iter} dispatch/iter, {s.syncs_per_iter} sync/iter,"
+        f" {s.blocking_syncs_per_iter:.3f} blocking syncs/iter; wall split: "
+        f"host {s.host_time:.3f} s, step enqueue {s.dispatch_time:.3f} s, "
+        f"blocked on the payload copy {s.blocked_sync_time:.3f} s "
+        f"({s.blocking_syncs} blocking syncs); launches {counts}")
+    if len(done) != len(prompts) or any(len(r.output) != 32 for r in done):
+        raise AssertionError(f"{tag}: not every request finished 32 tokens")
+    if s.dispatches_per_iter != 1.0 or s.syncs_per_iter != 1.0:
+        raise AssertionError(f"{tag}: not one dispatch and one sync per iter")
+    if eng.in_flight:
+        raise AssertionError(f"{tag}: {eng.in_flight} iterations in flight "
+                             "at exit")
+    if counts[kname] <= 0 or counts["swiglu"] <= 0:
+        raise AssertionError(f"{tag}: {kname} or swiglu never launched")
+    if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
+        raise AssertionError(f"{tag}: token id out of range")
+    return eng, {r.rid: r.output for r in done}, counts
+
+
+def agreement(tag: str, a: dict, b: dict, bound: bool = True) -> float:
+    """Log two runs' token agreement (``context_agreement``) and the share
+    of requests whose tokens are identical; fail under ``SERVE_AGREE_MIN``
+    at the positions whose earlier tokens agree when ``bound``."""
+    same_ctx, raw, first = context_agreement(a, b)
+    exact = float(np.mean([a[rid] == b[rid] for rid in a]))
+    log(f"{tag}: agreement {same_ctx:.4f} at the positions whose earlier "
+        f"tokens agree" + (f" (tol >= {SERVE_AGREE_MIN})" if bound
+                           else " (no bound)")
+        + f"; {raw:.4f} at all positions; requests token-identical "
+        f"{exact:.3f}; first differing position per request {first}")
+    if bound and same_ctx < SERVE_AGREE_MIN:
+        raise AssertionError(f"{tag}: tokens disagree")
+    return same_ctx
+
+
+def phase_async(torch, cfg, params, prompts, busy: dict) -> None:
+    """The serve phase's 8 requests at the default async depth (1) and at
+    depth 0, in turns (1, 0, 0, 1), each counted from 0 (``serve_run``):
+    the tokens agree, the ring is empty at exit, and each run prints its
+    blocking syncs per iteration and its wall split.  The depth-1 serve is
+    then profiled."""
+    runs = []
+    for depth in (1, 0, 0, 1):
+        eng, out, _ = serve_run(
+            torch, cfg, params, prompts, f"async depth {depth}",
+            "packed_attention", **({} if depth else dict(async_depth=0)))
+        if eng.async_depth != depth:
+            raise AssertionError(f"async: depth {eng.async_depth}, not "
+                                 f"{depth} (the default is 1)")
+        runs.append((depth, eng.stats, out))
+        del eng
+    for i in (1, 2, 3):
+        agreement(f"async: tokens depth {runs[0][0]} (run 1) vs depth "
+                  f"{runs[i][0]} (run {i + 1})", runs[0][2], runs[i][2])
+    walls = {d: [s.wall_time for dd, s, _ in runs if dd == d] for d in (0, 1)}
+    log(f"async: walls in turns (depth 1, 0, 0, 1): "
+        f"{[round(s.wall_time, 3) for _, s, _ in runs]} s; depth 0 / depth "
+        f"1 = {sum(walls[0]) / sum(walls[1]):.3f}; blocking syncs per "
+        f"iteration {[round(s.blocking_syncs_per_iter, 3) for _, s, _ in runs]}"
+        f"; step enqueue {[round(s.dispatch_time, 3) for _, s, _ in runs]} s;"
+        f" blocked {[round(s.blocked_sync_time, 3) for _, s, _ in runs]} s")
+    torch.cuda.empty_cache()
+    busy["async depth 1"] = phase_profile(
+        torch, cfg, params, prompts, runs[-1][1].wall_time,
+        tag="async depth 1 profile", async_depth=1)
+
+
+def motif_prompts(cfg, n: int = 8) -> list:
+    """Prompts that repeat a random motif of 3-8 tokens up to 64-320 tokens
+    (numpy seed 9): the n-gram drafter's home ground."""
+    rng = np.random.default_rng(9)
+    out = []
+    for _ in range(n):
+        motif = [int(x) for x in rng.integers(0, cfg.vocab_size,
+                                              int(rng.integers(3, 9)))]
+        length = int(rng.integers(64, 321))
+        out.append((motif * (length // len(motif) + 1))[:length])
+    return out
+
+
+def phase_spec(torch, cfg, params, prompts) -> dict:
+    """Greedy speculative decoding at spec_k = SPEC_K in the contiguous and
+    the prefix-caching native-dtype modes.  A replay drafter proposes the
+    tokens of a plain serve of the same requests at depth 0; it must be
+    accepted above SPEC_ACCEPT_MIN, need fewer iterations and agree with
+    them.  This runs in f32 weights (seed 0): with random bf16 weights the
+    logits' near-ties flip at 5-8% of the positions between launch shapes
+    (the legacy and shared-prefix agreements), and a replay drafter then
+    misses everything after its request's first flip.  The n-gram drafter
+    runs the bf16 model on motif prompts at the default depth and must
+    agree with a plain run of them and be accepted above
+    SPEC_NGRAM_ACCEPT_MIN.  Returns the spec stats by run."""
+    from repro_torch.models import model
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = model.init(cfg32, seed=0, device="cuda")
+    eng, plain32, _ = serve_run(torch, cfg32, params32, prompts,
+                                "spec plain (f32)", "packed_attention",
+                                async_depth=0)
+    plain_iters = eng.stats.iterations
+    del eng
+    motifs = motif_prompts(cfg)
+    _, plain_motif, _ = serve_run(torch, cfg, params, motifs,
+                                  "spec plain (bf16, motif prompts)",
+                                  "packed_attention")
+    stats = {}
+    for drafter in ("replay", "n-gram"):
+        for blocked in (False, True):
+            kname = "packed_attention_block" if blocked else "packed_attention"
+            mode = "prefix caching" if blocked else "contiguous"
+            kw = dict(spec_k=SPEC_K, prefix_caching=blocked,
+                      kv_block_size=KV_BLOCK)
+            if drafter == "replay":
+                tag = f"spec replay [f32, {mode}, spec_k {SPEC_K}]"
+                eng, out, _ = serve_run(torch, cfg32, params32, prompts, tag,
+                                        kname, drafter=ReplayDrafter(plain32),
+                                        async_depth=0, **kw)
+                want = plain32
+            else:
+                tag = f"spec n-gram [bf16, {mode}, spec_k {SPEC_K}]"
+                eng, out, _ = serve_run(torch, cfg, params, motifs, tag,
+                                        kname, **kw)
+                want = plain_motif
+            s = eng.stats
+            bound = SPEC_ACCEPT_MIN if drafter == "replay" \
+                else SPEC_NGRAM_ACCEPT_MIN
+            log(f"{tag}: {s.spec_verify_segments} verify segments, "
+                f"{s.spec_proposed_tokens} drafts, {s.spec_accepted_tokens} "
+                f"accepted = {s.spec_acceptance_rate:.3f} (tol > {bound}), "
+                f"{s.spec_accepted_per_verify:.3f} tokens per verify segment"
+                + (f"; {s.iterations} iterations vs the plain serve's "
+                   f"{plain_iters}" if drafter == "replay" else ""))
+            agreement(f"{tag}: tokens vs the plain run", out, want)
+            if s.spec_acceptance_rate <= bound or (
+                    drafter == "replay" and s.iterations >= plain_iters):
+                raise AssertionError(f"{tag}: acceptance "
+                                     f"{s.spec_acceptance_rate:.3f} or "
+                                     f"{s.iterations} iterations")
+            stats[tag] = (s.spec_acceptance_rate, s.spec_accepted_per_verify,
+                          s.iterations, s.wall_time)
+            del eng
+            torch.cuda.empty_cache()
+        if drafter == "replay":
+            del params32
+            torch.cuda.empty_cache()
+    return stats
+
+
+def phase_sampling(torch, cfg, params, prompts, plain: dict) -> None:
+    """Stochastic sampling (``SAMPLING``): the generator's bits on the card
+    equal the CPU's for a block of (rid, pos) rows over the whole vocab and
+    at top-k-like index sets; the sampling pass is timed at the serve's
+    shape; two serves with the same seed give identical tokens at depth 0,
+    and two at depth 1 (their agreement with each other and with the
+    greedy serve's tokens, ``plain``, is printed without a bound)."""
+    from repro_torch.serving import sampling
+    rid = torch.arange(8).repeat_interleave(16)
+    pos = torch.arange(100, 116).repeat(8)
+    keys = sampling.packed_keys(1234, rid, pos)
+    idx = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (128, 64)))
+    for what, index in ((f"{cfg.vocab_size} vocab indices",
+                         cfg.vocab_size), ("64 random indices", idx)):
+        cpu = sampling.random_bits(keys, index)
+        dev = sampling.random_bits(
+            keys.cuda(), index if isinstance(index, int) else index.cuda())
+        same = bool(torch.equal(dev.cpu(), cpu))
+        log(f"sampling: generator bits on the card vs the CPU, 128 (rid, "
+            f"pos) rows x {what}: {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise AssertionError("sampling: the card's bits differ from the "
+                                 "CPU's")
+    # no uniform floor over the whole vocab: index 0 outweighs each other
+    # index by e^30, so every row must draw it (noise that reached +inf at
+    # the top word would give ~V / 2^24 of the rows a uniform index)
+    floor_rows, chunk, strays, finite = 4096, 256, 0, True
+    for start in range(0, floor_rows, chunk):
+        r = torch.arange(start, start + chunk, device="cuda")
+        kk = sampling.packed_keys(7, r, torch.zeros_like(r))
+        finite &= bool(torch.isfinite(
+            sampling.gumbel(kk, cfg.vocab_size)).all())
+        lg = torch.full((chunk, cfg.vocab_size), -30.0, device="cuda")
+        lg[:, 0] = 0.0
+        strays += int((sampling.sample_tokens(lg, kk, 1.0) != 0).sum())
+    log(f"sampling: whole-vocab Gumbel noise over {floor_rows} rows x "
+        f"{cfg.vocab_size}: {'finite' if finite else 'NOT FINITE'}; rows "
+        f"that drew another index than the e^30-favoured one: {strays} "
+        f"(tol 0)")
+    if not finite or strays:
+        raise AssertionError("sampling: the whole-vocab draw has infinite "
+                             "noise or a uniform floor")
+    del lg, kk
+    torch.cuda.empty_cache()
+    # the sampling pass at the serve's shape: each slot's single sample
+    # point and (spec_k 0) no verify rows, 2 x 8 rows of bf16 logits
+    rows = 16
+    g = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((rows, cfg.vocab_size), generator=g,
+                         device="cuda").to(torch.bfloat16)
+    k = sampling.packed_keys(0, torch.arange(rows, device="cuda"),
+                             torch.full((rows,), 500, device="cuda"))
+    passes = {"greedy": lambda: sampling.greedy(logits),
+              "temperature 0.8 (Gumbel noise over the whole vocab)":
+                  lambda: sampling.sample_tokens(logits, k, 0.8),
+              "temperature 0.8, top_k 50":
+                  lambda: sampling.sample_tokens(logits, k, 0.8, 50)}
+    # a pass is ~400 small launches: the spin must outlast their enqueue
+    # for the events to time the device alone
+    timer = Timer(torch)
+    timer.SPIN_CYCLES = 40_000_000
+    times = {name: (timer(fn), host_us(torch, fn, n=10) / 1e3)
+             for name, fn in passes.items()}
+    del timer
+    torch.cuda.empty_cache()
+    log(f"sampling: {rows} rows x {cfg.vocab_size} bf16 logits, device ms "
+        f"(median of 20, cold L2) / host ms to enqueue: "
+        + "; ".join(f"{name} {dev:.4f} / {host:.3f}"
+                    for name, (dev, host) in times.items()))
+    # harvesting off: the depth-1 schedule (and with it the launch shapes
+    # and their bf16 sums) then does not depend on when payloads land
+    outs = {}
+    for depth in (0, 1):
+        for rep in (0, 1):
+            _, outs[(depth, rep)], _ = serve_run(
+                torch, cfg, params, prompts,
+                f"sampling {SAMPLING} depth {depth} run {rep}",
+                "packed_attention", async_depth=depth, async_harvest=False,
+                **SAMPLING)
+        if outs[(depth, 0)] != outs[(depth, 1)]:
+            agreement(f"sampling depth {depth}: run 0 vs run 1",
+                      outs[(depth, 0)], outs[(depth, 1)], bound=False)
+            raise AssertionError(f"sampling: two runs at depth {depth} with "
+                                 "the same seed differ")
+        log(f"sampling depth {depth}: two runs with the same seed give "
+            "identical tokens")
+    agreement("sampling: tokens depth 0 vs depth 1", outs[(0, 0)],
+              outs[(1, 0)], bound=False)
+    agreement("sampling: tokens vs the greedy serve's", outs[(0, 0)], plain,
+              bound=False)
+
+
 def hybrid_config():
     """Jamba-1.5-Large at full width, cut to what one card holds without
     the MoE FFN: one 8-layer pattern group and a dense SwiGLU FFN in every
@@ -1734,6 +2042,12 @@ def main() -> int:
     for kname, n in phase_shared_prefix(torch, cfg, params, busy).items():
         launches.setdefault(kname, n)
     lap("shared-prefix")
+    phase_async(torch, cfg, params, prompts, busy)
+    lap("async")
+    phase_spec(torch, cfg, params, prompts)
+    lap("spec")
+    phase_sampling(torch, cfg, params, prompts, packed)
+    lap("sampling")
     # the hybrid's legacy run gives the scan's count
     del params
     torch.cuda.empty_cache()

@@ -1,22 +1,25 @@
 """Engine configuration: the port's ``EngineConfig``, with the same fields
 as ``repro.serving.config.EngineConfig``.
 
-The port runs greedy serving at tp=1 and ``async_depth=0`` on two steps:
-the packed step, with native or int8 KV (``kv_dtype``) and with or without
-prefix caching, and the legacy step (``step_mode="legacy"``), with
-incremental or recompute prefill (``prefill_mode``; recompute implies the
-legacy step, as in JAX).  The combinations the JAX config refuses raise
-``ValueError``; every value the port does not implement yet raises
-``NotImplementedError`` naming the ROADMAP item that brings it, so a
-configuration never silently runs something other than what it says.
-``async_depth=None`` resolves to 0 here (the JAX engine's packed default is
-1; ROADMAP A4 restores it).
+The port serves at tp=1 on two steps: the packed step, with native or
+int8 KV (``kv_dtype``), with or without prefix caching, with the async
+pipeline (``async_depth``, DESIGN.md §10), speculative decoding
+(``spec_k``, ``drafter``, §13) and stochastic sampling (``temperature``,
+``top_k``); and the legacy step (``step_mode="legacy"``), with incremental
+or recompute prefill (``prefill_mode``; recompute implies the legacy step,
+as in JAX), greedy and lock-step.  What the JAX config refuses raises
+``ValueError``; tensor parallelism, which the port does not implement yet,
+raises ``NotImplementedError`` naming the ROADMAP item that brings it, so
+a configuration never silently runs something other than what it says.
+``async_depth=None`` resolves as in JAX: 1 on the packed step, 0 on the
+legacy step.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+from repro_torch.serving.draft import drafter_names
 from repro_torch.serving.scheduler import default_kv_buckets
 
 
@@ -45,10 +48,10 @@ class EngineConfig:
     # ---- block-table KV (DESIGN.md §12) and int8 KV (§15) -------------------
     prefix_caching: bool = False
     kv_dtype: str = "bf16"
-    # ---- features of later slices -------------------------------------------
+    # ---- speculative decoding (DESIGN.md §13) and sampling ------------------
     spec_k: int = 0
-    drafter: Optional[str] = None
-    temperature: float = 0.0
+    drafter: Optional[str] = None    # None -> "ngram" when spec_k > 0
+    temperature: float = 0.0         # 0: greedy (packed step only samples)
     top_k: Optional[int] = None
     attn_fast: Optional[bool] = None
     attn_stream: Optional[bool] = None
@@ -86,12 +89,15 @@ class EngineConfig:
             raise NotImplementedError("tensor parallelism is ROADMAP A11")
         if self.kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype {self.kv_dtype!r} (bf16 or int8)")
-        if self.spec_k > 0 or self.drafter is not None:
-            raise NotImplementedError("speculative decoding is ROADMAP A8")
-        if self.temperature > 0 or self.top_k is not None:
-            raise NotImplementedError("stochastic sampling is ROADMAP A8")
-        if self.async_depth is not None and self.async_depth >= 1:
-            raise NotImplementedError("the async pipeline is ROADMAP A4")
+        if self.spec_k >= self.max_len:
+            raise ValueError(f"spec_k {self.spec_k} >= max_len {self.max_len}")
+        if self.drafter is not None and self.drafter not in drafter_names():
+            raise ValueError(f"drafter {self.drafter!r}: one of "
+                             f"{drafter_names()}")
+        if self.top_k is not None and (self.top_k < 1
+                                       or self.temperature <= 0):
+            raise ValueError(f"top_k {self.top_k} needs top_k >= 1 and "
+                             f"temperature > 0 (temperature 0 is greedy)")
         if self.attn_fast or self.attn_stream:
             raise ValueError("attn_fast/attn_stream select variants of the "
                              "JAX XLA attention; the port always runs its "
@@ -114,7 +120,19 @@ class EngineConfig:
 
     @property
     def resolved_async_depth(self) -> int:
-        return 0
+        """``async_depth`` if given, else the JAX rule: the pipeline is the
+        packed step's default mode; the legacy step has no deferred sync."""
+        if self.async_depth is not None:
+            return int(self.async_depth)
+        return 1 if self.resolved_step_mode == "packed" else 0
+
+    @property
+    def resolved_drafter(self) -> Optional[str]:
+        """The drafter to build: the given name, else the n-gram drafter
+        whenever speculation is on; None with speculation off."""
+        if self.spec_k <= 0:
+            return None
+        return self.drafter if self.drafter is not None else "ngram"
 
     def resolved_kv_buckets(self) -> tuple[int, ...]:
         """The KV-length bucket grid (DESIGN.md §9), ascending, topped by

@@ -1,9 +1,10 @@
-"""Serving engine (port of ``repro.serving.engine.ServeEngine`` for greedy
-serving at tp=1 and ``async_depth=0``): the token-packed single-dispatch
-step in all four KV modes — contiguous or block-table caches with prefix
-caching (DESIGN.md §12), each with native or int8 KV (§15) — and the legacy
-step kept for A/B (``step_mode="legacy"``, with incremental or recompute
-prefill).
+"""Serving engine (port of ``repro.serving.engine.ServeEngine`` at tp=1):
+the token-packed single-dispatch step in all four KV modes — contiguous or
+block-table caches with prefix caching (DESIGN.md §12), each with native or
+int8 KV (§15) — with the async pipeline (§10), speculative decoding (§13)
+and greedy or stochastic sampling; and the legacy step kept for A/B
+(``step_mode="legacy"``, with incremental or recompute prefill; greedy and
+lock-step, as in JAX).
 
 **Legacy step.**  One iteration = a decode dispatch over all slots at
 static shape (``model.forward_decode``; an inactive slot writes a garbage
@@ -24,32 +25,49 @@ chunk writes its new state back into the slot's views; recompute writes
 the whole state of the prefix; a slot taken by a new request starts from
 zeros (the legacy reset, or, on the packed step, a masked select on the
 device before the forward).  Prefix caching and speculative decoding
-refuse models with recurrent layers, as in JAX: their state can neither
-be shared by blocks nor rolled back.
+refuse models with recurrent layers (ValueError), as in JAX: their state
+can neither be shared by blocks nor rolled back.
 
 **Packed step.**  One iteration = one call of the packed step: the decode
-tokens (one per decoding slot) and every scheduled prefill chunk are packed
-into a single ``(1, T)`` stream with per-token ``(slot, position)``
-metadata, run through ``model.forward_packed`` (K/V scattered at each
-segment's offset, attention masked to each token's own slot), sampled
-greedily on the device, and the samples scattered into a device-resident
-per-slot ``last_token`` buffer from which the next iteration's decode
-inputs are gathered on the device.  The host metadata (with, under prefix
-caching, each token's physical cache row, the per-slot block tables and the
-rows of the iteration's copy-on-write block copies) goes up in one
-host-to-device copy, and the only device-to-host transfer is the
-``last_token`` payload, once per iteration (``EngineStats.model_dispatches``
-/ ``host_syncs``).  ``T`` is bucketed to the scheduler's discrete sizes and
-attention sweeps only the iteration's KV-length bucket (DESIGN.md §9).
+tokens (one per decoding slot, or with ``spec_k > 0`` a ``spec_k + 1``
+token verify segment: the fed token, then the drafter's proposals) and
+every scheduled prefill chunk are packed into a single ``(1, T)`` stream
+with per-token ``(slot, position)`` metadata, run through
+``model.forward_packed`` (K/V scattered at each segment's offset,
+attention masked to each token's own slot) and sampled on the device.  The
+samples land in a device-resident per-slot token ring (``last_token``,
+``(max_slots, spec_k + 1)``, with ``accept_len``) from which the next
+iteration's decode inputs are gathered on the device.  A verify segment's
+true positions come from ``cache_len`` on the device (the host launches
+with the worst case); its drafts are accepted by prefix match against the
+target's samples, and ``cache_len`` advances by the accepted count only
+(the rollback: rejected rows are overwritten by the next launch before
+anything attends them).  Sampling is greedy at ``temperature == 0``, else
+a Gumbel-max draw keyed on ``(seed, rid, pos, vocab index)``
+(``sampling.py``), taken only at the stream's sample points.
+
+The host metadata (with, under prefix caching, each token's physical cache
+row, the per-slot block tables and the rows of the iteration's
+copy-on-write block copies) goes up in one host-to-device copy from pinned
+memory of its own, and the one device-to-host transfer is the per-slot
+payload, ring ‖ accept_len (``EngineStats.model_dispatches`` /
+``host_syncs``).  That copy is enqueued at launch, behind the step, into
+pinned memory of its own with an event after it; ``async_depth=k`` keeps up
+to k launched iterations in a ring and retires (waits on the event,
+commits to the scheduler) the oldest beyond k, so the host plans and
+launches iteration i+1 while the device runs i.  A retire counts as
+blocking when its event had not been reached.  ``T`` is bucketed to the
+scheduler's discrete sizes and attention sweeps only the iteration's
+KV-length bucket (DESIGN.md §9).
 
 Both steps run eagerly; capturing the packed step in a CUDA graph per (T
-bucket, kv bucket) is ROADMAP A3's remaining work, and the async pipeline
-(``async_depth >= 1``) is A4.
+bucket, kv bucket) is a speed follow-up (ROADMAP B, item 3).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -58,14 +76,17 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import model as model_lib
+from repro_torch.serving import draft as draft_lib
 from repro_torch.serving import sampling
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.kvcache import PagedKVManager
-from repro_torch.serving.request import Request
+from repro_torch.serving.request import Request, State
 from repro_torch.serving.scheduler import BatchPlan, GlobalBatchScheduler
 
-# rows of the per-iteration host metadata block (one H2D copy)
-_META_ROWS = ("tokens", "slot", "pos", "active", "from_last", "sample_slot")
+# rows of the per-iteration host metadata block (one H2D copy); ``rid`` is
+# the sampler's draw identity (unread under greedy)
+_META_ROWS = ("tokens", "slot", "pos", "active", "from_last", "sample_slot",
+              "rid")
 
 
 def kv_bytes_per_token(cfg: ModelConfig,
@@ -79,6 +100,12 @@ def kv_bytes_per_token(cfg: ModelConfig,
     return sum(int(np.prod(leaf.shape[2:])) * leaf.element_size()
                for spec, layer in zip(cfg.layer_specs(), cache)
                if spec.mixer == ATTN for leaf in layer.values())
+
+
+def _take(src: torch.Tensor, idx: torch.Tensor, fill: int) -> torch.Tensor:
+    """``src[idx]`` with ``fill`` where ``idx == len(src)`` (JAX's
+    ``mode="fill"``)."""
+    return torch.cat([src, src.new_full((1,), fill)])[idx.long()]
 
 
 @dataclasses.dataclass
@@ -102,6 +129,11 @@ class EngineStats:
     kv_bucket_hist: dict[int, int] = dataclasses.field(default_factory=dict)
     # sum of launch_tokens x kv_bucket: the attention score work launched
     packed_attn_kv_rows: int = 0
+    # speculative decoding (§13), counted at retire (the device's truth):
+    # drafts launched, drafts accepted, verify segments retired
+    spec_proposed_tokens: int = 0
+    spec_accepted_tokens: int = 0
+    spec_verify_segments: int = 0
     # cache bytes the int8 rows did not write vs the native dtype (§15)
     kv_quant_bytes_saved: int = 0
 
@@ -126,8 +158,30 @@ class EngineStats:
     def syncs_per_iter(self) -> float:
         return self.host_syncs / self.iterations if self.iterations else 0.0
 
+    @property
+    def blocking_syncs_per_iter(self) -> float:
+        """Below 1 when some payloads were already on the host when the
+        engine retired them: the pipeline hid the sync."""
+        return self.blocking_syncs / self.iterations if self.iterations \
+            else 0.0
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Share of the launched drafts that the target model accepted."""
+        return self.spec_accepted_tokens / self.spec_proposed_tokens \
+            if self.spec_proposed_tokens else 0.0
+
+    @property
+    def spec_accepted_per_verify(self) -> float:
+        """Committed tokens per verify segment (its base sample plus the
+        accepted drafts)."""
+        return (self.spec_accepted_tokens + self.spec_verify_segments) \
+            / self.spec_verify_segments if self.spec_verify_segments else 0.0
+
     _DERIVED = ("total_tokens", "throughput", "prefill_expansion",
-                "dispatches_per_iter", "syncs_per_iter")
+                "dispatches_per_iter", "syncs_per_iter",
+                "blocking_syncs_per_iter", "spec_acceptance_rate",
+                "spec_accepted_per_verify")
 
     def snapshot(self) -> dict:
         out = {f.name: getattr(self, f.name)
@@ -141,10 +195,13 @@ class EngineStats:
 
 @dataclasses.dataclass
 class _InFlight:
-    """One launched packed iteration, until its payload reaches the host."""
+    """One launched packed iteration, until it is retired: the host memory
+    its payload (ring ‖ accept_len, (max_slots, W + 1)) is copied into at
+    launch, and the event after that copy (None on the CPU)."""
     plan: BatchPlan
-    sample_at: list              # (rid, slot) pairs
-    payload: torch.Tensor        # last_token after the step, on the device
+    sample_at: list              # (rid, slot, kind); kind is "decode",
+    #                              "verify" or "prefill"
+    host: torch.Tensor
     done: Optional[torch.cuda.Event]
 
 
@@ -167,12 +224,14 @@ class ServeEngine:
         self.recurrent = any(spec.mixer != ATTN
                              for spec in cfg.layer_specs())
         if self.recurrent:
-            # as the JAX engine refuses it: recurrent state cannot be
-            # block-shared (speculative decoding, which JAX refuses too,
-            # is refused for every model by EngineConfig until ROADMAP A8)
+            # as the JAX engine refuses them: recurrent state can neither be
+            # block-shared nor rolled back over rejected drafts
             if config.prefix_caching:
                 raise ValueError("prefix caching (DESIGN.md §12) needs "
                                  "attention-only models")
+            if config.spec_k:
+                raise ValueError("speculative decoding (DESIGN.md §13) "
+                                 "needs attention-only models")
             if config.kv_dtype == "int8":
                 raise NotImplementedError(
                     "int8 KV on models with recurrent layers is ROADMAP A9")
@@ -182,6 +241,19 @@ class ServeEngine:
         self.step_mode = config.resolved_step_mode
         self.nano = config.nano
         self.kv_buckets = config.resolved_kv_buckets()
+        # the async pipeline (§10): up to async_depth launched iterations
+        # stay in flight; async_harvest also retires any whose payload has
+        # already landed
+        self.async_depth = config.resolved_async_depth
+        self.async_harvest = bool(config.async_harvest)
+        self._ring: deque[_InFlight] = deque()
+        # speculative decoding (§13) and the packed step's sampling
+        self.spec_k = int(config.spec_k)
+        self.drafter = (draft_lib.make_drafter(config.resolved_drafter)
+                        if self.spec_k else None)
+        self.temperature = float(config.temperature)
+        self.top_k = config.top_k
+        self.seed = int(config.seed)
 
         # KV storage (DESIGN.md §15): "bf16" keeps the model's dtype, "int8"
         # stores int8 K/V plus f32 per-(row, KV head) scales
@@ -213,7 +285,8 @@ class ServeEngine:
         self.scheduler = GlobalBatchScheduler(
             self.kv, discrete_sizes=config.discrete_sizes,
             max_active=config.max_slots, kv_buckets=self.kv_buckets,
-            max_request_len=self.max_len)
+            max_request_len=self.max_len, spec_k=self.spec_k,
+            drafter=self.drafter)
 
         dev = self.device
         self.cache = model_lib.init_cache(cfg, self.max_slots, self.max_len,
@@ -221,23 +294,39 @@ class ServeEngine:
                                           kv_dtype=self._cache_kv_dtype)
         self.cache_len = torch.zeros((self.max_slots,), dtype=torch.int32,
                                      device=dev)
-        # device-resident sampled-token feedback: the packed step scatters
-        # each sample point's token here and gathers the next iteration's
-        # decode inputs from it on the device
-        self.last_token = torch.zeros((self.max_slots,), dtype=torch.int32,
-                                      device=dev)
+        # device-resident sampled-token feedback, the per-slot token ring:
+        # a row holds the W = spec_k + 1 samples of the slot's last verify
+        # segment, of which the first accept_len were accepted (W = 1: the
+        # last sample).  The packed step gathers the next decode inputs
+        # from ring[slot, accept_len - 1] on the device
+        self.last_token = torch.zeros((self.max_slots, self.spec_k + 1),
+                                      dtype=torch.int32, device=dev)
+        self.accept_len = torch.ones((self.max_slots,), dtype=torch.int32,
+                                     device=dev)
         self.slot_free = list(range(self.max_slots))
         self.stats = EngineStats()
+        # the (T bucket, kv bucket) shapes the packed step was launched at:
+        # the keys of the JAX engine's jit cache
+        self.launch_shapes: set[tuple[int, int]] = set()
         # host mirror of each slot's context length: the packed stream's
-        # positions come from here without any device read
+        # positions come from here without any device read.  Under
+        # speculation it is an upper bound (each verify launch adds W), and
+        # retire resyncs it to the committed truth
         self._pos = np.zeros((self.max_slots,), np.int64)
 
     # ---- public API ----------------------------------------------------------
     def submit(self, req: Request) -> None:
-        # a slot holds max_len positions: never decode past the cache
-        req.max_new_tokens = min(req.max_new_tokens,
-                                 max(self.max_len - req.prompt_len, 0))
+        # a slot holds max_len positions: never decode past the cache, and
+        # leave spec_k rows for the drafts of a verify segment at the cap
+        req.max_new_tokens = min(
+            req.max_new_tokens,
+            max(self.max_len - req.prompt_len - self.spec_k, 0))
         self.scheduler.submit(req)
+
+    @property
+    def in_flight(self) -> int:
+        """Launched iterations not yet retired; 0 once drained."""
+        return len(self._ring)
 
     def run(self, max_iters: int = 10_000) -> list[Request]:
         done: list[Request] = []
@@ -247,19 +336,45 @@ class ServeEngine:
             plan = self.scheduler.plan()
             self.stats.host_time += time.perf_counter() - tp
             if plan is None:
+                if self._ring:
+                    # nothing plans until in-flight results land (every
+                    # request waits out its post-EOS window): retire the
+                    # oldest iteration and plan again with its commits
+                    done += self._retire_oldest()
+                    continue
                 break
             done += self.step(plan)
+        done += self.drain()
         self.stats.wall_time += time.perf_counter() - t0
         return done
 
+    def drain(self, max_retire: Optional[int] = None) -> list[Request]:
+        """Retire in-flight iterations, oldest first: all of them (the exit
+        barrier that ``run`` ends with, and that a caller looping over
+        ``step`` itself must call after its loop), or at most ``max_retire``."""
+        done: list[Request] = []
+        retired = 0
+        while self._ring and (max_retire is None or retired < max_retire):
+            done += self._retire_oldest()
+            retired += 1
+        return done
+
     def step(self, plan: BatchPlan) -> list[Request]:
-        """Run one iteration: launch the packed step and retire it
-        (``async_depth=0``), or run the legacy step and commit it."""
+        """Run one iteration.  Packed: launch it, retire what has already
+        landed (``async_harvest``), then retire the oldest until at most
+        ``async_depth`` remain in flight.  Legacy: run it and commit it."""
         self.stats.iterations += 1
         self.stats.dense_batch_hist[plan.dense_batch] = \
             self.stats.dense_batch_hist.get(plan.dense_batch, 0) + 1
         if self.step_mode == "packed":
-            return self._retire_oldest(self._launch_packed(plan))
+            self._ring.append(self._launch_packed(plan))
+            finished: list[Request] = []
+            if self.async_harvest:
+                while self._ring and self._ready(self._ring[0].done):
+                    finished += self._retire_oldest()
+            while len(self._ring) > self.async_depth:
+                finished += self._retire_oldest()
+            return finished
         self.scheduler.mark_launched(plan)
         sampled = self._step_legacy(plan)
         now = time.perf_counter()
@@ -269,36 +384,89 @@ class ServeEngine:
         self.stats.host_time += time.perf_counter() - now
         return finished
 
-    # ---- packed iteration: one dispatch, one host sync -----------------------
-    def _retire_oldest(self, inf: _InFlight) -> list[Request]:
-        """Copy the iteration's payload to the host, commit its samples to
-        the scheduler and finalize what finished."""
-        payload = self._fetch(inf.payload, inf.done)
+    # ---- packed iteration: one dispatch, one (deferred) host sync ------------
+    def _retire_oldest(self) -> list[Request]:
+        """Wait for the oldest in-flight iteration's payload, commit its
+        samples to the scheduler and finalize what finished.  A verify
+        slot's row is its ring ‖ accept_len: the first ``accept_len``
+        entries are the committed run; other sample points read column 0."""
+        inf = self._ring.popleft()
+        payload = self._fetch(inf.host, inf.done)      # (max_slots, W + 1)
         t1 = time.perf_counter()
-        sampled = {rid: int(payload[s]) for rid, s in inf.sample_at}
+        w = self.spec_k + 1
+        sampled: dict = {}
+        for rid, s, kind in inf.sample_at:
+            if kind == "verify":
+                n_acc = int(min(max(payload[s, w], 1), w))
+                sampled[rid] = [int(x) for x in payload[s, :n_acc]]
+                self.stats.spec_verify_segments += 1
+                self.stats.spec_proposed_tokens += self.spec_k
+                self.stats.spec_accepted_tokens += n_acc - 1
+                # launch counted the base sample; add the accepted drafts
+                self.stats.decode_tokens += n_acc - 1
+            else:
+                sampled[rid] = int(payload[s, 0])
         finished = self.scheduler.commit(inf.plan, sampled, time.perf_counter())
         for r in finished:
             self._finalize(r)
+        if self.spec_k:
+            # resync the host's position bound to the committed truth: the
+            # device's cache_len after this commit, plus the worst case of
+            # every launch still in flight
+            for r in inf.plan.decode:
+                if r.slot >= 0 and r.state not in (State.FINISHED,
+                                                   State.DISCARDED):
+                    self._pos[r.slot] = r.total_tokens - 1 + r.inflight
         self.stats.host_time += time.perf_counter() - t1
         return finished
 
-    def _fetch(self, payload: torch.Tensor,
+    def _stage(self, result: torch.Tensor) \
+            -> tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        """Enqueue the device-to-host copy of a step's result now, in stream
+        order behind the step, into host memory of its own (pinned, the copy
+        non-blocking, and an event recorded after it, on the card; a plain
+        copy on the CPU)."""
+        cuda = self.device.type == "cuda"
+        host = torch.empty(result.shape, dtype=result.dtype, pin_memory=cuda)
+        host.copy_(result, non_blocking=cuda)
+        if not cuda:
+            return host, None
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _ready(done: Optional[torch.cuda.Event]) -> bool:
+        return done is None or done.query()
+
+    def _fetch(self, host: torch.Tensor,
                done: Optional[torch.cuda.Event]) -> np.ndarray:
-        """Device-to-host copy of a step's result, counting the sync, the
-        time spent waiting and whether it had to wait (``done`` not yet
-        reached)."""
+        """Wait for a staged copy, counting the sync, the time spent waiting
+        and whether it had to wait (``done`` not yet reached)."""
         t0 = time.perf_counter()
-        ready = done is None or done.query()
-        out = payload.cpu().numpy()
+        ready = self._ready(done)
+        if done is not None:
+            done.synchronize()
+        out = host.numpy()
         self.stats.blocked_sync_time += time.perf_counter() - t0
         self.stats.host_syncs += 1
         if not ready:
             self.stats.blocking_syncs += 1
         return out
 
+    def _upload(self, host_block: np.ndarray) -> torch.Tensor:
+        """The iteration's one host-to-device copy.  On the card it goes from
+        pinned memory of its own, without blocking: the host may build the
+        next iteration's block before this copy has run."""
+        block = torch.from_numpy(host_block)
+        if self.device.type != "cuda":
+            return block.to(self.device)
+        return block.pin_memory().to(self.device, non_blocking=True)
+
     def _launch_packed(self, plan: BatchPlan) -> _InFlight:
         t_host = time.perf_counter()
         packed = self.scheduler.pack(plan, nano=self.nano)
+        w = self.spec_k + 1
         reset = np.zeros((self.max_slots,), np.int32)
         for seg in packed.segments:
             r = seg.req
@@ -312,24 +480,31 @@ class ServeEngine:
         bs = self.kv.page_size
         oob = self.max_slots * self.max_len
         if self.prefix_caching:
-            # a decode token writes row _pos[slot]: grow its block table and
-            # make the written block private now, launch-side, so the write
-            # target exists before the commit's ``extend`` (DESIGN.md §12)
+            # decode writes land at _pos[slot] .. _pos[slot] + W - 1 (the
+            # worst case under speculation): grow the block table and make
+            # the written blocks private now, launch-side, so the write
+            # targets exist before the commit's ``extend`` (DESIGN.md §12)
             for seg in packed.segments:
                 if seg.is_decode:
-                    self.kv.ensure(seg.req.rid, int(self._pos[seg.req.slot]) + 1)
+                    self.kv.ensure(seg.req.rid,
+                                   int(self._pos[seg.req.slot]) + w)
 
         t_total = packed.launch_tokens
         meta = np.zeros((len(_META_ROWS), t_total), np.int32)
-        tokens, slot, pos, active, from_last, sample_slot = meta
-        # non-sample positions scatter out of bounds -> dropped
+        tokens, slot, pos, active, from_last, sample_slot, rid = meta
+        # non-sample positions scatter out of bounds -> dropped; verify
+        # segments are not sample points: their rows land through the
+        # acceptance path
         sample_slot[:] = self.max_slots
+        # per-slot stream positions of its verify segment (§13); t_total
+        # marks a slot without one
+        verify_idx = np.full((self.max_slots, w), t_total, np.int32)
         # block-table operands (prefix mode): each token's flat cache row
-        # (padding and uncovered rows: the out-of-bounds N·S) and the
-        # per-slot tables
+        # (padding, uncovered rows and verify segments, whose rows the
+        # device computes: the out-of-bounds N·S) and the per-slot tables
         token_dst = np.full((t_total,), oob, np.int32)
         tables = np.zeros((self.max_slots, self._nb_cols), np.int32)
-        sample_at: list[tuple[int, int]] = []
+        sample_at: list[tuple[int, int, str]] = []
         t = 0
         for seg in packed.segments:
             r = seg.req
@@ -340,18 +515,25 @@ class ServeEngine:
                 # max_len: only the addressable prefix is gathered
                 nb = min(len(tbl), self._nb_cols)
                 tables[r.slot, :nb] = tbl[:nb]
+            rid[t:t + seg.length] = r.rid & 0x7FFFFFFF
             if seg.is_decode:
-                # the token itself comes from last_token on the device
+                # the first token comes from the ring on the device; the
+                # positions are the host's bound (the device's are exact)
                 from_last[t] = 1
-                slot[t] = r.slot
-                p = self._pos[r.slot]
-                pos[t] = p
-                active[t] = 1
-                sample_slot[t] = r.slot
-                sample_at.append((r.rid, r.slot))
-                if tbl is not None and p // bs < len(tbl):
-                    token_dst[t] = tbl[p // bs] * bs + p % bs
-                t += 1
+                slot[t:t + w] = r.slot
+                p = int(self._pos[r.slot])
+                pos[t:t + w] = p + np.arange(w)
+                active[t:t + w] = 1
+                if self.spec_k:
+                    tokens[t + 1:t + w] = seg.draft
+                    verify_idx[r.slot] = np.arange(t, t + w)
+                    sample_at.append((r.rid, r.slot, "verify"))
+                else:
+                    sample_slot[t] = r.slot
+                    sample_at.append((r.rid, r.slot, "decode"))
+                    if tbl is not None and p // bs < len(tbl):
+                        token_dst[t] = tbl[p // bs] * bs + p % bs
+                t += w
             else:
                 ln = seg.length
                 tokens[t:t + ln] = r.prompt[seg.offset:seg.offset + ln]
@@ -366,11 +548,12 @@ class ServeEngine:
                         + qs % bs, oob)
                 if seg.offset + ln == r.prompt_len:
                     sample_slot[t + ln - 1] = r.slot
-                    sample_at.append((r.rid, r.slot))
+                    sample_at.append((r.rid, r.slot, "prefill"))
                 t += ln
         assert t == packed.tokens, (t, packed.tokens)
 
-        # every attended row must sit below the iteration's KV bucket
+        # every attended row must sit below the iteration's KV bucket (the
+        # host positions are the worst case, so the check is sufficient)
         kv_bucket = packed.kv_bucket if packed.kv_bucket is not None \
             else self.max_len
         act = active.astype(bool)
@@ -379,18 +562,23 @@ class ServeEngine:
         self.stats.kv_bucket_hist[kv_bucket] = \
             self.stats.kv_bucket_hist.get(kv_bucket, 0) + 1
         self.stats.packed_attn_kv_rows += packed.launch_tokens * kv_bucket
+        self.launch_shapes.add((t_total, kv_bucket))
 
+        # launch-side bookkeeping before the dispatch: the next plan may be
+        # formed while this iteration is still on the device (§10)
         self.scheduler.mark_launched(plan)
         n_decode = 0
         for seg in packed.segments:
             if seg.is_decode:
-                self._pos[seg.req.slot] += 1
+                self._pos[seg.req.slot] += w
                 n_decode += 1
             else:
                 self._pos[seg.req.slot] = seg.offset + seg.length
+        # the base sample of each decode or verify segment; accepted drafts
+        # are added at retire
         self.stats.decode_tokens += n_decode
-        self.stats.prefill_tokens += packed.tokens - n_decode
-        self.stats.prefill_model_tokens += packed.tokens - n_decode
+        self.stats.prefill_tokens += packed.tokens - n_decode * w
+        self.stats.prefill_model_tokens += packed.tokens - n_decode * w
         self.stats.packed_pad_tokens += packed.padding
         if self._cache_kv_dtype is not None:
             # every real token scatters one quantized row per layer
@@ -398,6 +586,8 @@ class ServeEngine:
                 (self._kv_bytes_native - self.kv.bytes_per_token)
 
         parts = [meta.reshape(-1), reset]
+        if self.spec_k:
+            parts.append(verify_idx.reshape(-1))
         n_copy_rows = 0
         if self.prefix_caching:
             # queued copy-on-write block copies run on the device before the
@@ -411,33 +601,41 @@ class ServeEngine:
         host_block = np.concatenate(parts)
         t_disp = time.perf_counter()
         self.stats.host_time += t_disp - t_host
-        payload = self._packed_core(host_block, t_total, kv_bucket,
-                                    n_copy_rows)
-        done = self._launched()
+        host, done = self._stage(self._packed_core(host_block, t_total,
+                                                   kv_bucket, n_copy_rows))
         self.stats.dispatch_time += time.perf_counter() - t_disp
         self.stats.model_dispatches += 1
-        return _InFlight(plan=plan, sample_at=sample_at, payload=payload,
+        return _InFlight(plan=plan, sample_at=sample_at, host=host,
                          done=done)
 
     def _packed_core(self, host_block: np.ndarray, t_total: int,
                      kv_bucket: int, n_copy_rows: int) -> torch.Tensor:
         """The whole iteration on the device: apply the queued block copies
-        (prefix mode), substitute the decode placeholders from
-        ``last_token``, run the packed forward, sample greedily, scatter
-        the samples into ``last_token`` and advance ``cache_len``.  Returns
-        the new ``last_token`` (the payload)."""
-        block = torch.from_numpy(host_block).to(self.device)
+        (prefix mode), reset reused slots' recurrent state, put the verify
+        segments at their true positions (``cache_len + j``; under prefix
+        caching their write rows too, through the block tables), substitute
+        the decode placeholders from the ring, run the packed forward,
+        sample, accept each verify segment's longest matching draft prefix,
+        advance ``cache_len`` (verify slots by the accepted count only: the
+        rollback) and write the samples into the ring.  Returns a new
+        payload tensor, ring ‖ accept_len ``(max_slots, W + 1)``."""
+        block = self._upload(host_block)
+        n, w = self.max_slots, self.spec_k + 1
         n_meta = len(_META_ROWS) * t_total
-        tokens, slot, pos, active, from_last, sample_slot = \
+        tokens, slot, pos, active, from_last, sample_slot, rid = \
             block[:n_meta].view(len(_META_ROWS), t_total)
-        at = n_meta + self.max_slots
+        at = n_meta + n
         reset = block[n_meta:at].bool()
+        verify_idx = None
+        if self.spec_k:
+            verify_idx = block[at:at + n * w].view(n, w)
+            at += n * w
         token_dst = block_tables = None
         if self.prefix_caching:
-            n_tbl = self.max_slots * self._nb_cols
+            n_tbl = n * self._nb_cols
             token_dst = block[at:at + t_total]
             block_tables = block[at + t_total:at + t_total + n_tbl] \
-                .view(self.max_slots, self._nb_cols)
+                .view(n, self._nb_cols)
             at += t_total + n_tbl
             if n_copy_rows:
                 src, dst = block[at:at + 2 * n_copy_rows].long() \
@@ -446,20 +644,88 @@ class ServeEngine:
         active = active.bool()
         if self.recurrent:
             self._reset_recurrent(reset)
+        if self.spec_k:
+            vflat = verify_idx.reshape(-1)
+            vpos = self.cache_len[:, None] + torch.arange(
+                w, dtype=torch.int32, device=self.device)
+            pos = sampling.scatter_last(pos, vflat, vpos.reshape(-1))
+            is_verify = sampling.scatter_last(
+                torch.zeros_like(active), vflat,
+                torch.ones_like(vflat, dtype=torch.bool))
+            verify_on = verify_idx[:, 0] < t_total
         wpos = torch.where(active, pos, self.max_len)
         toks = sampling.substitute_last(tokens[None], self.last_token, slot,
-                                        from_last.bool())
+                                        from_last.bool(),
+                                        accept_len=self.accept_len)
+        if self.prefix_caching and self.spec_k:
+            # verify writes follow the device's positions through the
+            # slot's block table (the host left them out of bounds)
+            bs = self.kv.page_size
+            col = torch.clamp(pos // bs, max=self._nb_cols - 1).long()
+            vdst = block_tables[slot.long(), col] * bs + pos % bs
+            token_dst = torch.where(is_verify & active, vdst, token_dst)
         logits, self.cache = model_lib.forward_packed(
             self.cfg, self.params, toks, self.cache, slot, pos, wpos, active,
             kv_bucket=kv_bucket, token_dst=token_dst,
             block_tables=block_tables)
-        next_tok = sampling.greedy(logits[0])
+        if self.temperature > 0:
+            next_tok = self._sample(logits[0], pos, rid, sample_slot,
+                                    verify_idx)
+        else:
+            next_tok = sampling.greedy(logits[0])
         new_len = torch.where(reset, 0, self.cache_len)
-        self.cache_len = new_len.scatter_reduce(
-            0, slot.long(), torch.where(active, pos + 1, 0), reduce="amax")
-        self.last_token = sampling.scatter_last(self.last_token, sample_slot,
-                                                next_tok)
-        return self.last_token
+        ring, n_acc = self.last_token, self.accept_len
+        grow = active
+        if self.spec_k:
+            # per verify slot: its W inputs and W target samples (the fill
+            # values never match on slots without a segment)
+            seg_in = _take(toks[0], verify_idx, -1)
+            seg_out = _take(next_tok, verify_idx, -2)
+            # draft j is accepted iff it equals target sample j - 1; the
+            # accepted run is the longest matching prefix
+            match = (seg_in[:, 1:] == seg_out[:, :-1]).to(torch.int32)
+            acc = torch.cumprod(match, dim=1, dtype=torch.int32) \
+                .sum(dim=1, dtype=torch.int32)
+            n_acc = torch.where(verify_on, acc + 1, n_acc)
+            ring = torch.where(verify_on[:, None], seg_out, ring)
+            grow = active & ~is_verify
+        new_len = new_len.scatter_reduce(
+            0, slot.long(), torch.where(grow, pos + 1, 0), reduce="amax")
+        if self.spec_k:
+            new_len = torch.where(verify_on, self.cache_len + acc + 1,
+                                  new_len)
+        # single-sample points (prefill-final; every decode at spec_k 0)
+        # write ring column 0 with accept_len 1
+        ring = sampling.scatter_last(ring, sample_slot, next_tok)
+        n_acc = sampling.scatter_last(n_acc, sample_slot,
+                                      torch.ones_like(next_tok))
+        self.cache_len, self.last_token, self.accept_len = new_len, ring, n_acc
+        return torch.cat([ring, n_acc[:, None]], dim=1)
+
+    def _sample(self, logits: torch.Tensor, pos: torch.Tensor,
+                rid: torch.Tensor, sample_slot: torch.Tensor,
+                verify_idx: Optional[torch.Tensor]) -> torch.Tensor:
+        """Stochastic next tokens of the stream (T,), drawn only at its
+        sample points: each slot's single sample point and every verify
+        position, a fixed ``max_slots × (spec_k + 2)`` rows found on the
+        device (the stream's length T stands for "none" and is dropped).
+        Every other row is 0 and never read."""
+        t, n = logits.shape[0], self.max_slots
+        ss = sample_slot.long()
+        ss = torch.where((ss >= 0) & (ss < n), ss, n)
+        single = torch.full((n + 1,), t, dtype=torch.int64,
+                            device=self.device)
+        single.index_copy_(0, ss, torch.arange(t, device=self.device))
+        rows = single[:n]
+        if verify_idx is not None:
+            rows = torch.cat([verify_idx.reshape(-1).long(), rows])
+        at = rows.clamp(max=t - 1)
+        keys = sampling.packed_keys(self.seed, rid[at], pos[at])
+        drawn = sampling.sample_tokens(logits[at], keys, self.temperature,
+                                       self.top_k)
+        out = torch.zeros((t + 1,), dtype=torch.int32, device=self.device)
+        out.index_copy_(0, rows, drawn)
+        return out[:t]
 
     def _reset_recurrent(self, reset: torch.Tensor) -> None:
         """Zero the recurrent state of the slots in ``reset`` (a reused slot
@@ -472,14 +738,6 @@ class ServeEngine:
                 for leaf in layer.values():
                     m = reset.view(-1, *(1,) * (leaf.dim() - 1))
                     leaf.masked_fill_(m, 0)
-
-    def _launched(self) -> Optional[torch.cuda.Event]:
-        """An event after the work enqueued so far (None on the CPU)."""
-        if self.device.type != "cuda":
-            return None
-        done = torch.cuda.Event()
-        done.record()
-        return done
 
     # ---- legacy iteration: decode dispatch + one dispatch per chunk ----------
     def _step_legacy(self, plan: BatchPlan) -> dict[int, int]:
@@ -508,11 +766,11 @@ class ServeEngine:
                         m = act.view(-1, *(1,) * (leaf.dim() - 1))
                         leaf.copy_(torch.where(m, new[name], leaf))
             next_tok = sampling.greedy(logits)
-            done = self._launched()
+            staged = self._stage(next_tok)
             self.stats.dispatch_time += time.perf_counter() - t_disp
             self.stats.model_dispatches += 1
             self.cache_len = self.cache_len + block[1]
-            nt = self._fetch(next_tok, done)
+            nt = self._fetch(*staged)
             for r in decode_reqs:
                 sampled[r.rid] = int(nt[r.slot])
                 self._pos[r.slot] += 1
@@ -557,11 +815,11 @@ class ServeEngine:
                                             block[None, :length], sub,
                                             block[length:])
         next_tok = sampling.greedy(logits[:, -1])
-        done = self._launched()
+        staged = self._stage(next_tok)
         self.stats.dispatch_time += time.perf_counter() - t_disp
         self.stats.model_dispatches += 1
         self.cache_len[r.slot] = offset + length
-        return int(self._fetch(next_tok, done)[0])
+        return int(self._fetch(*staged)[0])
 
     def _prefill_to(self, r: Request, upto: int) -> int:
         """Recompute path (``prefill_mode="recompute"``, kept for A/B):
@@ -573,12 +831,12 @@ class ServeEngine:
         logits, _aux, states = model_lib.forward_full(
             self.cfg, self.params, toks, return_states=True)
         next_tok = sampling.greedy(logits[:, -1])
-        done = self._launched()
+        staged = self._stage(next_tok)
         self.stats.dispatch_time += time.perf_counter() - t_disp
         self.stats.model_dispatches += 1
         self._scatter_states(r.slot, states)
         self.cache_len[r.slot] = upto
-        return int(self._fetch(next_tok, done)[0])
+        return int(self._fetch(*staged)[0])
 
     def _scatter_states(self, slot: int, states: list) -> None:
         """Write each attention layer's prefix K/V into rows [0, s) of

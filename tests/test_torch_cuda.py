@@ -919,6 +919,57 @@ def test_legacy_engine_on_card_matches_cpu(cuda, mode):
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6
 
 
+def test_sampling_bits_on_card_equal_cpu(cuda):
+    """The sampler's Philox bits depend on (seed, rid, pos, vocab index)
+    only: equal on the card and on the CPU, over a whole vocab and at
+    gathered indices."""
+    from repro_torch.serving import sampling
+    keys = sampling.packed_keys(77, torch.arange(6).repeat_interleave(5),
+                                torch.arange(5).repeat(6) + 1000)
+    idx = torch.from_numpy(np.random.default_rng(0).integers(0, 5003,
+                                                             (30, 50)))
+    for index in (5003, idx):
+        dev_index = index if isinstance(index, int) else index.to(cuda)
+        assert torch.equal(
+            sampling.random_bits(keys.to(cuda), dev_index).cpu(),
+            sampling.random_bits(keys, index))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(async_depth=2, async_harvest=False),
+    dict(spec_k=2),
+    dict(spec_k=3, prefix_caching=True, kv_block_size=8),
+    dict(spec_k=2, kv_dtype="int8"),
+    dict(spec_k=2, prefix_caching=True, kv_block_size=8, kv_dtype="int8"),
+    dict(temperature=0.8, top_k=8),
+    dict(temperature=0.8, spec_k=2),
+], ids=["depth2", "spec", "spec-prefix", "spec-int8", "spec-prefix-int8",
+        "topk", "spec-sample"])
+def test_engine_pipeline_spec_sampling_on_card_matches_cpu(cuda, kw):
+    """tiny-toy in f32: the async pipeline, speculative decoding and
+    sampling on the card serve the tokens the CPU serves, with one
+    dispatch and one deferred copy an iteration and nothing in flight at
+    exit."""
+    cfg = dataclasses.replace(get_config("tiny-toy"), dtype="float32")
+    params = model.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [[5, 9, 3, 7] * 5] + [
+        [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                      int(rng.integers(3, 30)))]
+        for _ in range(4)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, _to(params, dev), EngineConfig(
+            max_slots=2, max_len=64, discrete_sizes=(16, 8),
+            avg_decode_len=4, **kw), device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=pr, max_new_tokens=8))
+        outs[dev] = {r.rid: r.output for r in eng.run()}
+        assert eng.stats.dispatches_per_iter == eng.stats.syncs_per_iter == 1.0
+        assert eng.in_flight == 0
+    assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 5
+
+
 def _scan_args(cuda, dtype, bsz, s, ch, n=16, h0=True, seed=0):
     """Selective-scan inputs on the card at a Mamba layer's magnitudes:
     x, b and c in ``dtype``; dt, a, d and h0 in f32."""

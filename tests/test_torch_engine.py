@@ -62,7 +62,9 @@ def test_engine_token_exact_vs_jax():
         np.testing.assert_array_equal(teng.cache_len.numpy(),
                                       np.asarray(jeng.cache_len))
         np.testing.assert_array_equal(teng.last_token.numpy(),
-                                      np.asarray(jeng.last_token)[:, 0])
+                                      np.asarray(jeng.last_token))
+        np.testing.assert_array_equal(teng.accept_len.numpy(),
+                                      np.asarray(jeng.accept_len))
 
     assert len(got) == 6 and got == want
     s = teng.stats
@@ -89,14 +91,15 @@ def test_kv_bytes_per_token_from_cache_shapes():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(async_depth=1), NotImplementedError),
+    # the legacy step has no async pipeline and no speculation
+    (dict(async_depth=1, step_mode="legacy"), ValueError),
     (dict(tp=2), NotImplementedError),
-    (dict(drafter="ngram"), NotImplementedError),
-    (dict(top_k=5), NotImplementedError),
-    (dict(spec_k=2), NotImplementedError),
-    (dict(temperature=0.7), NotImplementedError),
-    # the legacy step is ported; what the JAX config refuses on it raises
-    # ValueError
+    (dict(drafter="nope"), ValueError),
+    # top-k sampling needs temperature > 0, and top_k >= 1
+    (dict(top_k=5), ValueError),
+    (dict(spec_k=2, step_mode="legacy"), ValueError),
+    (dict(temperature=0.7, top_k=0), ValueError),
+    # what the JAX config refuses on the legacy step raises ValueError
     (dict(step_mode="legacy", prefix_caching=True), ValueError),
     (dict(step_mode="legacy", kv_dtype="int8"), ValueError),
     # values the JAX config refuses whatever the step
@@ -106,8 +109,8 @@ def test_kv_bytes_per_token_from_cache_shapes():
     (dict(tp=0), ValueError),
 ])
 def test_config_rejects_unported_features(kw, exc):
-    """Unported values raise NotImplementedError; values and combinations
-    the JAX config refuses raise ValueError."""
+    """Unported values (tensor parallelism) raise NotImplementedError;
+    values and combinations the JAX config refuses raise ValueError."""
     with pytest.raises(exc):
         EngineConfig(**kw)
 

@@ -274,8 +274,8 @@ def test_engine_refuses_what_jax_refuses(models):
                     device="cpu")
     with pytest.raises(AssertionError):
         JaxServeEngine(jcfg, jparams, JaxEngineConfig(prefix_caching=True))
-    with pytest.raises(NotImplementedError):
-        EngineConfig(spec_k=2)
+    with pytest.raises(ValueError, match="attention-only"):
+        ServeEngine(tcfg, tparams, EngineConfig(spec_k=2), device="cpu")
     with pytest.raises(AssertionError):
         JaxServeEngine(jcfg, jparams, JaxEngineConfig(spec_k=2))
     with pytest.raises(NotImplementedError, match="A9"):
