@@ -23,10 +23,19 @@ Phases (any failure exits non-zero; no phase is caught):
                selective scan (f32 and bf16) at Jamba-1.5-Large's 16384
                channels and 16 states, on a 256-token chunk from a carried
                state and a 513-token prompt from zero state; SwiGLU (bf16)
-               at Qwen3-8B's widths for T = 8, 64, 256, 257 and at
-               Jamba-1.5-Large's (8192 -> 24576) for T = 8, 256, each with
-               its tiles and CTA groups, beside the library pair (two
-               torch.matmul, then F.silu(g) * u).
+               at Qwen3-8B's widths for T = 8, 64, 256, 257 and for T = 8,
+               256 at Jamba-1.5-Large's (8192 -> 24576), Arctic's dense
+               residual's (7168 -> 4864) and LLaMA-2-70B's (8192 -> 28672),
+               each with its tiles and CTA groups, beside the library pair
+               (two torch.matmul, then F.silu(g) * u).
+     groups  — the attention kernels at the GQA groups built for head_dim
+               128 only, against their plain versions in f32 and bf16 at
+               the shapes above: at group 7 (Arctic's 56 / 8 heads) packed
+               attention in its four builds, decode, paged decode, flash
+               (the chunk shape) and the fused op's attention role, each
+               timed beside its plain version, its bound and masked SDPA
+               where one call computes it; at groups 3 (24 / 8) and 9
+               (36 / 4) packed attention, decode and flash.
      paged   — paged decode attention through ``ops.paged_decode_attention``
                (its only caller) at Qwen3-8B's heads: 8 rows of the serve
                phase's lengths + 16 over a shuffled pool of 16-row pages,
@@ -99,7 +108,8 @@ Phases (any failure exits non-zero; no phase is caught):
                before it and fails unless its attention variant and SwiGLU
                launched and no ops-only kernel did.
  12. hybrid  — Qwen3-8B's weights freed, Jamba-1.5-Large at full width cut
-               to one 8-layer group (7 Mamba + 1 attention) with dense FFNs:
+               to one 8-layer group (7 Mamba + 1 attention) with dense FFNs
+               (its 4 MoE layers would make the group ~45B params, ~90 GB):
                a two-chunk ``forward_chunk`` through the kernels against the
                plain versions, then the serve phase's 8 prompt lengths on
                the legacy, recompute and packed steps: every request
@@ -115,6 +125,31 @@ Phases (any failure exits non-zero; no phase is caught):
                attention's device time and share of the busy time, then
                one line per profiled serve (the legacy runs too) with
                SwiGLU's and the library GEMMs' shares.
+ 13. llama   — LLaMA-2-70B (the paper's evaluation model) at full width
+               cut to 8 of its 80 layers: the serve phase's 8 requests on
+               the packed step (packed attention and SwiGLU once per layer
+               and iteration, tokens agree with a teacher-forced plain
+               forward), then profiled as in 6.
+ 14. moe     — Snowflake Arctic at full width cut to 2 of its 35 layers
+               (128 experts top-2 beside a dense residual, GQA group 7):
+               ``forward_packed`` through the kernels against the plain
+               versions at capacity E / k = 64, where nothing can drop
+               (the share of equal (token, k)
+               expert choices; the logits of tokens whose context was
+               routed alike in every layer within the forward phase's
+               tolerance); the 8 requests on the packed
+               step at the published capacity factor 1.25 with the share
+               of (token, expert) pairs dropped, then profiled (busy time,
+               idle share, the device time of the expert products and of
+               the dispatch and combine); at 64 (checked: nothing dropped;
+               the least factor these choices needed printed; 16.0, the JAX
+               tests' factor, drops pairs under these random weights), on
+               the packed and legacy steps: tokens agree between them and
+               with a teacher-forced plain forward.  Every
+               run is counted from 0 and fails unless group-7 packed
+               attention (packed), flash and decode attention (legacy) and
+               SwiGLU (the dense residual) launched once per layer and
+               forward.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -192,6 +227,10 @@ GEMM_F32_TOL = (1e-4, 1e-4)
 SFU_PER_CLOCK_SM = 16
 F32_PEAK = 67e12
 JAMBA = "jamba-1.5-large-398b"
+ARCTIC = "arctic-480b"
+LLAMA = "llama2-70b"
+LLAMA_LAYERS = 8        # of 80: ~7.4B params, ~14.7 GB in bf16
+MOE_LAYERS = 2          # of 35: ~27.7B params, ~55.4 GB in bf16
 HYBRID_LAYERS = 8       # one pattern group: 7 Mamba + 1 attention layer
 HYBRID_MODES = {"legacy": dict(step_mode="legacy"),
                 "recompute": dict(prefill_mode="recompute"),
@@ -891,6 +930,165 @@ def phase_overlap(torch, cfg, timer, bw, peak) -> tuple[dict, int]:
                 library_ms=lib_ms), launches
 
 
+def group_configs():
+    """The GQA groups built at head_dim 128 only, each as a config whose
+    heads the attention cases read: group 7 at Arctic's heads (56 / 8, the
+    port's copy of its config), groups 3 (24 / 8) and 9 (36 / 4) on Qwen3-8B's
+    other fields."""
+    from repro_torch.configs import get_config
+    qwen = get_config("qwen3-8b")
+    return {7: get_config(ARCTIC),
+            3: dataclasses.replace(qwen, n_heads=24, n_kv_heads=8),
+            9: dataclasses.replace(qwen, n_heads=36, n_kv_heads=4)}
+
+
+def phase_groups(torch, timer, bw, peak) -> dict:
+    """The attention kernels at GQA groups 3, 7 and 9 (head_dim 128)
+    against their plain versions in f32 and bf16, at the kernels phase's
+    shapes: at group 7 (Arctic's heads) packed attention in its four
+    builds, decode, paged decode, flash (the chunk shape) and the fused
+    op's attention role, each timed in bf16 beside its plain version, its
+    bound and (where one call computes it) masked SDPA; at groups 3 and 9
+    packed attention, decode and flash.  Returns {kernel: groups held}."""
+    from functools import partial
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention_cuda, paged_decode_attention_ref)
+    from repro_torch.kernels.fused_overlap import (fused_overlap_cuda,
+                                                   fused_overlap_ref)
+    from repro_torch.kernels.packed_attention import (packed_attention_cuda,
+                                                      packed_attention_ref)
+    F = torch.nn.functional
+    held = {}
+
+    def report(kname, g, desc, errs, timed=None):
+        held.setdefault(kname, []).append(g)
+        line = (f"group {g} {kname} {desc}: max_abs_err f32 "
+                f"{errs[torch.float32]:.3e} (tol {F32_TOL[0]} + "
+                f"{F32_TOL[1]}·|ref|), bf16 {errs[torch.bfloat16]:.3e} (tol "
+                f"{BF16_TOL[0]} + {BF16_TOL[1]}·|ref|)")
+        if timed is not None:
+            kernel, plain, lib, nbytes, flops = timed
+            ms, plain_ms = timer(kernel), timer(plain)
+            lib_ms = timer(lib) if lib is not None else None
+            t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+            line += (f"  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
+                     + (f"sdpa_ms {lib_ms:.4f}  " if lib is not None else "")
+                     + f"bound_ms {max(t_bytes, t_ops):.4f} "
+                     f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        log(line)
+
+    def tol(dtype):
+        return F32_TOL if dtype == torch.float32 else BF16_TOL
+
+    for g, gcfg in group_configs().items():
+        if gcfg.gqa_group != g or gcfg.resolved_head_dim != 128:
+            raise AssertionError(f"group {g}: config {gcfg.name} has group "
+                                 f"{gcfg.gqa_group}, head_dim "
+                                 f"{gcfg.resolved_head_dim}")
+        heads = f"H={gcfg.n_heads} KV={gcfg.n_kv_heads} D=128"
+        # packed attention, contiguous: the kernels phase's mixed stream
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            args, nbytes, flops = attention_case(torch, gcfg, 1024, 1024,
+                                                 dtype)
+            errs[dtype] = check_close(
+                f"group {g} packed_attention {dtype}",
+                packed_attention_cuda(*args, kv_bucket=1024),
+                packed_attention_ref(*args, kv_bucket=1024), tol(dtype))
+        timed = None
+        if g == 7:
+            sq, sk, sv, mask = sdpa_inputs(torch, args, 1024)
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    sq, sk, sv, attn_mask=mask, enable_gqa=True)
+            check_close("group 7 sdpa yardstick", lib()[0].permute(1, 0, 2),
+                        packed_attention_ref(*args, kv_bucket=1024), LIB_TOL)
+            timed = (partial(packed_attention_cuda, *args, kv_bucket=1024),
+                     partial(packed_attention_ref, *args, kv_bucket=1024),
+                     lib, nbytes, flops)
+        report("packed_attention", g, f"T={args[0].shape[0]} {heads} "
+               f"kv_bucket=1024; {streamed_mb(args, {}, 1024)}", errs, timed)
+        del args
+        # the other three builds at group 7
+        for kname, ((blocked, quant), _) in ATTENTION.items():
+            if g != 7 or not (blocked or quant):
+                continue
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                args, kw, nbytes, flops = variant_case(torch, gcfg, 1024,
+                                                       dtype, blocked, quant)
+                errs[dtype] = check_close(
+                    f"group 7 {kname} {dtype}",
+                    packed_attention_cuda(*args, kv_bucket=1024, **kw),
+                    packed_attention_ref(*args, kv_bucket=1024, **kw),
+                    tol(dtype))
+            report(kname, g, f"T={args[0].shape[0]} {heads} kv_bucket=1024",
+                   errs, (partial(packed_attention_cuda, *args,
+                                  kv_bucket=1024, **kw),
+                          partial(packed_attention_ref, *args,
+                                  kv_bucket=1024, **kw), None, nbytes,
+                          flops))
+            del args, kw
+        # flash (the chunk shape) and decode attention
+        for kname, case in (("flash_attention", "chunk"),
+                            ("decode_attention", "decode")):
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                kernel, plain, lib, lib_out, nbytes, flops, desc = \
+                    legacy_case(torch, gcfg, case, dtype)
+                want = plain()
+                errs[dtype] = check_close(f"group {g} {kname} {dtype}",
+                                          kernel(), want, tol(dtype))
+            timed = None
+            if g == 7:
+                check_close(f"group 7 sdpa yardstick {kname}",
+                            lib_out(lib()), want, LIB_TOL)
+                timed = (kernel, plain, lib, nbytes, flops)
+            extra = (f"; schedule {flash_schedule(torch, kernel)}"
+                     if kname == "flash_attention" else
+                     f"; {split_units(torch, gcfg, kernel)}")
+            report(kname, g, desc + extra, errs, timed)
+            del kernel, plain, lib, want
+        if g != 7:
+            continue
+        # paged decode and the fused op's attention role at group 7
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            args, nbytes, flops, desc = paged_case(torch, gcfg, dtype)
+            errs[dtype] = check_close(
+                f"group 7 paged_decode_attention {dtype}",
+                paged_decode_attention_cuda(*args),
+                paged_decode_attention_ref(*args), tol(dtype))
+        report("paged_decode_attention", g, desc, errs,
+               (partial(paged_decode_attention_cuda, *args),
+                partial(paged_decode_attention_ref, *args), None, nbytes,
+                flops))
+        del args
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            args, _, attn, desc = overlap_case(torch, gcfg, dtype)
+            (go, ao), (wg, wa) = (fused_overlap_cuda(*args),
+                                  fused_overlap_ref(*args))
+            check_close(f"group 7 fused_overlap gemm {dtype}", go, wg,
+                        GEMM_F32_TOL if dtype == torch.float32 else BF16_TOL)
+            errs[dtype] = check_close(f"group 7 fused_overlap attention "
+                                      f"{dtype}", ao, wa, tol(dtype))
+            del go, ao, wg, wa
+        # the attention role alone (M = 0, every CTA), against decode
+        # attention's plain version on the same rows
+        x, w, q, k, v, clen = args
+        from repro_torch.kernels.decode_attention import decode_attention_ref
+        report("fused_overlap", g, desc + " (timed: the attention role "
+               "alone, M = 0)", errs,
+               (partial(fused_overlap_cuda, x[:0], w, q, k, v, clen),
+                partial(decode_attention_ref, q, k, v, clen), None,
+                attn[0], attn[1]))
+        del args, x, w, q, k, v
+        torch.cuda.empty_cache()
+    return held
+
+
 def phase_kernels(torch, cfg, timer, bw, peak):
     from repro_torch.kernels.packed_attention import (packed_attention_cuda,
                                                       packed_attention_ref)
@@ -1006,19 +1204,20 @@ def swiglu_case(torch, d: int, ff: int, seed: int = 7):
 
 
 def phase_swiglu(torch, cfg, timer, bw, peak) -> dict:
-    """SwiGLU (bf16) at Qwen3-8B's widths for T = 8, 64, 256 and 257 and at
-    Jamba-1.5-Large's (8192 -> 24576) for T = 8 and 256: kernel against
-    plain, its schedule (``swiglu.plan``), its time beside the plain
-    version's, the library pair's and the bound.  Returns the record at
-    Qwen3-8B's T = 256."""
+    """SwiGLU (bf16) at Qwen3-8B's widths for T = 8, 64, 256 and 257, and
+    for T = 8 and 256 at Jamba-1.5-Large's (8192 -> 24576), Arctic's dense
+    residual's (7168 -> 4864) and LLaMA-2-70B's (8192 -> 28672): kernel
+    against plain, its schedule (``swiglu.plan``), its time beside the
+    plain version's, the library pair's and the bound.  Returns the record
+    at Qwen3-8B's T = 256."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import swiglu as sw
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    jamba = get_config(JAMBA)
     record = None
-    for i, ((d, ff), ts) in enumerate(
-            (((cfg.d_model, cfg.d_ff), (8, 64, 256, 257)),
-             ((jamba.d_model, jamba.d_ff), (8, 256)))):
+    widths = [((cfg.d_model, cfg.d_ff), (8, 64, 256, 257))] + [
+        ((c.d_model, c.d_ff), (8, 256))
+        for c in (get_config(n) for n in (JAMBA, ARCTIC, LLAMA))]
+    for i, ((d, ff), ts) in enumerate(widths):
         gen, wg, wu, library = swiglu_case(torch, d, ff)
         for t in ts:
             x = torch.randn(t, d, generator=gen, device="cuda") \
@@ -1058,13 +1257,11 @@ def phase_swiglu(torch, cfg, timer, bw, peak) -> dict:
     return record
 
 
-def phase_forward(torch, cfg):
-    """Full width, 4 layers: a prefill stream of 8 x 25 tokens padded to
-    256, then 8 decode tokens, through the kernels and the plain versions,
-    each with its own cache."""
-    from repro_torch.models import model
-    cfg4 = dataclasses.replace(cfg, n_layers=4)
-    params = model.init(cfg4, seed=0, device="cuda")
+def forward_streams(cfg) -> tuple[list, np.ndarray, np.ndarray]:
+    """The forward checks' two packed streams, (tokens, slot, position,
+    write row) each: a prefill stream of 8 x 25 tokens padded to 256 (its
+    padding written to row 64, past a 64-row cache), then 8 decode
+    tokens; with the slot and position of the 208 real tokens."""
     rng = np.random.default_rng(1)
     pre_slot = np.repeat(np.arange(8), 25)
     pre_pos = np.tile(np.arange(25), 8)
@@ -1075,6 +1272,17 @@ def phase_forward(torch, cfg):
         (rng.integers(0, cfg.vocab_size, 8), np.arange(8), np.full(8, 25),
          np.full(8, 25)),
     ]
+    return (streams, np.r_[pre_slot, np.arange(8)],
+            np.r_[pre_pos, np.full(8, 25)])
+
+
+def phase_forward(torch, cfg):
+    """Full width, 4 layers: ``forward_streams`` through the kernels and
+    the plain versions, each with its own cache."""
+    from repro_torch.models import model
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    params = model.init(cfg4, seed=0, device="cuda")
+    streams, _, _ = forward_streams(cfg)
     logits = {}
     for impl in (None, "plain"):
         cache = model.init_cache(cfg4, 8, 64, device="cuda")
@@ -1085,7 +1293,7 @@ def phase_forward(torch, cfg):
             lg, cache = model.forward_packed(cfg4, params, as_t[0][None], cache,
                                              as_t[1], as_t[2], as_t[3],
                                              kv_bucket=64, impl=impl)
-            outs.append(lg[0, :len(pre_slot)] if len(toks) == 256 else lg[0])
+            outs.append(lg[0, :200] if len(toks) == 256 else lg[0])
         logits[impl] = torch.cat(outs).float()
     torch.cuda.synchronize()
     a, b = logits[None], logits["plain"]
@@ -1155,10 +1363,8 @@ def phase_serve(torch, cfg):
         f"params, seeded init {time.perf_counter() - t0:.1f} s")
     eng = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=1024,
                                                 async_depth=0))
-    rng = np.random.default_rng(0)
-    lens = rng.integers(16, 601, 8)
-    prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
-               for n in lens]
+    prompts = serve_prompts(cfg)
+    lens = [len(p) for p in prompts]
     # the main path's run: counts from 0
     zero_counts()
     for i, p in enumerate(prompts):
@@ -1169,7 +1375,7 @@ def phase_serve(torch, cfg):
     check_off_path("serve", counts)
     launches = {k: counts[k] for k in ("packed_attention", "swiglu")}
     s = eng.stats
-    log(f"serve: prompts {lens.tolist()}, {len(done)}/8 finished, "
+    log(f"serve: prompts {lens}, {len(done)}/8 finished, "
         f"{s.iterations} iterations, {s.total_tokens} tokens in "
         f"{s.wall_time:.3f} s = {s.throughput:.1f} tok/s, "
         f"{s.dispatches_per_iter} dispatch/iter, {s.syncs_per_iter} sync/iter, "
@@ -1191,17 +1397,8 @@ def phase_serve(torch, cfg):
     if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
         raise AssertionError("serve: token id out of range")
 
-    # reference: teacher-forced plain forward of request 0's whole stream
-    r0 = min(done, key=lambda r: r.rid)
-    lg = teacher_forced(torch, cfg, params, r0.prompt + r0.output[:-1])
-    ref = lg[r0.prompt_len - 1:].argmax(-1).tolist()
-    agree = float(np.mean(np.asarray(ref) == np.asarray(r0.output)))
-    log(f"serve: request 0 ({r0.prompt_len} prompt tokens) greedy tokens vs "
-        f"teacher-forced plain forward: agreement {agree:.4f} "
-        f"(tol >= {SERVE_AGREE_MIN})")
-    if agree < SERVE_AGREE_MIN:
-        raise AssertionError("serve: tokens disagree with the plain forward")
     outs = {r.rid: r.output for r in done}
+    check_teacher_forced(torch, "serve", cfg, params, outs, prompts)
     return launches, params, prompts, s.wall_time, outs
 
 
@@ -1276,7 +1473,8 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
     scan_us, scan_n = sum(us for us, _ in scan), sum(n for _, n in scan)
     log(f"{tag}: device busy {dev_us / 1e3:.1f} ms over "
         f"{eng.stats.iterations} iterations: {dev_us / wall_us:.3f} of the "
-        f"profiled wall ({wall_us / 1e3:.1f} ms), {dev_us / 1e6 / serve_wall:.3f}"
+        f"profiled wall ({wall_us / 1e3:.1f} ms, idle share "
+        f"{1 - dev_us / wall_us:.3f}), {dev_us / 1e6 / serve_wall:.3f}"
         f" of the unprofiled serve's wall ({serve_wall * 1e3:.1f} ms); "
         f"{sum(n for _, n in totals.values()) / eng.stats.iterations:.0f} device "
         f"events per iteration; packed attention {pa_us / 1e3:.1f} ms = "
@@ -1310,6 +1508,31 @@ def teacher_forced(torch, cfg, params, seq: list, kv_dtype=None):
         cache, torch.zeros(n, dtype=torch.int32, device="cuda"), pos, pos,
         kv_bucket=1024, impl="plain")
     return lg[0].float()
+
+
+def serve_prompts(cfg) -> list:
+    """The serve phase's 8 prompt lengths and seed, token ids in the
+    config's vocab."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 601, 8)
+    return [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+            for n in lens]
+
+
+def check_teacher_forced(torch, tag: str, cfg, params, done: dict,
+                         prompts: list) -> float:
+    """Request 0's served tokens against a teacher-forced plain forward of
+    its whole stream; fails under SERVE_AGREE_MIN."""
+    out = done[0]
+    lg = teacher_forced(torch, cfg, params, prompts[0] + out[:-1])
+    ref = lg[len(prompts[0]) - 1:].argmax(-1).tolist()
+    agree = float(np.mean(np.asarray(ref) == np.asarray(out)))
+    log(f"{tag}: request 0 ({len(prompts[0])} prompt tokens) greedy tokens "
+        f"vs a teacher-forced plain forward: agreement {agree:.4f} (tol >= "
+        f"{SERVE_AGREE_MIN})")
+    if agree < SERVE_AGREE_MIN:
+        raise AssertionError(f"{tag}: tokens disagree with the plain forward")
+    return agree
 
 
 def context_agreement(a: dict, b: dict):
@@ -1789,9 +2012,12 @@ def phase_sampling(torch, cfg, params, prompts, plain: dict) -> None:
 
 
 def hybrid_config():
-    """Jamba-1.5-Large at full width, cut to what one card holds without
-    the MoE FFN: one 8-layer pattern group and a dense SwiGLU FFN in every
-    layer (``dataclasses.replace`` on the port's copy of the config)."""
+    """Jamba-1.5-Large at full width, cut to what one card holds: one
+    8-layer pattern group and a dense SwiGLU FFN in every layer
+    (``dataclasses.replace`` on the port's copy of the config).  The port
+    runs the MoE layers, but the group's 4 of them (16 experts of 3 x 8192
+    x 24576) would make it ~45B params, ~90 GB in bf16; Arctic's phase
+    runs the MoE FFN on the card."""
     from repro_torch.configs import FFN_DENSE, get_config
     full = get_config(JAMBA)
     cfg = dataclasses.replace(
@@ -1850,9 +2076,10 @@ def phase_hybrid_forward(torch, cfg, params):
                              "disagree")
 
 
-def check_hybrid_counts(mode: str, cfg, c: dict, s) -> None:
+def check_step_counts(tag: str, mode: str, cfg, c: dict, s) -> None:
     """Each kernel launched as often as the step's dispatches say: on
-    legacy and recompute the scan 7 times and flash attention once per
+    legacy and recompute the scan once per Mamba layer and flash attention
+    once per attention layer and
     prefill dispatch, decode attention once per decode dispatch (the
     remaining dispatches are the incremental mode's slot resets, one per
     request); on the packed step packed attention once per iteration and
@@ -1879,7 +2106,7 @@ def check_hybrid_counts(mode: str, cfg, c: dict, s) -> None:
     ok = ok and c["swiglu"] == cfg.n_layers * forwards \
         and not any(c[k] for k in others)
     if not ok:
-        raise AssertionError(f"hybrid {mode}: launches {c} do not match "
+        raise AssertionError(f"{tag}: launches {c} do not match "
                              f"{s.iterations} iterations and "
                              f"{s.model_dispatches} dispatches")
 
@@ -1901,11 +2128,8 @@ def phase_hybrid(torch, busy: dict) -> dict:
         f"seeded init {time.perf_counter() - t0:.1f} s")
     phase_hybrid_forward(torch, cfg, params)
 
-    # the serve phase's prompt lengths and seed, token ids in Jamba's vocab
-    rng = np.random.default_rng(0)
-    lens = rng.integers(16, 601, 8)
-    prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
-               for n in lens]
+    prompts = serve_prompts(cfg)
+    lens = [len(p) for p in prompts]
     outs, counts = {}, {}
     for mode, kw in HYBRID_MODES.items():
         eng = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=1024,
@@ -1918,7 +2142,7 @@ def phase_hybrid(torch, busy: dict) -> dict:
         c = counts[mode] = read_counts()
         check_off_path(f"hybrid {mode}", c)
         s = eng.stats
-        log(f"hybrid {mode}: prompts {lens.tolist()}, {len(done)}/8 finished, "
+        log(f"hybrid {mode}: prompts {lens}, {len(done)}/8 finished, "
             f"{s.iterations} iterations, {s.total_tokens} tokens in "
             f"{s.wall_time:.3f} s = {s.throughput:.1f} tok/s, "
             f"{s.model_dispatches} dispatches ({s.dispatches_per_iter:.3f}/"
@@ -1940,7 +2164,7 @@ def phase_hybrid(torch, busy: dict) -> dict:
                                  or s.syncs_per_iter != 1.0):
             raise AssertionError("hybrid packed: not one dispatch and one "
                                  "sync per iteration")
-        check_hybrid_counts(mode, cfg, c, s)
+        check_step_counts(f"hybrid {mode}", mode, cfg, c, s)
         outs[mode] = {r.rid: r.output for r in done}
         # request 0's tokens against a teacher-forced plain forward_full
         r0 = min(done, key=lambda r: r.rid)
@@ -1974,6 +2198,322 @@ def phase_hybrid(torch, busy: dict) -> dict:
     del params
     torch.cuda.empty_cache()
     return counts["legacy"]["ssm_scan"]
+
+
+def llama_config():
+    """LLaMA-2-70B at full width cut to LLAMA_LAYERS of its 80 layers (the
+    whole model is ~138 GB in bf16)."""
+    from repro_torch.configs import get_config
+    full = get_config(LLAMA)
+    cfg = dataclasses.replace(full, name=f"{full.name}-{LLAMA_LAYERS}l",
+                              n_layers=LLAMA_LAYERS)
+    log(f"llama: {full.name} ({full.citation}) cut: n_layers "
+        f"{full.n_layers} -> {cfg.n_layers}; kept d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads (group "
+        f"{cfg.gqa_group}), head_dim {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}")
+    return cfg
+
+
+def phase_llama(torch, busy: dict) -> None:
+    """LLaMA-2-70B, the paper's evaluation model, at full width and 8 of
+    its 80 layers (seeded random bf16 weights): the serve phase's 8
+    requests on the packed step, counted from 0 (``serve_run``): packed
+    attention and SwiGLU launch once per layer and iteration, and request
+    0's tokens agree with a teacher-forced plain forward; then the serve
+    is profiled into ``busy``."""
+    from repro_torch.models import model
+    from repro_torch.models.param import count_params
+    cfg = llama_config()
+    t0 = time.perf_counter()
+    params = model.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"llama: {count_params(model.model_defs(cfg)) / 1e9:.3f}B params, "
+        f"seeded init {time.perf_counter() - t0:.1f} s, memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    prompts = serve_prompts(cfg)
+    eng, out, c = serve_run(torch, cfg, params, prompts, "llama serve",
+                            "packed_attention", async_depth=0)
+    s = eng.stats
+    check_step_counts("llama packed", "packed", cfg, c, s)
+    check_teacher_forced(torch, "llama serve", cfg, params, out, prompts)
+    wall = s.wall_time
+    del eng
+    busy["llama"] = phase_profile(torch, cfg, params, prompts, wall,
+                                  tag="llama profile")
+    del params
+    torch.cuda.empty_cache()
+
+
+class RouteRecorder:
+    """While active, records each routing of the MoE FFN
+    (``models.moe.route_topk``, patched in the module): the chosen experts
+    (G, S, K) and the group's capacity C.  ``dropped()`` counts the (token,
+    expert) pairs past their expert's C rows in their group, as
+    ``moe_ffn`` drops them (padding rows are routed, and counted, too)."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_mod
+        self.mod = moe_mod
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = self.mod.route_topk
+
+        def route(m, logits):
+            gates, idx, aux = self.orig(m, logits)
+            self.calls.append((idx, self.mod.capacity(m, logits.shape[1]),
+                               m.num_experts))
+            return gates, idx, aux
+        self.mod.route_topk = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route_topk = self.orig
+
+    def dropped(self) -> tuple[int, int, float]:
+        """(pairs dropped, pairs routed, the least capacity factor above
+        which these choices would drop nothing: a group of S tokens, top k
+        of E, whose fullest expert took n of its pairs needs
+        ``max(4, ceil(S k / E f)) >= n``, so ``f > (n - 1) E / (S k)``)."""
+        import torch
+        drop = pairs = 0
+        least = 0.0
+        for idx, c, e in self.calls:
+            counts = torch.nn.functional.one_hot(
+                idx.flatten(1), e).sum(1)                       # (G, E)
+            drop += int((counts - c).clamp(min=0).sum())
+            pairs += idx.numel()
+            n = int(counts.max())
+            if n > 4:
+                least = max(least, (n - 1) * e / (idx.shape[1] * idx.shape[2]))
+        return drop, pairs, least
+
+
+def arctic_config(capacity_factor: float):
+    """Snowflake Arctic at full width cut to MOE_LAYERS of its 35 layers
+    (the whole model is ~960 GB in bf16), at ``capacity_factor``."""
+    from repro_torch.configs import get_config
+    full = get_config(ARCTIC)
+    return dataclasses.replace(
+        full, name=f"{full.name}-{MOE_LAYERS}l", n_layers=MOE_LAYERS,
+        moe=dataclasses.replace(full.moe, capacity_factor=capacity_factor))
+
+
+def phase_moe_forward(torch, cfg, params) -> None:
+    """``forward_packed`` through the kernels and through the plain
+    versions on ``forward_streams``, at a capacity that drops nothing: the
+    share of equal (token, k) expert choices (bf16 near-ties of the
+    router's logits flip between the two), the logits within
+    FWD_LOGIT_ATOL for every token whose context (itself and the earlier
+    tokens of its slot, which it attends) was routed alike in every layer,
+    and greedy argmax agreement over every token."""
+    from repro_torch.models import model
+    streams, tok_slot, tok_pos = forward_streams(cfg)
+    logits, routes = {}, {}
+    for impl in (None, "plain"):
+        cache = model.init_cache(cfg, 8, 64, device="cuda")
+        outs = []
+        with RouteRecorder() as rec:
+            for toks, slot, pos, wpos in streams:
+                as_t = [torch.tensor(np.asarray(a), dtype=torch.int32,
+                                     device="cuda")
+                        for a in (toks, slot, pos, wpos)]
+                lg, cache = model.forward_packed(
+                    cfg, params, as_t[0][None], cache, as_t[1], as_t[2],
+                    as_t[3], kv_bucket=64, impl=impl)
+                outs.append(lg[0, :200] if len(toks) == 256 else lg[0])
+        logits[impl] = torch.cat(outs).float()
+        # per stream, its layers' choices of the real tokens: (L, T, K)
+        n = len(cfg.layer_specs())
+        routes[impl] = torch.cat([
+            torch.stack([idx.reshape(-1, idx.shape[-1])[:len(o)]
+                         for idx, _, _ in rec.calls[i * n:(i + 1) * n]])
+            for i, o in enumerate(outs)], dim=1)
+    torch.cuda.synchronize()
+    a, b = logits[None], logits["plain"]
+    if not bool(a.isfinite().all()):
+        raise AssertionError("moe forward: non-finite logits")
+    same = routes[None] == routes["plain"]                     # (L, T, K)
+    alike = same.all(-1).all(0).cpu().numpy()                  # (T,)
+    alike = torch.tensor([all(alike[(tok_slot == tok_slot[t])
+                                    & (tok_pos <= tok_pos[t])])
+                          for t in range(len(tok_slot))], device="cuda")
+    diff = float((a - b).abs()[alike].max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    log(f"moe forward ({cfg.n_layers} layers, full width, capacity "
+        f"{cfg.moe.capacity_factor}): equal (token, k) expert choices "
+        f"{float(same.float().mean()):.4f}; tokens whose context was routed "
+        f"alike in every layer {int(alike.sum())}/{len(alike)}: logits "
+        f"max-abs diff "
+        f"{diff:.4f} (tol {FWD_LOGIT_ATOL}); all tokens: max-abs diff "
+        f"{float((a - b).abs().max()):.4f} (no bound), |logits| max "
+        f"{float(b.abs().max()):.3f}, greedy argmax agreement {agree:.4f} "
+        f"(tol >= {FWD_ARGMAX_MIN})")
+    if diff > FWD_LOGIT_ATOL or agree < FWD_ARGMAX_MIN:
+        raise AssertionError("moe forward: kernels and plain versions "
+                             "disagree")
+
+
+def moe_profile(torch, cfg, params, prompts, wall: float) -> None:
+    """The capacity-1.25 serve again under ``torch.profiler`` with host ops:
+    the device's busy time and idle share, and the device time of the MoE
+    FFN's einsums, told apart by their ``aten::bmm``'s operands: the three
+    expert products batch over the E experts, the router's product has E
+    columns, and the dispatch follows the router, the combine the expert
+    products; any other einsum counts as "other"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import Request
+    eng = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=1024,
+                                                async_depth=0))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=32))
+        eng.run()
+        torch.cuda.synchronize()
+    dev_us = sum(e.duration_ns() / 1e3
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0)
+    einsums = sorted((e for e in prof.events() if e.name == "aten::einsum"),
+                     key=lambda e: e.time_range.start)
+    e_num = cfg.moe.num_experts
+    parts = dict.fromkeys(("router", "dispatch", "experts", "combine",
+                           "other"), 0.0)
+    calls = dict.fromkeys(parts, 0)
+    prev = None
+    for e in einsums:
+        bmm = [c.input_shapes for c in e.cpu_children if c.name == "aten::bmm"]
+        a, b = bmm[0] if bmm else ([0], [0])
+        if a[0] == e_num:
+            part = "experts"
+        elif b[-1] == e_num:
+            part = "router"
+        elif prev == "router":
+            part = "dispatch"
+        elif prev == "experts":
+            part = "combine"
+        else:
+            part = "other"
+        parts[part] += e.device_time_total
+        calls[part] += 1
+        prev = part
+    if not calls["router"] or calls["experts"] != 3 * calls["router"] or \
+            not calls["dispatch"] == calls["combine"] == calls["router"]:
+        raise AssertionError(f"moe profile: einsum calls {calls} are not the "
+                             "MoE FFN's six a call")
+    wall_us = eng.stats.wall_time * 1e6
+    it = eng.stats.iterations
+    log(f"moe profile: device busy {dev_us / 1e3:.1f} ms over {it} "
+        f"iterations ({dev_us / 1e3 / it:.2f} ms each): {dev_us / wall_us:.3f}"
+        f" of the profiled wall ({wall_us / 1e3:.1f} ms, idle share "
+        f"{1 - dev_us / wall_us:.3f}), {dev_us / 1e6 / wall:.3f} of the "
+        f"unprofiled serve's wall ({wall * 1e3:.1f} ms, idle share "
+        f"{1 - dev_us / 1e6 / wall:.3f}); {calls['router']} MoE FFN calls")
+    for part, us in parts.items():
+        log(f"moe profile: {part} einsums {us / 1e3:.1f} ms = "
+            f"{us / dev_us:.3f} of the busy time over {calls[part]} calls")
+
+
+def phase_moe(torch) -> None:
+    """Snowflake Arctic at full width, 2 of its 35 layers (seeded random
+    bf16 weights): ``phase_moe_forward`` at E / k = 64; the serve phase's 8
+    requests on the packed step at the published
+    ``capacity_factor`` 1.25, with the share of (token, expert) pairs
+    dropped, then profiled (``moe_profile``); at E / k = 64, where no pair
+    can drop (checked, with the least factor these choices needed), on the
+    packed and the legacy step: tokens agree between the steps and with a
+    teacher-forced plain forward.  Every run
+    is counted from 0 and fails unless group-7 packed attention (packed),
+    flash and decode attention (legacy) and SwiGLU (the dense residual)
+    launched once per layer and forward."""
+    from repro_torch.models import model
+    from repro_torch.models.param import count_params
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import Request
+    cfg = arctic_config(1.25)
+    full = dataclasses.replace(cfg, n_layers=35)
+    log(f"moe: {ARCTIC} ({cfg.citation}) cut: n_layers 35 -> "
+        f"{cfg.n_layers}; kept d_model {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} KV heads (group {cfg.gqa_group}), head_dim "
+        f"{cfg.resolved_head_dim}, dense residual d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.moe}; the whole model "
+        f"{count_params(model.model_defs(full)) / 1e9:.1f}B params")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"moe: {count_params(model.model_defs(cfg)) / 1e9:.3f}B params, "
+        f"seeded init {time.perf_counter() - t0:.1f} s, memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    # E / k: a group's C rows then hold every token, so nothing can drop
+    # (16.0, the JAX tests' factor, drops pairs under these random weights)
+    dropless = arctic_config(cfg.moe.num_experts / cfg.moe.top_k)
+    phase_moe_forward(torch, dropless, params)
+    prompts = serve_prompts(cfg)
+
+    with RouteRecorder() as rec:
+        eng, out125, c = serve_run(torch, cfg, params, prompts,
+                                   "moe serve (capacity 1.25)",
+                                   "packed_attention", async_depth=0)
+    check_step_counts("moe packed (capacity 1.25)", "packed", cfg, c,
+                      eng.stats)
+    drop, pairs, _ = rec.dropped()
+    log(f"moe serve (capacity 1.25): {drop} of {pairs} routed (token, "
+        f"expert) pairs dropped = {drop / pairs:.4f} (padding rows "
+        f"included); peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+        f" GiB")
+    wall = eng.stats.wall_time
+    del eng, rec
+    moe_profile(torch, cfg, params, prompts, wall)
+
+    outs = {}
+    for mode, kw in (("packed", dict(step_mode="packed", async_depth=0)),
+                     ("legacy", dict(step_mode="legacy"))):
+        tag = f"moe {mode} (capacity {dropless.moe.capacity_factor})"
+        eng = ServeEngine(dropless, params, EngineConfig(max_slots=8,
+                                                      max_len=1024, **kw))
+        zero_counts()
+        with RouteRecorder() as rec:
+            for i, p in enumerate(prompts):
+                eng.submit(Request(rid=i, prompt=p, max_new_tokens=32))
+            done = eng.run()
+            torch.cuda.synchronize()
+        c = read_counts()
+        check_off_path(tag, c)
+        s = eng.stats
+        drop, pairs, least = rec.dropped()
+        log(f"{tag}: {len(done)}/8 finished, {s.iterations} iterations, "
+            f"{s.total_tokens} tokens in {s.wall_time:.3f} s = "
+            f"{s.throughput:.1f} tok/s, {s.model_dispatches} dispatches; "
+            f"{drop} of {pairs} (token, expert) pairs dropped; these choices "
+            f"drop nothing at any capacity factor above {least:.2f}; "
+            f"launches {c}")
+        if len(done) != 8 or any(len(r.output) != 32 for r in done):
+            raise AssertionError(f"{tag}: not every request finished 32 "
+                                 "tokens")
+        if drop:
+            raise AssertionError(f"{tag}: {drop} pairs dropped")
+        if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
+            raise AssertionError(f"{tag}: token id out of range")
+        check_step_counts(tag, mode, dropless, c, s)
+        outs[mode] = {r.rid: r.output for r in done}
+        check_teacher_forced(torch, tag, dropless, params, outs[mode],
+                             prompts)
+        del eng, rec, done
+    agreement(f"moe: tokens packed vs legacy (capacity "
+              f"{dropless.moe.capacity_factor})", outs["packed"],
+              outs["legacy"])
+    agreement(f"moe: tokens at capacity 1.25 vs "
+              f"{dropless.moe.capacity_factor} (packed)", out125,
+              outs["packed"], bound=False)
+    del params
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2015,6 +2555,10 @@ def main() -> int:
     record.update(phase_ssm_kernels(torch, get_config(JAMBA), timer, bw,
                                     sfu_rate(torch)))
     lap("kernels")
+    # every attention kernel at Qwen3-8B's group 4, then at 3, 7 and 9
+    groups = {kname: [cfg.gqa_group] + g
+              for kname, g in phase_groups(torch, timer, bw, peak).items()}
+    lap("groups")
     # the two ops-only kernels: each phase's own launch through ``ops``
     ops_only = {}
     record["paged_decode_attention"], ops_only["paged_decode_attention"] = \
@@ -2053,6 +2597,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["ssm_scan"] = phase_hybrid(torch, busy)
     lap("hybrid")
+    phase_llama(torch, busy)
+    lap("llama")
+    phase_moe(torch)
+    lap("moe")
     for tag, got in busy.items():
         if got is not None and not any(k in tag for k in LEGACY_MODES):
             log(f"packed attention in the {tag} serve: {got[1]:.1f} ms of "
@@ -2079,7 +2627,9 @@ def main() -> int:
                             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
                             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                             bound_by=rec["bound_by"],
-                            library_ms=rec["library_ms"], shape=rec["shape"]))
+                            library_ms=rec["library_ms"], shape=rec["shape"],
+                            **({"groups": groups[kname]} if kname in groups
+                               else {})))
     log(f"total {time.perf_counter() - t_start:.1f} s; by phase (s) {phases}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,7 @@ Only the fields and helpers the port's serving paths read are kept
 (``ModelConfig``, ``LayerSpec``, ``MambaConfig``, ``MoEConfig``,
 ``layer_groups``, ``scale_down`` and the registry).  Layer and FFN kinds
 keep the JAX names; the kinds of later slices (MLA, the xLSTM mixers) come
-with them.  ``FFN_MOE`` and ``MoEConfig`` are here so that configurations
-with experts can be written down; the model refuses them (ROADMAP A5).
+with them.
 """
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ ATTN = "attn"          # softmax attention (GQA)
 MAMBA = "mamba"        # Mamba-1 selective SSM
 FFN_DENSE = "dense"
 FFN_MOE = "moe"
+FFN_MOE_DENSE = "moe+dense"   # Arctic-style parallel dense residual + MoE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,11 +28,16 @@ class LayerSpec:
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    """The fields a configuration with experts states; the rest of the JAX
-    ``MoEConfig`` comes with the MoE FFN (ROADMAP A5)."""
     num_experts: int = 0
     top_k: int = 2
     expert_d_ff: int = 0
+    num_shared_experts: int = 0      # DeepSeek-style always-on experts
+    shared_d_ff: int = 0
+    capacity_factor: float = 1.25
+    # tokens per dispatch group of the GShard dispatch; capacity scales
+    # with it (the JAX package's REPRO_MOE_GROUP override is not kept)
+    dispatch_group: int = 512
+    router_jitter: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,14 +125,17 @@ def get_config(name: str) -> ModelConfig:
 def _load_all() -> None:
     # import each config module for its register() side effect
     from repro_torch.configs import (  # noqa: F401
-        jamba_1_5_large_398b, qwen3_8b, tiny)
+        arctic_480b, jamba_1_5_large_398b, llama2_70b, qwen3_4b, qwen3_8b,
+        tiny)
 
 
 def scale_down(cfg: ModelConfig, *, n_layers: int = 0, d_model: int = 128,
                n_heads: int = 4, vocab: int = 512) -> ModelConfig:
     """Reduced same-family config for CPU tests (same rule as the JAX
     package's ``scale_down``, restricted to the fields kept here): the
-    block pattern and the Mamba settings stay, the widths shrink."""
+    block pattern and the Mamba settings stay, the widths shrink; at most
+    4 experts, top-2, expert and shared widths 2·d_model, dispatch groups
+    of 64 tokens."""
     pat_len = min(len(cfg.block_pattern), 8)
     layers = n_layers or (len(cfg.first_layers) + pat_len)
     kv = max(1, min(cfg.n_kv_heads, n_heads))
@@ -136,7 +144,9 @@ def scale_down(cfg: ModelConfig, *, n_layers: int = 0, d_model: int = 128,
     if cfg.moe is not None:
         moe = dataclasses.replace(
             cfg.moe, num_experts=min(cfg.moe.num_experts, 4),
-            top_k=min(cfg.moe.top_k, 2), expert_d_ff=d_model * 2)
+            top_k=min(cfg.moe.top_k, 2), expert_d_ff=d_model * 2,
+            shared_d_ff=d_model * 2 if cfg.moe.num_shared_experts else 0,
+            dispatch_group=64)
     return dataclasses.replace(
         cfg, name=cfg.name + "-smoke", n_layers=layers, d_model=d_model,
         n_heads=n_heads, n_kv_heads=kv, head_dim=hd,

@@ -4,8 +4,7 @@ top-2 [arXiv:2403.19887; hf:ai21labs/AI21-Jamba-1.5-Large].
 72L d_model=8192 64H (GQA kv=8) d_ff=24576 vocab=65536; Mamba d_state 16,
 d_conv 4, expand 2.  Pattern: 9 groups of 8 layers; attention at in-group
 index 4, Mamba elsewhere; MoE on every odd in-group index, dense FFN
-otherwise.  The port runs the MoE layers with ROADMAP A5; until then its
-callers build a dense-FFN variant with ``dataclasses.replace``.
+otherwise.
 """
 from repro_torch.configs.base import (ATTN, FFN_DENSE, FFN_MOE, MAMBA,
                                       LayerSpec, MambaConfig, ModelConfig,

@@ -23,8 +23,10 @@
 //     rows whatever the head dim, rows padded by 16 bytes so that ldmatrix
 //     reads are free of bank conflicts.
 //   * bf16 scores on the tensor cores: S = Q K^T on mma.sync m16n8k16 with
-//     the query heads as the M side (G <= 8 of its 16 rows; the rest are
-//     zero registers), q in bf16 as stored (its fragments in registers, or
+//     the query heads as the M side (G <= 8 heads in its first 8 rows, the
+//     second 8 zero registers; G = 9 also fills rows 8-15, and then keeps
+//     a second softmax state and a second 8-head O^T accumulator per
+//     thread: HS below), q in bf16 as stored (its fragments in registers, or
 //     in shared memory at D = 256) and the scale applied to the f32
 //     scores.  The score fragment is already the B operand of the product
 //     O^T += V^T P^T (M = head dim, from ldmatrix.trans of V), so P never
@@ -69,7 +71,10 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int THREADS = 256;
 constexpr int NUM_WARPS = THREADS / 32;
 constexpr int STAGES = 3;
-constexpr int MAX_G = 8;
+// head rows of the M side a group G takes (8 or 16), in head sets of 8;
+// the merge's per-owner (m, l) rows are sized by it
+template <int G>
+__host__ __device__ constexpr int head_rows() { return G <= 8 ? 8 : 16; }
 // a chunk is a whole number of stages for every dtype and head dim
 constexpr int CHUNK_MULTIPLE = 64;
 
@@ -195,12 +200,12 @@ struct Ring {
 };
 
 // dynamic shared memory of one unit: the ring (the merge reuses it), plus q
-// in f32, or in bf16 at D = 256 (MAX_G padded rows, those >= G zero)
+// in f32, or in bf16 at D = 256 (head_rows padded rows, those >= G zero)
 template <typename T, int G, int D>
 __host__ __device__ constexpr int smem_bytes() {
   return Ring<T, D>::RING_BYTES +
          (!Ring<T, D>::BF16 ? G * D * 4
-                            : Ring<T, D>::Q_SMEM ? MAX_G * Ring<T, D>::LD * 2 : 0);
+                            : Ring<T, D>::Q_SMEM ? head_rows<G>() * Ring<T, D>::LD * 2 : 0);
 }
 
 // the paged form adds each stage's physical rows, [STAGES][ROWS] int32
@@ -217,7 +222,7 @@ __host__ __device__ constexpr int paged_smem_bytes() {
 // for the pair's last chunk to finish, the merged output.
 template <typename T, int G, int D, int OWNERS>
 __device__ void finish(const Args& a, int b, int kvh, int pair, int chunk,
-                       int n_chunks, float (*sm_ml)[MAX_G][2],
+                       int n_chunks, float (*sm_ml)[head_rows<G>()][2],
                        const float* sm_acc) {
   __shared__ int last;
   T* __restrict__ out = static_cast<T*>(a.out) +
@@ -270,8 +275,8 @@ __device__ void finish(const Args& a, int b, int kvh, int pair, int chunk,
 // one unit
 // ---------------------------------------------------------------------------
 // T: q/cache/out type (float or __nv_bfloat16); G: query heads per KV head
-// (<= 8); D: head dim; PAGED: `a` is a PagedArgs and the caches are read
-// through its table.  `u` = chunk * (B * KV) + (b * KV + kvh).  All THREADS
+// (<= 8, or 9 at D <= 128); D: head dim; PAGED: `a` is a PagedArgs and the
+// caches are read through its table.  `u` = chunk * (B * KV) + (b * KV + kvh).  All THREADS
 // threads of the CTA call it; it leaves the shared buffer free.
 template <typename T, int G, int D, bool PAGED = false>
 __device__ void unit(const Args& a, int u, unsigned char* smem) {
@@ -280,7 +285,10 @@ __device__ void unit(const Args& a, int u, unsigned char* smem) {
   constexpr int LD = R::LD;
   constexpr int PIECES = ROWS * D * (int)sizeof(T) / 16 / THREADS;
   constexpr int PER_ROW = D * (int)sizeof(T) / 16;   // 16-byte pieces
-  static_assert(G >= 1 && G <= MAX_G, "group");
+  constexpr int MR = head_rows<G>();
+  constexpr int HS = MR / 8;   // bf16: head sets of 8 rows on the M side
+  static_assert(G >= 1 && G <= MR && MR <= 16, "group");
+  static_assert(G <= 8 || !R::Q_SMEM, "q in shared memory holds 8 heads");
   const int pairs = a.B * a.n_kv;
   const int chunk = u / pairs;
   const int pair = u % pairs;
@@ -352,24 +360,24 @@ __device__ void unit(const Args& a, int u, unsigned char* smem) {
     cp_async_commit();
   }
 
-  // after the loop the ring holds the merge: sm_ml [OWNERS][MAX_G][2], then
+  // after the loop the ring holds the merge: sm_ml [OWNERS][MR][2], then
   // sm_acc [G][D]
-  float(*sm_ml)[MAX_G][2] = reinterpret_cast<float(*)[MAX_G][2]>(smem);
-  float* sm_acc = reinterpret_cast<float*>(smem) + NUM_WARPS * MAX_G * 2;
+  float(*sm_ml)[MR][2] = reinterpret_cast<float(*)[MR][2]>(smem);
+  float* sm_acc = reinterpret_cast<float*>(smem) + NUM_WARPS * MR * 2;
 
   if constexpr (R::BF16) {
     constexpr int KS = D / 16;             // k-steps of Q K^T
     const int kg = warp / R::DW;           // key group: rows kg*16.. of a stage
     const int dg = warp % R::DW;           // column group: d in [dg*32, +32)
     const int h = lane >> 2;               // this thread's head in the scores
-    // A fragments of Q (rows = heads; rows 8-15 are zero registers): qa in
-    // registers, or at D = 256 q in shared memory (published by the first
-    // tile's __syncthreads)
+    // A fragments of Q (rows = heads; rows 8-15 are zero registers unless
+    // HS = 2, when they hold heads 8..): qa in registers, or at D = 256 q
+    // in shared memory (published by the first tile's __syncthreads)
     constexpr bool Q_SMEM = R::Q_SMEM;
     __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + R::RING_BYTES);
-    uint32_t qa[Q_SMEM ? 1 : KS][2];
+    uint32_t qa[Q_SMEM ? 1 : KS][2 * HS];
     if constexpr (Q_SMEM) {
-      for (int i = tid; i < MAX_G * D / 8; i += THREADS) {   // 16-byte pieces
+      for (int i = tid; i < MR * D / 8; i += THREADS) {   // 16-byte pieces
         const int r = i / (D / 8);
         const int col = (i % (D / 8)) * 8;
         const uint4 piece = r < G ? *reinterpret_cast<const uint4*>(q + r * D + col)
@@ -382,14 +390,26 @@ __device__ void unit(const Args& a, int u, unsigned char* smem) {
         const int col = ks * 16 + (lane & 3) * 2;
         qa[ks][0] = h < G ? *reinterpret_cast<const uint32_t*>(q + h * D + col) : 0u;
         qa[ks][1] = h < G ? *reinterpret_cast<const uint32_t*>(q + h * D + col + 8) : 0u;
+        if constexpr (HS > 1) {
+          const int h8 = h + 8;
+          qa[ks][2] = h8 < G ? *reinterpret_cast<const uint32_t*>(q + h8 * D + col) : 0u;
+          qa[ks][3] = h8 < G ? *reinterpret_cast<const uint32_t*>(q + h8 * D + col + 8) : 0u;
+        }
       }
     }
-    float m = NEG_INF, l = 0.f;            // head h's state, this key group
-    float o[2][4];                         // O^T: d = dg*32 + mt*16 + .., 2 heads
+    // head set hs: head h + 8 hs's state, this key group
+    float m[HS], l[HS];
+    // O^T: d = dg*32 + mt*16 + .., 2 heads of each head set
+    float o[HS][2][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int hs = 0; hs < HS; ++hs) {
+      m[hs] = NEG_INF;
+      l[hs] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[hs][mt][e] = 0.f;
+    }
 
     for (int t = 0; t < n_tiles; ++t) {
       cp_async_wait<STAGES - 2>();
@@ -422,93 +442,121 @@ __device__ void unit(const Args& a, int u, unsigned char* smem) {
         } else {
           af[0] = qa[ks][0];
           af[2] = qa[ks][1];
+          if constexpr (HS > 1) {
+            af[1] = qa[ks][2];
+            af[3] = qa[ks][3];
+          }
         }
         mma_bf16(s[0], af, bk[0], bk[1]);
         mma_bf16(s[1], af, bk[2], bk[3]);
       }
-      // online softmax of head h over this group's 16 keys (log2 units);
-      // s[n][e], e < 2, is key n*8 + (lane&3)*2 + e of the group
+      // online softmax of head h + 8 hs over this group's 16 keys (log2
+      // units); s[n][2 hs + e], e < 2, is key n*8 + (lane&3)*2 + e of the
+      // group
       const int key0 = r0 + t * ROWS + kg * 16 + (lane & 3) * 2;
-      float x[2][2];
-      float mx = m;
+      float alpha[HS];
+      float p[HS][2][2];
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+      for (int hs = 0; hs < HS; ++hs) {
+        float x[2][2];
+        float mx = m[hs];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          x[n][e] = key0 + n * 8 + e < r1 ? s[n][e] * sl2 : NEG_INF;
-          mx = fmaxf(mx, x[n][e]);
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            x[n][e] = key0 + n * 8 + e < r1 ? s[n][2 * hs + e] * sl2 : NEG_INF;
+            mx = fmaxf(mx, x[n][e]);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        alpha[hs] = exp2f(m[hs] - mx);
+        m[hs] = mx;
+        float ps = 0.f;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            p[hs][n][e] = key0 + n * 8 + e < r1 ? exp2f(x[n][e] - mx) : 0.f;
+            ps += p[hs][n][e];
+          }
+        l[hs] = l[hs] * alpha[hs] + ps;
+      }
+      // this thread's O columns are heads 8 hs + (lane&3)*2 and +1
+#pragma unroll
+      for (int hs = 0; hs < HS; ++hs) {
+        const float a0 = __shfl_sync(0xffffffffu, alpha[hs], (lane & 3) * 8);
+        const float a1 = __shfl_sync(0xffffffffu, alpha[hs], (lane & 3) * 8 + 4);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          o[hs][mt][0] *= a0;
+          o[hs][mt][1] *= a1;
+          o[hs][mt][2] *= a0;
+          o[hs][mt][3] *= a1;
         }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float alpha = exp2f(m - mx);
-      m = mx;
-      float p[2][2];
-      float ps = 0.f;
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          p[n][e] = key0 + n * 8 + e < r1 ? exp2f(x[n][e] - mx) : 0.f;
-          ps += p[n][e];
-        }
-      l = l * alpha + ps;
-      // this thread's O columns are heads (lane&3)*2 and +1
-      const float a0 = __shfl_sync(0xffffffffu, alpha, (lane & 3) * 8);
-      const float a1 = __shfl_sync(0xffffffffu, alpha, (lane & 3) * 8 + 4);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        o[mt][0] *= a0;
-        o[mt][1] *= a1;
-        o[mt][2] *= a0;
-        o[mt][3] *= a1;
       }
       // O^T += V^T P^T: P^T's B fragment is (keys (lane&3)*2.., head lane/4)
-      uint32_t bh0, bl0, bh1, bl1;
-      split_bf16(p[0][0], p[0][1], bh0, bl0);
-      split_bf16(p[1][0], p[1][1], bh1, bl1);
+      uint32_t bh0[HS], bl0[HS], bh1[HS], bl1[HS];
+#pragma unroll
+      for (int hs = 0; hs < HS; ++hs) {
+        split_bf16(p[hs][0][0], p[hs][0][1], bh0[hs], bl0[hs]);
+        split_bf16(p[hs][1][0], p[hs][1][1], bh1[hs], bl1[hs]);
+      }
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
         uint32_t av[4];
         ldmatrix_x4_trans(av, vt + ((lane & 7) + ((lane >> 4) & 1) * 8) * LD +
                                   dg * 32 + mt * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(o[mt], av, bh0, bh1);
-        mma_bf16(o[mt], av, bl0, bl1);
+#pragma unroll
+        for (int hs = 0; hs < HS; ++hs) {
+          mma_bf16(o[hs][mt], av, bh0[hs], bh1[hs]);
+          mma_bf16(o[hs][mt], av, bl0[hs], bl1[hs]);
+        }
       }
       store_rows(t, rows);
     }
     cp_async_wait<0>();
     __syncthreads();   // the ring becomes the merge buffer
 
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
+#pragma unroll
+    for (int hs = 0; hs < HS; ++hs) {
+      l[hs] += __shfl_xor_sync(0xffffffffu, l[hs], 1);
+      l[hs] += __shfl_xor_sync(0xffffffffu, l[hs], 2);
+    }
     if (dg == 0 && (lane & 3) == 0) {
-      sm_ml[kg][h][0] = m;
-      sm_ml[kg][h][1] = l;
+#pragma unroll
+      for (int hs = 0; hs < HS; ++hs) {
+        sm_ml[kg][h + 8 * hs][0] = m[hs];
+        sm_ml[kg][h + 8 * hs][1] = l[hs];
+      }
     }
     for (int idx = tid; idx < G * D; idx += THREADS) sm_acc[idx] = 0.f;
     __syncthreads();
     // the heads of this thread's O columns, their merged max and own scale
     const int hc = (lane & 3) * 2;
-    float sc[2];
+    float sc[HS][2];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int hh = hc + j;
-      float mg = NEG_INF;
+    for (int hs = 0; hs < HS; ++hs)
 #pragma unroll
-      for (int o2 = 0; o2 < R::KW; ++o2) mg = fmaxf(mg, sm_ml[o2][hh][0]);
-      sc[j] = exp2f(sm_ml[kg][hh][0] - mg);
-    }
+      for (int j = 0; j < 2; ++j) {
+        const int hh = 8 * hs + hc + j;
+        float mg = NEG_INF;
+#pragma unroll
+        for (int o2 = 0; o2 < R::KW; ++o2) mg = fmaxf(mg, sm_ml[o2][hh][0]);
+        sc[hs][j] = exp2f(sm_ml[kg][hh][0] - mg);
+      }
 #pragma unroll
     for (int owner = 0; owner < R::KW; ++owner) {
       if (kg == owner) {
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+        for (int hs = 0; hs < HS; ++hs)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int hh = hc + (e & 1);
-            const int d = dg * 32 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-            if (hh < G) sm_acc[hh * D + d] += o[mt][e] * sc[e & 1];
-          }
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int hh = 8 * hs + hc + (e & 1);
+              const int d = dg * 32 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+              if (hh < G) sm_acc[hh * D + d] += o[hs][mt][e] * sc[hs][e & 1];
+            }
       }
       __syncthreads();
     }

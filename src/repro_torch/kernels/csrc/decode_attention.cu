@@ -81,6 +81,11 @@ int dispatch(int group, int head_dim, const A& a, int n_units,
   REPRO_DA_CASES(2)
   REPRO_DA_CASES(4)
   REPRO_DA_CASES(8)
+  // groups 3, 7 and 9 (minitron, Arctic and LLaVA, StarCoder2) at head dim
+  // 128 only, the one head dim of every configuration with them
+  REPRO_DA_CASE(3, 128)
+  REPRO_DA_CASE(7, 128)
+  REPRO_DA_CASE(9, 128)
 #undef REPRO_DA_CASES
 #undef REPRO_DA_CASE
   return -1;

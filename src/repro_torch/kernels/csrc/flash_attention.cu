@@ -26,9 +26,12 @@
 //
 // What the design does about it (bf16):
 //   * Items: a work item is (64-row query tile, KV head, batch row, key
-//     chunk).  The tile's 64 rows are 64 / group positions times the
-//     group's query heads (row r = position r / group, head r % group), so
-//     each K/V tile is loaded once for all the query heads that share it.
+//     chunk).  The tile's 64 rows are 64 / group positions (rounded down)
+//     times the group's query heads (row r = position r / group, head r %
+//     group), so each K/V tile is loaded once for all the query heads that
+//     share it.  At groups 3, 7 and 9 that is 63 rows: the Q box leaves row
+//     63 as it was, its scores and sums stay in their own row of every
+//     product, and it is never stored.
 //     The wrapper's plan (kernels/flash_attention.py) splits a tile's keys
 //     into chunks of at least 16 stages only where the tiles leave SMs
 //     idle, and only into as many chunks as the idle SMs take, from the
@@ -308,6 +311,7 @@ struct Consumer {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + h * 8;
+      if ((BM / G) * G < BM && r >= (BM / G) * G) continue;   // padding row
       const int pos = pos0 + r / G;
       if (pos >= p.sq) continue;
       const float inv = 1.f / fmaxf(l[h], 1e-30f);
@@ -357,6 +361,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   using L = Cfg<D>;
   constexpr int STAGES = L::STAGES;
   constexpr int PT = BM / G;   // positions per tile
+  constexpr int Q_TX = L::BOXES * PT * G * ROW;   // the Q box's bytes
   extern __shared__ unsigned char smem_raw[];
   __shared__ int last;
   const uint32_t raw = g9::smem_u32(smem_raw);
@@ -406,7 +411,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   // the producer: the Q tile, then each stage's K and V boxes, waiting
   // only on the empty barriers
   auto load_q = [&]() {
-    g9::mbar_expect_tx(q_bar, L::Q_BYTES);
+    g9::mbar_expect_tx(q_bar, Q_TX);
 #pragma unroll
     for (int h = 0; h < D / 64; ++h)
       g9::tma_load_4d(sq_s + h * BM * ROW, &q_map, q_bar, 64 * h, kvh * G,
@@ -759,6 +764,10 @@ int launch(int dtype, int group, int head_dim, int batch, const Params& p,
   REPRO_FA_CASES(2)
   REPRO_FA_CASES(4)
   REPRO_FA_CASES(8)
+  // groups 3, 7 and 9 at head dim 128 only (csrc/decode_attention.cu)
+  REPRO_FA_CASE(3, 4)
+  REPRO_FA_CASE(7, 4)
+  REPRO_FA_CASE(9, 4)
 #undef REPRO_FA_CASES
 #undef REPRO_FA_CASE
   return -1;

@@ -256,6 +256,10 @@ int dispatch(int group, int head_dim, const Params& p, float frac, int* sched,
   REPRO_FO_CASES(2)
   REPRO_FO_CASES(4)
   REPRO_FO_CASES(8)
+  // groups 3, 7 and 9 at head dim 128 only (csrc/decode_attention.cu)
+  REPRO_FO_CASE(3, 128)
+  REPRO_FO_CASE(7, 128)
+  REPRO_FO_CASE(9, 128)
 #undef REPRO_FO_CASES
 #undef REPRO_FO_CASE
   return -1;

@@ -867,6 +867,10 @@ int dispatch(int group, int head_dim, const Args& a, cudaStream_t s) {
   REPRO_PT_CASES(2)
   REPRO_PT_CASES(4)
   REPRO_PT_CASES(8)
+  // groups 3, 7 and 9 at head dim 128 only (csrc/decode_attention.cu)
+  REPRO_PT_CASE(3, 128)
+  REPRO_PT_CASE(7, 128)
+  REPRO_PT_CASE(9, 128)
 #undef REPRO_PT_CASES
 #undef REPRO_PT_CASE
   return -1;

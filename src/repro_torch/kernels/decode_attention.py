@@ -106,9 +106,7 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     _check(tuple(v_cache.shape) == (n, s, kvh, d) and dk == d,
            f"shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
            f"v {tuple(v_cache.shape)}")
-    _check(h % kvh == 0 and h // kvh in pa.GROUPS,
-           f"group {h}/{kvh} not in {pa.GROUPS}")
-    _check(d in pa.HEAD_DIMS, f"head_dim {d} not in {pa.HEAD_DIMS}")
+    pa.check_heads(_check, h, kvh, d)
     _check(paged or b == n, f"decode: {b} queries for {n} slots")
     _check(cache_len.dtype == torch.int32 and tuple(cache_len.shape) == (b,)
            and cache_len.is_contiguous(),

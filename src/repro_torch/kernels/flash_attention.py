@@ -20,8 +20,8 @@ from typing import NamedTuple, Sequence, Union
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.packed_attention import (GROUPS, HEAD_DIMS,
-                                                  NEG_INF, split_kv_tickets)
+from repro_torch.kernels.packed_attention import (NEG_INF, check_heads,
+                                                  split_kv_tickets)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 Offset = Union[int, torch.Tensor]
@@ -167,9 +167,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(tuple(k.shape) == (b, skv, kvh, d) and v.shape == k.shape,
            f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
            f"v {tuple(v.shape)}")
-    _check(h % kvh == 0 and h // kvh in GROUPS,
-           f"group {h}/{kvh} not in {GROUPS}")
-    _check(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
+    check_heads(_check, h, kvh, d)
     _check(b < 65536 and sq < 65536, "at most 65535 rows and queries")
     _check(q.is_contiguous(), "q must be contiguous")
     # bf16 moves 16-byte boxes (TMA's strides and bases); f32 loads

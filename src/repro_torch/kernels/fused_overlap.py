@@ -19,7 +19,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import (check_caches,
                                                   decode_attention_ref,
                                                   split_kv_tickets)
-from repro_torch.kernels.packed_attention import GROUPS, HEAD_DIMS
+from repro_torch.kernels.packed_attention import check_heads
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # cache rows per attention unit (csrc/attn_decode.cuh): the fastest of
@@ -101,9 +101,7 @@ def launch(x: torch.Tensor, w: torch.Tensor, q: torch.Tensor,
            and tuple(v_cache.shape) == (b, s, kvh, d),
            f"shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
            f"v {tuple(v_cache.shape)}")
-    _check(h % kvh == 0 and h // kvh in GROUPS,
-           f"group {h}/{kvh} not in {GROUPS}")
-    _check(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
+    check_heads(_check, h, kvh, d)
     _check(cache_len.dtype == torch.int32 and tuple(cache_len.shape) == (b,)
            and cache_len.is_contiguous(),
            "cache_len must be contiguous int32 (B,)")

@@ -7,7 +7,8 @@ kernel (``csrc/packed_attention.cu``) replaces the TPU kernel
 ``src/repro/kernels/packed_attention.py:packed_attention`` in its four
 variants: contiguous or block-table caches (DESIGN.md §12), each with
 native or int8 K/V (DESIGN.md §15).  It runs query tiles over runs of one
-slot (a tile reads each K/V row once for up to ``64 // group`` tokens)
+slot (a tile reads each K/V row once for up to ``tq`` tokens, the largest
+power of two with ``tq * group <= 64``)
 split into chunks of key rows, on the tensor cores with bf16 q and the
 CUDA cores with f32 q; ``tile_plan`` sizes them and the split-KV scratch
 from T and the sweep alone.  ``packed_attention_ref`` ports ``src/repro/kernels/ref.py:
@@ -24,8 +25,12 @@ from repro_torch.kernels import build
 from repro_torch.serving.kvquant import dequantize_kv
 
 NEG_INF = -1e30
-GROUPS = (1, 2, 4, 8)          # query heads per KV head the kernel is built for
+GROUPS = (1, 2, 4, 8)          # query heads per KV head, built at every head dim
 HEAD_DIMS = (64, 128, 256)
+# groups 3, 7 and 9 (minitron-4b, Arctic and LLaVA-NeXT-34B, StarCoder2-7B)
+# are built at head_dim 128 only, the head dim of every configuration with
+# them; the five attention kernels share this rule
+GROUPS_128 = (3, 7, 9)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (block tables, int8 K/V) -> the kernel variant's build target
 VARIANTS = {(False, False): "packed_attention",
@@ -43,6 +48,18 @@ CHUNK_MULTIPLE = 64
 SPLIT_BUDGET = 2048
 # per-(device, stream) split-KV ticket counters; each launch leaves them 0
 _TICKETS: dict = {}
+
+
+def check_heads(check, h: int, kvh: int, d: int) -> None:
+    """The (group, head dim) pairs the attention kernels are built for:
+    ``GROUPS`` at every head dim of ``HEAD_DIMS``, ``GROUPS_128`` at 128.
+    ``check(cond, what)`` raises the calling kernel's error."""
+    group = h // kvh if kvh > 0 and h % kvh == 0 else 0
+    check(group in GROUPS + GROUPS_128,
+          f"group {h}/{kvh} not in {GROUPS + GROUPS_128}")
+    check(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
+    check(group in GROUPS or d == 128,
+          f"group {group} is built at head_dim 128 only, not {d}")
 
 
 def split_kv_tickets(dev: torch.device, stream: int, n: int) -> torch.Tensor:
@@ -66,7 +83,8 @@ def tile_plan(t: int, group: int, sweep: int, *, tq: Optional[int] = None,
     (never the lengths).  The chunks cover the sweep; when T x chunks would
     pass ``SPLIT_BUDGET`` the chunks grow so that the scratch stays within
     it, and a stream of SPLIT_BUDGET tokens or more is not split at all."""
-    tq = TILE_ROWS // group if tq is None else tq
+    if tq is None:   # the largest power of two with tq x group <= 64
+        tq = 1 << ((TILE_ROWS // group).bit_length() - 1)
     chunk = CHUNK if chunk is None else chunk
     if not (1 <= tq and tq & (tq - 1) == 0 and tq * group <= TILE_ROWS):
         raise ValueError(f"tq {tq} must be a power of two, and tq x group "
@@ -242,9 +260,7 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
     _check(tuple(v_cache.shape) == (n, s, kvh, d) and dk == d,
            f"shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
            f"v {tuple(v_cache.shape)}")
-    _check(h % kvh == 0 and h // kvh in GROUPS,
-           f"group {h}/{kvh} not in {GROUPS}")
-    _check(d in HEAD_DIMS, f"head_dim {d} not in {HEAD_DIMS}")
+    check_heads(_check, h, kvh, d)
     _check(t < 65536, "at most 65535 tokens per launch")
     for name, x in per_token:
         _check(x.dtype == torch.int32 and tuple(x.shape) == (t,)

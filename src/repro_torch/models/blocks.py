@@ -1,18 +1,21 @@
-"""Per-layer block: a sequence mixer (GQA attention or Mamba) + dense FFN,
-pre-norm residual (port of ``repro.models.blocks`` for ``LayerSpec(ATTN,
-FFN_DENSE)`` and ``LayerSpec(MAMBA, FFN_DENSE)``): the packed step
+"""Per-layer block: a sequence mixer (GQA attention or Mamba) + an FFN
+(dense, MoE, or MoE beside a dense residual), pre-norm residual (port of
+``repro.models.blocks`` for those layer kinds): the packed step
 (``block_packed``) and the legacy step's whole-chunk, decode and
 incremental-chunk paths (``block_full``, ``block_decode``,
 ``block_chunk``).  An attention layer's cache is ``{"k", "v"}`` (plus
-int8 scales), a Mamba layer's its state ``{"conv", "ssm"}``."""
+int8 scales), a Mamba layer's its state ``{"conv", "ssm"}``.  Every path
+computes the MoE balance loss; only ``block_full`` returns it, as in
+JAX."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import (ATTN, FFN_DENSE, FFN_MOE, MAMBA,
-                                      LayerSpec, ModelConfig)
+from repro_torch.configs.base import (ATTN, FFN_DENSE, FFN_MOE,
+                                      FFN_MOE_DENSE, MAMBA, LayerSpec,
+                                      ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -21,13 +24,12 @@ from repro_torch.models.param import ParamDef
 
 
 def check_spec(spec: LayerSpec) -> None:
-    if spec.ffn == FFN_MOE:
-        raise NotImplementedError(
-            f"layer {spec}: the MoE FFN is ROADMAP A5")
-    if spec.mixer not in (ATTN, MAMBA) or spec.ffn != FFN_DENSE:
+    if spec.mixer not in (ATTN, MAMBA) or \
+            spec.ffn not in (FFN_DENSE, FFN_MOE, FFN_MOE_DENSE):
         raise NotImplementedError(
             f"layer {spec}: the port runs GQA attention or Mamba mixers with "
-            "a dense FFN; MLA and MoE are ROADMAP A5, the xLSTM mixers A9")
+            "a dense, MoE or MoE + dense FFN; the xLSTM mixers and FFN-less "
+            "layers are ROADMAP A9")
 
 
 def block_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
@@ -35,24 +37,37 @@ def block_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
     d, dt = cfg.d_model, cfg.dtype
     mixer = attn.gqa_defs(cfg) if spec.mixer == ATTN \
         else ssm_mod.mamba_defs(cfg)
+    if spec.ffn == FFN_DENSE:
+        ffn = moe_mod.ffn_defs(d, cfg.d_ff, dt)
+    else:
+        ffn = moe_mod.moe_defs(cfg,
+                               dense_residual=spec.ffn == FFN_MOE_DENSE)
     return {"norm1": ParamDef((d,), init="ones", dtype=dt),
             "mixer": mixer,
             "norm2": ParamDef((d,), init="ones", dtype=dt),
-            "ffn": moe_mod.ffn_defs(d, cfg.d_ff, dt)}
+            "ffn": ffn}
 
 
-def _ffn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
-               impl: Optional[str]) -> torch.Tensor:
+def _ffn_apply(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
+               impl: Optional[str]):
+    """Returns (x + FFN(norm2(x)), the MoE balance loss, or None for a
+    dense FFN)."""
     h = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + moe_mod.dense_ffn(p["ffn"], h, impl=impl)
+    if spec.ffn == FFN_DENSE:
+        return x + moe_mod.dense_ffn(p["ffn"], h, impl=impl), None
+    y, aux = moe_mod.moe_ffn(cfg, p["ffn"], h,
+                             dense_residual=spec.ffn == FFN_MOE_DENSE,
+                             impl=impl)
+    return x + y, aux
 
 
 def block_full(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                positions: torch.Tensor, *, q_offset=0,
                return_state: bool = False, impl: Optional[str] = None):
-    """Whole-chunk prefill for one layer.  Returns (x, state): with
-    ``return_state``, ``state`` is ``{"kv": (k, v)}`` with the chunk's K/V
-    for attention and the new ``{"conv", "ssm"}`` for Mamba, else None."""
+    """Whole-chunk prefill for one layer.  Returns (x, aux, state): the
+    MoE balance loss (None for a dense FFN), and with ``return_state`` ``state`` is ``{"kv": (k,
+    v)}`` with the chunk's K/V for attention and the new ``{"conv",
+    "ssm"}`` for Mamba, else None."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == ATTN:
         r = attn.gqa_full(cfg, p["mixer"], h, positions, q_offset=q_offset,
@@ -63,8 +78,8 @@ def block_full(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
         r = ssm_mod.mamba_full(cfg, p["mixer"], h, return_state=return_state,
                                impl=impl)
         y, state = r if return_state else (r, None)
-    x = _ffn_apply(cfg, p, x + y, impl)
-    return x, state
+    x, aux = _ffn_apply(cfg, spec, p, x + y, impl)
+    return x, aux, state
 
 
 def block_decode(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
@@ -79,7 +94,8 @@ def block_decode(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                                    cache_len, impl=impl)
     else:
         y, cache = ssm_mod.mamba_decode(cfg, p["mixer"], h, cache)
-    return _ffn_apply(cfg, p, x + y, impl), cache
+    x, _aux = _ffn_apply(cfg, spec, p, x + y, impl)
+    return x, cache
 
 
 def block_chunk(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
@@ -99,7 +115,8 @@ def block_chunk(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                                       return_state=True, impl=impl)
         for name, leaf in cache.items():
             leaf.copy_(state[name])
-    return _ffn_apply(cfg, p, x + y, impl), cache
+    x, _aux = _ffn_apply(cfg, spec, p, x + y, impl)
+    return x, cache
 
 
 def block_packed(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
@@ -126,7 +143,8 @@ def block_packed(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
             raise ValueError("a Mamba layer's packed step needs token_active")
         y, cache = ssm_mod.mamba_packed(cfg, p["mixer"], h, cache,
                                         token_slot, token_active)
-    return _ffn_apply(cfg, p, x + y, impl), cache
+    x, _aux = _ffn_apply(cfg, spec, p, x + y, impl)
+    return x, cache
 
 
 def block_init_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,

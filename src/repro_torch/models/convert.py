@@ -4,7 +4,10 @@ The JAX model stacks the layers of each ``cfg.layer_groups()`` group into
 ``group{gi}/sub{i}`` leaves with a leading ``reps`` axis (scan over
 layers); the port keeps one dict per layer in ``params["layers"]``.
 Repetition r of group gi runs its sub-layers in order, so layer order is
-group by group, repetition by repetition, sub-layer by sub-layer.
+group by group, repetition by repetition, sub-layer by sub-layer.  Every
+leaf, nested sub-dicts included (an MoE FFN's f32 router, its (E, D, F)
+expert stacks and its ``shared`` and ``dense`` FFNs), loses the leading
+``reps`` axis, which the JAX stacking puts before the expert axis.
 """
 from __future__ import annotations
 

@@ -24,8 +24,8 @@ from repro_torch.models.param import ParamDef, init_params
 
 def check_config(cfg: ModelConfig) -> None:
     """The port runs decoders of GQA attention and Mamba layers (hybrids
-    included), each with an untied dense SwiGLU FFN and no modality
-    frontend; anything else raises."""
+    included), each with a dense SwiGLU, MoE or MoE + dense FFN, untied
+    embeddings and no modality frontend; anything else raises."""
     if cfg.frontend != "none" or cfg.tie_embeddings or not cfg.ffn_gated:
         raise NotImplementedError(
             f"{cfg.name}: frontends, tied embeddings and ungated FFNs are "
@@ -120,7 +120,7 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     (logits, aux, states): ``states[i]`` is layer i's ``{"kv": (k, v)}``,
     each (B, S, KV, hd), for an attention layer and its final ``{"conv",
     "ssm"}`` for a Mamba layer, for handing off to a decode cache.  ``aux``
-    (the MoE balance loss in the JAX package) is 0 for these models."""
+    is the MoE balance loss summed over the layers (0 without experts)."""
     x = _embed(params, tokens)
     b, s = tokens.shape
     if positions is None:
@@ -132,13 +132,15 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                                      dtype=torch.int32, device=x.device)
         positions = positions.expand(b, s)
     states = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in zip(cfg.layer_specs(), params["layers"]):
-        x, st = blocks.block_full(cfg, spec, p, x, positions,
-                                  q_offset=q_offset,
-                                  return_state=return_states, impl=impl)
+        x, a, st = blocks.block_full(cfg, spec, p, x, positions,
+                                     q_offset=q_offset,
+                                     return_state=return_states, impl=impl)
+        if a is not None:
+            aux = aux + a
         states.append(st)
     logits = _head(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return (logits, aux, states) if return_states else (logits, aux)
 
 

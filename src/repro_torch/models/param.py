@@ -4,11 +4,15 @@ A definition tree is a nested dict of ``ParamDef``s (lists for the
 per-layer stack).  ``init_params`` draws each leaf from its own seeded
 ``torch.Generator`` on the target device, with the JAX init's scales
 (``repro/models/param.py``): truncated normal on [-2, 2] times
-1/sqrt(fan_in), norms set to ones, biases to zeros, and Mamba's ``a_log``
+1/sqrt(fan_in) (0.02 for the MoE router, drawn in f32), norms set to
+ones, biases to zeros, and Mamba's ``a_log``
 (log 1..N per channel) and ``dt_bias`` (the inverse softplus of a step
 drawn log-uniform on [1e-3, 1e-1]).  The draws differ from JAX's (another
 generator); tests that compare the packages convert the JAX pytree instead
-(``models.convert``).
+(``models.convert``).  A leaf marked ``per_slice`` (the experts' stacked
+weights) draws each index of its first axis from a generator of its own,
+so that the f32 scratch of a draw is one expert's, not the whole leaf's
+(an Arctic expert leaf is 4.46 G values).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 INIT_NORMAL = "normal"       # truncated-normal, 1/sqrt(fan_in)
 INIT_ONES = "ones"
 INIT_ZEROS = "zeros"
+INIT_SMALL = "small"         # fixed 0.02 std (the MoE router)
 INIT_A_LOG = "a_log"         # mamba: A = -exp(A_log)
 INIT_DT_BIAS = "dt_bias"     # mamba: softplus^-1 of the initial step
 
@@ -34,6 +39,7 @@ class ParamDef:
     init: str = INIT_NORMAL
     dtype: str = "bfloat16"
     fan_in_axes: tuple[int, ...] = ()      # () => axis 0
+    per_slice: bool = False                # draw axis 0's slices apart
 
     @property
     def fan_in(self) -> int:
@@ -80,21 +86,33 @@ def _materialize(d: ParamDef, gen: torch.Generator,
         dt_v = torch.exp(u * (math.log(dt_max) - math.log(dt_min))
                          + math.log(dt_min))
         return (dt_v + torch.log(-torch.expm1(-dt_v))).to(dt)
-    if d.init != INIT_NORMAL:
+    if d.init not in (INIT_NORMAL, INIT_SMALL):
         raise ValueError(d.init)
     w = torch.empty(d.shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=gen)
-    w.mul_(1.0 / math.sqrt(max(d.fan_in, 1)))
+    w.mul_(0.02 if d.init == INIT_SMALL else 1.0 / math.sqrt(max(d.fan_in, 1)))
     return w.to(dt)
 
 
 def init_params(tree, seed: int, device: torch.device) -> dict:
     """Materialise every leaf on ``device``; each leaf's generator is seeded
     from (seed, crc32 of its path), so a leaf does not depend on the order
-    or number of the others."""
-    def leaf(path, d: ParamDef):
+    or number of the others; slice i of a ``per_slice`` leaf from (seed,
+    crc32 of its path + "/i"), written into the leaf in place."""
+    def gen_for(path) -> torch.Generator:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed * 1_000_003 + zlib.crc32("/".join(path).encode()))
-        return _materialize(d, gen, device)
+        return gen
+
+    def leaf(path, d: ParamDef):
+        if not d.per_slice:
+            return _materialize(d, gen_for(path), device)
+        out = torch.empty(d.shape, dtype=DTYPES[d.dtype], device=device)
+        one = dataclasses.replace(d, shape=d.shape[1:], per_slice=False,
+                                  fan_in_axes=tuple(
+                                      a - 1 for a in d.fan_in_axes))
+        for i in range(d.shape[0]):
+            out[i] = _materialize(one, gen_for(path + (str(i),)), device)
+        return out
     return map_defs(leaf, tree)

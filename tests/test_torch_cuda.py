@@ -61,7 +61,8 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256),
+                                     (3, 128), (7, 128), (9, 128)])
 def test_packed_attention_kernel(cuda, group, d, dtype):
     """33 tokens over 4 slots of 300 rows, ragged bucket of 257."""
     rng = np.random.default_rng(group + d)
@@ -111,7 +112,8 @@ def _variant_args(cuda, variant, group, d, t=33, n=4, s=320, kv=2, bs=16):
 @pytest.mark.parametrize("variant", ["packed_attention_quant",
                                      "packed_attention_block",
                                      "packed_attention_block_quant"])
-@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128)])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (3, 128),
+                                     (7, 128), (9, 128)])
 def test_packed_attention_variant_kernels(cuda, variant, group, d):
     """The int8, block-table and block-table + int8 kernels against the
     plain version in f32 (dequantization is exact in f32, so only the
@@ -166,9 +168,10 @@ SEG_SLOTS, SEG_ROWS, SEG_BLOCK = 6, 320, 16
 
 def segmented_stream(case: str, group: int, seed: int = 0):
     """(token_slot, lengths, kv_bucket) of one case as int32 numpy arrays;
-    ``tq = 64 // group`` is the tile kernel's tokens per group."""
+    ``tq`` (``tile_plan``'s: the largest power of two with tq x group <=
+    64) is the tile kernel's tokens per group."""
     rng = np.random.default_rng(seed)
-    tq = 64 // group
+    tq = pa.tile_plan(1, group, 64)[0]
     slot, lens = [], []
 
     def run(sl, ls):
@@ -290,6 +293,21 @@ def test_packed_attention_segmented_streams(cuda, case, variant, group, d,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [3, 7, 9])
+@pytest.mark.parametrize("variant", ["packed_attention",
+                                     "packed_attention_quant",
+                                     "packed_attention_block",
+                                     "packed_attention_block_quant"])
+@pytest.mark.parametrize("case", SEGMENTED)
+def test_packed_attention_segmented_streams_groups_3_7_9(cuda, case, variant,
+                                                         group, dtype):
+    """The segmented streams at the groups built for head_dim 128 only,
+    whose tiles hold tq = 16, 8 and 4 tokens (48, 56 and 36 of 64 rows)."""
+    test_packed_attention_segmented_streams(cuda, case, variant, group, 128,
+                                            dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("variant", ["packed_attention",
                                      "packed_attention_quant",
                                      "packed_attention_block",
@@ -314,7 +332,8 @@ def _normal(rng, cuda, dtype, *shape):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256),
+                                     (3, 128), (7, 128), (9, 128)])
 def test_flash_attention_kernel(cuda, group, d, dtype):
     """Per-row offsets 0, 100 and 250 for a 37-query chunk over the
     280-row slot views of a 4-slot cache (strided rows; the last chunk
@@ -388,7 +407,15 @@ def test_flash_attention_bf16_ragged_shapes(cuda, group, d):
                                **_tol("bfloat16"))
 
 
-@pytest.mark.parametrize("group,d", [(4, 128), (8, 256)])
+@pytest.mark.parametrize("group", [3, 7, 9])
+def test_flash_attention_bf16_ragged_shapes_groups_3_7_9(cuda, group):
+    """The ragged shapes at the groups built for head_dim 128 only, whose
+    tiles hold 21, 9 and 7 positions (63 of 64 rows: the last is never
+    stored)."""
+    test_flash_attention_bf16_ragged_shapes(cuda, group, 128)
+
+
+@pytest.mark.parametrize("group,d", [(4, 128), (8, 256), (7, 128)])
 def test_flash_attention_split_tiles_merge_in_order(cuda, group, d):
     """A 256-token chunk at device offset 1536 over a 2048-row view of one
     KV head: the plan splits each tile's keys into several chunks, merged
@@ -425,7 +452,8 @@ def test_flash_attention_split_tiles_merge_in_order(cuda, group, d):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256),
+                                     (3, 128), (7, 128), (9, 128)])
 def test_decode_attention_kernel(cuda, group, d, dtype):
     """5 slots of 300 rows with lengths 1, 299, 300 and S + 1 (a decode at
     a full slot attends all S rows) and 57, against the plain version."""
@@ -445,7 +473,8 @@ def test_decode_attention_kernel(cuda, group, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256),
+                                     (3, 128), (7, 128), (9, 128)])
 def test_decode_attention_chunk_edges(cuda, group, d, dtype):
     """Lengths at every edge of the split-KV chunks: 1, C - 1, C, C + 1, S
     and S + 1 over an S-row cache of several chunks, against the plain
@@ -576,7 +605,8 @@ def _paged_args(cuda, dtype, group, d, maxp, ps=16, kv=2, npages=40,
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("maxp", [1, 6])
-@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256),
+                                     (3, 128), (7, 128), (9, 128)])
 def test_paged_decode_attention_kernel(cuda, group, d, maxp, dtype):
     """Ragged lengths, partial last pages and -1 padding, MAXP 1 and 6,
     against the plain version, through ``ops`` (the counter moves)."""
@@ -605,7 +635,8 @@ def test_paged_decode_attention_scale_hole_and_strides(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256),
+                                     (3, 128), (7, 128), (9, 128)])
 @pytest.mark.parametrize("ps,maxp", [(16, 10), (64, 4)])
 def test_paged_decode_attention_page_edges(cuda, ps, maxp, group, d, dtype):
     """The unit's paged form: rows of exactly one page, of a page edge
@@ -664,7 +695,8 @@ def _overlap_args(cuda, dtype, m, k, n, group=4, d=128, b=5, s=600, kv=2,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256)])
+@pytest.mark.parametrize("group,d", [(1, 64), (4, 128), (8, 128), (2, 256),
+                                     (3, 128), (7, 128), (9, 128)])
 @pytest.mark.parametrize("m,k,n", [(1, 8, 8), (70, 136, 200),
                                    (300, 264, 520)])
 def test_fused_overlap_kernel(cuda, m, k, n, group, d, dtype):
@@ -1125,6 +1157,69 @@ def test_hybrid_engine_on_card_matches_cpu(cuda, mode):
         scans = ssm_scan_cuda.launches - before
         assert (scans > 0) == (dev == "cuda" and eng.step_mode == "legacy")
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6
+
+
+@pytest.mark.parametrize("mode", [dict(step_mode="packed"),
+                                  dict(step_mode="legacy")])
+def test_arctic_engine_on_card_matches_cpu(cuda, mode):
+    """Arctic's layers (routed experts beside the dense residual) at
+    scaled-down width with its GQA group 7 at head_dim 128 (14 / 2 heads,
+    a shape the attention kernels take), f32, ``capacity_factor`` 16 (no
+    (token, expert) pair dropped): the packed step (packed attention) and
+    the legacy step (flash and decode attention) on the card serve the
+    same greedy tokens as on the CPU, with slot reuse."""
+    cfg = scale_down(get_config("arctic-480b"), d_model=256)
+    cfg = dataclasses.replace(
+        cfg, n_heads=14, n_kv_heads=2, head_dim=128, dtype="float32",
+        moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    assert cfg.gqa_group == 7
+    params = model.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                             int(rng.integers(3, 40)))]
+               for _ in range(6)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, _to(params, dev), EngineConfig(
+            max_slots=2, max_len=64, discrete_sizes=(16, 8),
+            avg_decode_len=4, **mode), device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=pr, max_new_tokens=6))
+        before = (sum(packed_attention_cuda.launches.values()),
+                  flash_attention_cuda.launches, swiglu_cuda.launches)
+        outs[dev] = {r.rid: r.output for r in eng.run()}
+        launched = (sum(packed_attention_cuda.launches.values()) - before[0],
+                    flash_attention_cuda.launches - before[1],
+                    swiglu_cuda.launches - before[2])
+        want_packed = dev == "cuda" and eng.step_mode == "packed"
+        assert (launched[0] > 0) == want_packed, launched
+        assert (launched[1] > 0) == (dev == "cuda" and not want_packed)
+        assert (launched[2] > 0) == (dev == "cuda"), launched
+    assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6
+
+
+def test_attention_wrappers_refuse_groups_3_7_9_off_head_dim_128(cuda):
+    """Groups 3, 7 and 9 are built at head_dim 128 only: at 64 each of the
+    five wrappers raises, naming the rule, and nothing launches."""
+    from repro_torch.kernels import fused_overlap as fo
+    rng = np.random.default_rng(0)
+    d, kv, group = 64, 2, 7
+    q = _normal(rng, cuda, "bfloat16", 4, kv * group, d)
+    k = _normal(rng, cuda, "bfloat16", 4, 64, kv, d)
+    lens = torch.full((4,), 9, dtype=torch.int32, device=cuda)
+    slot = torch.arange(4, dtype=torch.int32, device=cuda)
+    table = torch.zeros((4, 4), dtype=torch.int32, device=cuda)
+    x = _normal(rng, cuda, "bfloat16", 8, 64)
+    calls = [lambda: packed_attention_cuda(q, k, k, slot, lens),
+             lambda: decode_attention_cuda(q, k, k, lens),
+             lambda: paged_decode_attention_cuda(q, k[:, :16], k[:, :16],
+                                                 table, lens),
+             lambda: flash_attention_cuda(q[None], k[:1], k[:1]),
+             lambda: fo.fused_overlap_cuda(x, x.T.contiguous(), q, k, k,
+                                           lens)]
+    for call in calls:
+        with pytest.raises(ValueError, match="head_dim 128 only"):
+            call()
 
 
 def _to(tree, dev):

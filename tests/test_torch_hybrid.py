@@ -2,8 +2,10 @@
 
 The model is Jamba-1.5-Large's layer pattern at scaled-down widths
 (``scale_down``: one 8-layer group, 7 Mamba layers and attention at index
-4) with every FFN dense and no experts, the configuration the port runs
-until the MoE FFN lands (ROADMAP A5).  Both packages run the same weights
+4) with every FFN dense and no experts: a choice of this file, which
+tests the Mamba paths apart from the experts (Jamba with its MoE layers
+is held to JAX in ``tests/test_torch_moe.py`` and
+``tests/test_torch_moe_engine.py``).  Both packages run the same weights
 (the JAX ``model.init`` pytree, converted with ``from_jax_params``):
 ``forward_full(return_states=True)``, ``prefill``, ``forward_chunk``,
 ``forward_decode`` and ``forward_packed`` must agree to atol 1e-4 (the
@@ -27,7 +29,8 @@ from repro.serving.config import EngineConfig as JaxEngineConfig
 from repro.serving.engine import ServeEngine as JaxServeEngine
 from repro.serving.engine import kv_bytes_per_token as jax_kv_bytes
 from repro.serving.request import Request as JaxRequest
-from repro_torch.configs import ATTN, FFN_DENSE, get_config, scale_down
+from repro_torch.configs import (ATTN, FFN_DENSE, LayerSpec, get_config,
+                                 scale_down)
 from repro_torch.models import model
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serving.config import EngineConfig
@@ -283,8 +286,15 @@ def test_engine_refuses_what_jax_refuses(models):
                     device="cpu")
 
 
-def test_moe_layers_are_refused():
-    """Jamba as published has MoE FFNs on odd in-group layers: the port
-    names the ROADMAP item that brings them."""
-    with pytest.raises(NotImplementedError, match="A5"):
-        model.model_defs(scale_down(get_config(JAMBA)))
+def test_xlstm_layers_are_refused():
+    """The xLSTM mixers and FFN-less layers are not in the port: it names
+    the ROADMAP item that brings them, while Jamba as published (MoE FFNs
+    on odd in-group layers) builds."""
+    model.model_defs(scale_down(get_config(JAMBA)))
+    for spec in (LayerSpec(mixer="mlstm", ffn="none"),
+                 LayerSpec(mixer="slstm", ffn=FFN_DENSE),
+                 LayerSpec(mixer=ATTN, ffn="none")):
+        cfg = dataclasses.replace(scale_down(get_config(JAMBA)),
+                                  block_pattern=(spec,))
+        with pytest.raises(NotImplementedError, match="A9"):
+            model.model_defs(cfg)

@@ -220,7 +220,7 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 3, 7, 9])
 @pytest.mark.parametrize("case", SEGMENTED)
 def test_tiles_cover_the_stream(case, group):
     """chip_smoke's host replay of the tile kernel's tiling, which its K/V
@@ -231,7 +231,9 @@ def test_tiles_cover_the_stream(case, group):
     cs = _chip_smoke()
     slot, lens, bucket = segmented_stream(case, group)
     tq, _, _ = pa.tile_plan(len(slot), group, bucket)
-    assert tq == 64 // group
+    # the largest power of two with tq x group <= 64: 64 // group for
+    # groups 1, 2, 4 and 8, and 16, 8 and 4 for groups 3, 7 and 9
+    assert tq & (tq - 1) == 0 and tq * group <= 64 < 2 * tq * group
     tiles = cs.tiles(slot, lens, SEG_SLOTS, bucket, tq)
     clamped = [min(max(int(x), 0), bucket) if 0 <= s < SEG_SLOTS else 0
                for s, x in zip(slot, lens)]
@@ -259,14 +261,16 @@ def test_tiles_cover_the_stream(case, group):
 @pytest.mark.parametrize("t,group,sweep", [(8, 4, 1024), (245, 4, 1024),
                                            (256, 1, 4096), (1024, 8, 1024),
                                            (4096, 2, 512), (0, 4, 64),
-                                           (3, 2, 0)])
+                                           (3, 2, 0), (256, 3, 1024),
+                                           (245, 7, 2048), (8, 9, 4096)])
 def test_tile_plan_sizes_the_scratch_from_shapes(t, group, sweep):
-    """tile_plan's (tq, chunk, chunks): 64 rows per tile, power-of-two
-    chunks of at least CHUNK rows that cover the sweep, and split-KV
-    scratch within SPLIT_BUDGET tokens x chunks (one chunk for a stream of
-    that many tokens)."""
+    """tile_plan's (tq, chunk, chunks): 64 rows per tile at groups 1, 2, 4
+    and 8 (48, 56 and 36 at groups 3, 7 and 9: tq the largest power of
+    two that fits), power-of-two chunks of at least CHUNK rows that cover
+    the sweep, and split-KV scratch within SPLIT_BUDGET tokens x chunks
+    (one chunk for a stream of that many tokens)."""
     tq, chunk, n = pa.tile_plan(t, group, sweep)
-    assert tq * group == pa.TILE_ROWS
+    assert tq * group == {3: 48, 7: 56, 9: 36}.get(group, pa.TILE_ROWS)
     assert chunk >= pa.CHUNK and chunk & (chunk - 1) == 0
     assert n >= 1 and n * chunk >= sweep
     assert t * n <= max(pa.SPLIT_BUDGET, t)
@@ -283,3 +287,21 @@ def test_tile_plan_sizes_the_scratch_from_shapes(t, group, sweep):
 def test_tile_plan_refuses_what_the_kernel_does_not_take(bad):
     with pytest.raises(ValueError):
         pa.tile_plan(16, 4, 1024, **bad)
+
+
+@pytest.mark.parametrize("group,d,ok", [
+    (1, 64, True), (8, 256, True), (3, 128, True), (7, 128, True),
+    (9, 128, True), (7, 64, False), (9, 256, False), (3, 64, False),
+    (5, 128, False), (16, 128, False), (4, 32, False)])
+def test_attention_kernels_take_groups_3_7_9_at_head_dim_128(group, d, ok):
+    """The (group, head dim) pairs the five attention kernels are built
+    for: groups 1, 2, 4 and 8 at head dims 64, 128 and 256, groups 3, 7 and
+    9 at 128 only; any other pair raises, naming the rule."""
+    def check(cond, what):
+        if not cond:
+            raise ValueError(what)
+    if ok:
+        pa.check_heads(check, 2 * group, 2, d)
+    else:
+        with pytest.raises(ValueError, match="group|head_dim"):
+            pa.check_heads(check, 2 * group, 2, d)
