@@ -150,6 +150,26 @@ Phases (any failure exits non-zero; no phase is caught):
                attention (packed), flash and decode attention (legacy) and
                SwiGLU (the dense residual) launched once per layer and
                forward.
+ 15. mla     — DeepSeek-V2 (absorbed MLA) at full width cut to 2 of its
+               60 layers (layer 0's dense FFN, layer 1's 160 experts top-6
+               and 2 shared; ~5.4B params): the MLA latent-attention kernel
+               (csrc/mla_attention.cu) against its plain version in f32
+               and bf16 at 128 heads, rank 512 + rope 64, on the kernels
+               phase's mixed stream, 8 decode rows (the sweep split over
+               the SMs), a 256-token chunk at device offset 512 and a
+               513-token recompute, each timed beside its plain version,
+               masked SDPA over the concatenated key and its bound;
+               ``forward_packed`` through the kernels against the plain
+               versions at capacity E / k = 26.67 (nothing drops); the 8
+               requests at E / k on the packed step (contiguous, prefix
+               caching, int8 KV), the legacy step and recompute prefill,
+               each counted from 0: the MLA kernel and SwiGLU once per
+               layer and forward and no other kernel, every request
+               finishes, tokens agree between the steps and with a
+               teacher-forced plain forward (through an int8 cache for
+               int8); the contiguous serve profiled (the MLA kernel's
+               share of the busy time); the packed serve at the published
+               capacity 1.25 with its dropped share.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -217,7 +237,7 @@ PAGE = 16               # rows per page of the paged phase
 # profile, and names of the port's own kernels, which are never counted so
 LIBRARY_GEMMS = ("nvjet", "gemm", "xmma", "cutlass")
 OUR_KERNELS = ("packed_attention", "flash", "swiglu", "ssm_scan",
-               "decode_attention", "fused_overlap")
+               "decode_attention", "fused_overlap", "mla_")
 OVERLAP_FRACTIONS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 # the fused GEMM in f32 against torch.matmul: 4096-term sums in another order
 GEMM_F32_TOL = (1e-4, 1e-4)
@@ -231,6 +251,11 @@ ARCTIC = "arctic-480b"
 LLAMA = "llama2-70b"
 LLAMA_LAYERS = 8        # of 80: ~7.4B params, ~14.7 GB in bf16
 MOE_LAYERS = 2          # of 35: ~27.7B params, ~55.4 GB in bf16
+DEEPSEEK = "deepseek-v2-236b"
+MLA_LAYERS = 2          # of 60: layer 0 (dense FFN) and 1 (MoE), ~5.4B
+# absorbed MLA's latent attention: source, the TPU kernel it replaces (the
+# packed-attention Pallas kernel in its KV = 1, d_v != d_qk form)
+MLA = (f"{_CSRC}/mla_attention.cu", f"{_TPU_PA}:135")
 HYBRID_LAYERS = 8       # one pattern group: 7 Mamba + 1 attention layer
 HYBRID_MODES = {"legacy": dict(step_mode="legacy"),
                 "recompute": dict(prefill_mode="recompute"),
@@ -1315,6 +1340,7 @@ def _counted():
         decode_attention_cuda, paged_decode_attention_cuda)
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.fused_overlap import fused_overlap_cuda
+    from repro_torch.kernels.mla_attention import mla_attention_cuda
     from repro_torch.kernels.packed_attention import packed_attention_cuda
     from repro_torch.kernels.ssm_scan import ssm_scan_cuda
     from repro_torch.kernels.swiglu import swiglu_cuda
@@ -1324,7 +1350,8 @@ def _counted():
                                     "ssm_scan": ssm_scan_cuda,
                                     "paged_decode_attention":
                                         paged_decode_attention_cuda,
-                                    "fused_overlap": fused_overlap_cuda})
+                                    "fused_overlap": fused_overlap_cuda,
+                                    "mla_attention": mla_attention_cuda})
 
 
 def zero_counts() -> None:
@@ -1468,6 +1495,7 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
     lib_us = sum(us for name, (us, _) in totals.items()
                  if any(k in name.lower() for k in LIBRARY_GEMMS)
                  and not any(k in name for k in OUR_KERNELS))
+    mla_us = sum(us for name, (us, _) in totals.items() if "mla_" in name)
     scan = [(us, n) for name, (us, n) in totals.items()
             if "ssm_scan" in name]
     scan_us, scan_n = sum(us for us, _ in scan), sum(n for _, n in scan)
@@ -1482,13 +1510,15 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
         f"= {sw_us / dev_us:.3f}; library GEMMs (cuBLAS) {lib_us / 1e3:.1f} "
         f"ms = {lib_us / dev_us:.3f}; flash attention (bf16) "
         f"{fa_us / 1e3:.1f} ms = {fa_us / dev_us:.3f}"
+        + (f"; MLA latent attention {mla_us / 1e3:.1f} ms = "
+           f"{mla_us / dev_us:.3f}" if mla_us else "")
         + (f"; ssm_scan {scan_us / 1e3:.3f} ms = {scan_us / dev_us:.4f} of "
            f"the busy time over {scan_n} launches "
            f"({scan_us / scan_n:.1f} us each)" if scan_n else ""))
     # the twelve costliest, and the port's own kernels wherever they rank
     ranked = sorted(totals.items(), key=lambda kv: -kv[1][0])
     ours = ("packed_attention", "flash_bf16_kernel", "swiglu_bf16",
-            "ssm_scan_kernel", "decode_attention")
+            "ssm_scan_kernel", "decode_attention", "mla_")
     for name, (us, n) in ranked[:12] + [
             kv for kv in ranked[12:] if any(k in kv[0] for k in ours)]:
         log(f"{tag}:   {us / 1e3:9.2f} ms {us / dev_us:6.3f}  x{n:<6d} "
@@ -1520,11 +1550,12 @@ def serve_prompts(cfg) -> list:
 
 
 def check_teacher_forced(torch, tag: str, cfg, params, done: dict,
-                         prompts: list) -> float:
+                         prompts: list, kv_dtype=None) -> float:
     """Request 0's served tokens against a teacher-forced plain forward of
-    its whole stream; fails under SERVE_AGREE_MIN."""
+    its whole stream (through an int8 cache for ``kv_dtype="int8"``);
+    fails under SERVE_AGREE_MIN."""
     out = done[0]
-    lg = teacher_forced(torch, cfg, params, prompts[0] + out[:-1])
+    lg = teacher_forced(torch, cfg, params, prompts[0] + out[:-1], kv_dtype)
     ref = lg[len(prompts[0]) - 1:].argmax(-1).tolist()
     agree = float(np.mean(np.asarray(ref) == np.asarray(out)))
     log(f"{tag}: request 0 ({len(prompts[0])} prompt tokens) greedy tokens "
@@ -2300,7 +2331,7 @@ def arctic_config(capacity_factor: float):
         moe=dataclasses.replace(full.moe, capacity_factor=capacity_factor))
 
 
-def phase_moe_forward(torch, cfg, params) -> None:
+def phase_moe_forward(torch, cfg, params, tag: str = "moe forward") -> None:
     """``forward_packed`` through the kernels and through the plain
     versions on ``forward_streams``, at a capacity that drops nothing: the
     share of equal (token, k) expert choices (bf16 near-ties of the
@@ -2324,8 +2355,8 @@ def phase_moe_forward(torch, cfg, params) -> None:
                     as_t[3], kv_bucket=64, impl=impl)
                 outs.append(lg[0, :200] if len(toks) == 256 else lg[0])
         logits[impl] = torch.cat(outs).float()
-        # per stream, its layers' choices of the real tokens: (L, T, K)
-        n = len(cfg.layer_specs())
+        # per stream, its MoE layers' choices of the real tokens: (L, T, K)
+        n = sum(sp.ffn != "dense" for sp in cfg.layer_specs())
         routes[impl] = torch.cat([
             torch.stack([idx.reshape(-1, idx.shape[-1])[:len(o)]
                          for idx, _, _ in rec.calls[i * n:(i + 1) * n]])
@@ -2333,7 +2364,7 @@ def phase_moe_forward(torch, cfg, params) -> None:
     torch.cuda.synchronize()
     a, b = logits[None], logits["plain"]
     if not bool(a.isfinite().all()):
-        raise AssertionError("moe forward: non-finite logits")
+        raise AssertionError(f"{tag}: non-finite logits")
     same = routes[None] == routes["plain"]                     # (L, T, K)
     alike = same.all(-1).all(0).cpu().numpy()                  # (T,)
     alike = torch.tensor([all(alike[(tok_slot == tok_slot[t])
@@ -2341,7 +2372,7 @@ def phase_moe_forward(torch, cfg, params) -> None:
                           for t in range(len(tok_slot))], device="cuda")
     diff = float((a - b).abs()[alike].max())
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    log(f"moe forward ({cfg.n_layers} layers, full width, capacity "
+    log(f"{tag} ({cfg.n_layers} layers, full width, capacity "
         f"{cfg.moe.capacity_factor}): equal (token, k) expert choices "
         f"{float(same.float().mean()):.4f}; tokens whose context was routed "
         f"alike in every layer {int(alike.sum())}/{len(alike)}: logits "
@@ -2351,8 +2382,7 @@ def phase_moe_forward(torch, cfg, params) -> None:
         f"{float(b.abs().max()):.3f}, greedy argmax agreement {agree:.4f} "
         f"(tol >= {FWD_ARGMAX_MIN})")
     if diff > FWD_LOGIT_ATOL or agree < FWD_ARGMAX_MIN:
-        raise AssertionError("moe forward: kernels and plain versions "
-                             "disagree")
+        raise AssertionError(f"{tag}: kernels and plain versions disagree")
 
 
 def moe_profile(torch, cfg, params, prompts, wall: float) -> None:
@@ -2516,6 +2546,283 @@ def phase_moe(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def mla_case(torch, use: str, dtype, seed: int = 29):
+    """One of the MLA kernel's four shapes at DeepSeek-V2's full width (128
+    heads, latent rank 512, rope 64): ``packed`` the kernels phase's mixed
+    stream (8 decode tokens of slots 0-7, a 200-token chunk of slot 8 at
+    positions 300-499 and a 37-token chunk of slot 9, over 10 slots of 1024
+    rows, bucket 1024), ``decode`` 8 rows of the serve's prompt lengths
+    + 16 over (8, 1024) leaves, ``chunk`` a 256-token chunk at offset 512
+    (its lengths built on the device) over slot 3's 1024-row view of an
+    8-slot cache, ``recompute`` a 513-token prompt over its own latents.
+    The leaves are views of (N·S + 1)-row stores, as the cache makes them.
+    Returns (args, kwargs, SDPA inputs, bytes, flops, description): the
+    bytes count q, out, the slot and length words and each attended latent
+    row (1152 B in bf16) once; the flops 2·H·(576 + 512) per attended
+    (token, row)."""
+    from repro_torch.kernels import mla_attention as mla
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    h, rank, rope = 128, mla.RANK, mla.ROPE
+    d = rank + rope
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    bucket = None
+    if use == "packed":
+        n, s, bucket = 10, 1024, 1024
+        slot = list(range(8)) + [8] * 200 + [9] * 37
+        lens = list(np.random.default_rng(seed).integers(512, 1025, 8)) + \
+            list(range(301, 501)) + list(range(1, 38))
+    elif use == "decode":
+        n, s = 8, 1024
+        slot = list(range(8))
+        lens = list(np.random.default_rng(0).integers(16, 601, 8) + 16)
+    elif use == "chunk":
+        n, s = 8, 1024
+        slot = [0] * 256
+        lens = [512 + i + 1 for i in range(256)]
+    else:
+        n, s = 1, 513
+        slot = [0] * 513
+        lens = [i + 1 for i in range(513)]
+    c_kv = randn(n * s + 1, rank)[:n * s].view(n, s, rank)
+    k_rope = randn(n * s + 1, rope)[:n * s].view(n, s, rope)
+    if use == "chunk":
+        c_kv, k_rope = c_kv[3:4], k_rope[3:4]
+        n = 1
+    q = randn(len(slot), h, d)
+    slot_t = torch.tensor(slot, dtype=torch.int32, device="cuda")
+    if use == "chunk":      # as the chunk path builds it: offset + i + 1
+        lens_t = torch.tensor([512], dtype=torch.int32, device="cuda") + \
+            torch.arange(1, 257, dtype=torch.int32, device="cuda")
+    else:
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    sweep = bucket or c_kv.shape[1]
+    kw = dict(logit_scale=attn._mla_scale(get_config(DEEPSEEK)),
+              kv_bucket=bucket)
+    rows = {}
+    for sl, ln in zip(slot, lens):
+        rows[sl] = max(rows.get(sl, 0), min(int(ln), sweep))
+    item = q.element_size()
+    nbytes = (sum(rows.values()) * d * item + q.numel() * item
+              + len(slot) * h * rank * item + 2 * len(slot) * 4)
+    flops = sum(min(int(ln), sweep) for ln in lens) * 2 * h * (d + rank)
+    # the same function as one masked SDPA call: every slot's swept rows as
+    # one key sequence (the concatenation is made before the timed call)
+    key = torch.cat([c_kv[:, :sweep], k_rope[:, :sweep]], -1)
+    row = torch.arange(n * sweep, device="cuda")
+    mask = (row[None] // sweep == slot_t[:, None].long()) & \
+        (row[None] % sweep < lens_t[:, None].long())
+    sdpa = (q.permute(1, 0, 2)[None].contiguous(),
+            key.reshape(1, 1, n * sweep, d).contiguous(),
+            c_kv[:, :sweep].reshape(1, 1, n * sweep, rank).contiguous(),
+            mask[None, None])
+    desc = (f"q ({len(slot)}, {h}, {d}) over c_kv {tuple(c_kv.shape)}, "
+            f"k_rope {tuple(k_rope.shape)}"
+            + (f", kv_bucket {bucket}" if bucket else ""))
+    return ((q, c_kv, k_rope, slot_t, lens_t), kw, sdpa, nbytes, flops,
+            desc)
+
+
+def phase_mla_kernels(torch, timer, bw, peak) -> dict:
+    """The MLA kernel against its plain version at ``mla_case``'s four
+    shapes in f32 and bf16, each timed (bf16) beside its plain version,
+    masked SDPA (``scaled_dot_product_attention`` with ``enable_gqa`` over
+    the concatenated key, checked against the plain version) and its
+    bound.  Returns the kernel's record (the mixed stream's numbers, the
+    other shapes under ``cases``)."""
+    from repro_torch.kernels import mla_attention as mla
+    F = torch.nn.functional
+    cases = {}
+    for use in ("packed", "decode", "chunk", "recompute"):
+        args32, kw, _, _, _, _ = mla_case(torch, use, torch.float32)
+        err32 = check_close(f"mla_attention f32 {use}",
+                            mla.mla_attention_cuda(*args32, **kw),
+                            mla.mla_attention_ref(*args32, **kw), F32_TOL)
+        del args32
+        args, kw, sdpa, nbytes, flops, desc = mla_case(torch, use,
+                                                       torch.bfloat16)
+        got = mla.mla_attention_cuda(*args, **kw)
+        want = mla.mla_attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = check_close(f"mla_attention bf16 {use}", got, want)
+        sched = mla.launch.schedule
+        sq, sk, sv, mask = sdpa
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask, enable_gqa=True,
+                scale=kw["logit_scale"])
+        check_close(f"mla sdpa yardstick {use}",
+                    lib()[0].permute(1, 0, 2), want, LIB_TOL)
+        ms = timer(lambda: mla.mla_attention_cuda(*args, **kw))
+        plain_ms = timer(lambda: mla.mla_attention_ref(*args, **kw))
+        lib_ms = timer(lib)
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+        log(f"mla_attention {use}: {desc}; schedule {sched[1]} chunk(s) of "
+            f"{sched[0]} rows, {args[0].shape[0] * 2 * sched[1]} CTAs; "
+            f"max_abs_err f32 {err32:.3e} (tol {F32_TOL[0]} + {F32_TOL[1]}"
+            f"·|ref|), bf16 {err:.3e} (tol {BF16_TOL[0]} + {BF16_TOL[1]}"
+            f"·|ref|)  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  sdpa_ms "
+            f"{lib_ms:.4f}  bound_ms {max(t_bytes, t_ops):.4f} ("
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s)")
+        cases[use] = dict(
+            shape=f"{desc}, bf16", max_abs_err=err, max_abs_err_f32=err32,
+            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=lib_ms, schedule=list(sched))
+        del args, sdpa, got, want
+        torch.cuda.empty_cache()
+    rec = dict(cases["packed"])
+    rec["shape"] = ("T=245 (8 decode + 200 + 37 prefill), H=128, latent "
+                    "rank 512 + rope 64, kv_bucket=1024, bf16")
+    rec["library"] = ("masked scaled_dot_product_attention (enable_gqa) over "
+                      "the concatenated key")
+    rec["cases"] = {k: v for k, v in cases.items() if k != "packed"}
+    return rec
+
+
+def deepseek_config(capacity_factor: float):
+    """DeepSeek-V2 at full width cut to MLA_LAYERS of its 60 layers (layer
+    0 with its dense FFN, layer 1 with 160 experts top-6 and 2 shared), at
+    ``capacity_factor``."""
+    from repro_torch.configs import get_config
+    full = get_config(DEEPSEEK)
+    return dataclasses.replace(
+        full, name=f"{full.name}-{MLA_LAYERS}l", n_layers=MLA_LAYERS,
+        moe=dataclasses.replace(full.moe, capacity_factor=capacity_factor))
+
+
+def check_mla_counts(tag: str, mode: str, cfg, c: dict, s) -> None:
+    """An MLA model's launches: the MLA kernel once per layer of every
+    forward (on the packed step one forward an iteration; on the legacy
+    step one a dispatch besides the 8 slot resets, on recompute one a
+    dispatch), SwiGLU as often (layer 0's dense FFN and layer 1's shared
+    experts), and no other kernel."""
+    n = cfg.n_layers
+    if mode == "packed":
+        forwards = s.iterations
+    else:
+        forwards = c["mla_attention"] // n
+        if forwards + (8 if mode == "legacy" else 0) != s.model_dispatches:
+            raise AssertionError(f"{tag}: launches {c} do not match "
+                                 f"{s.model_dispatches} dispatches")
+    others = [k for k in c if k not in ("mla_attention", "swiglu")]
+    if not (c["mla_attention"] == n * forwards > 0
+            and c["swiglu"] == n * forwards) or any(c[k] for k in others):
+        raise AssertionError(f"{tag}: launches {c} do not match "
+                             f"{s.iterations} iterations and "
+                             f"{s.model_dispatches} dispatches")
+
+
+def phase_mla(torch, timer, bw, peak, busy: dict) -> tuple[dict, int]:
+    """DeepSeek-V2 (absorbed MLA) at full width, 2 of its 60 layers
+    (seeded random bf16 weights): the MLA kernel's checks and times
+    (``phase_mla_kernels``); ``forward_packed`` through the kernels against
+    the plain versions at capacity E / k, where nothing can drop; the
+    serve phase's 8 requests at E / k on the packed step (contiguous,
+    prefix caching, int8 KV), the legacy step and recompute prefill, each
+    counted from 0 (``check_mla_counts``): every request finishes, tokens
+    agree between the steps and with a teacher-forced plain forward; the
+    contiguous packed serve profiled into ``busy``; then the packed serve
+    at the published capacity factor 1.25 with its dropped share.  Returns
+    (the kernel's record, its launches in the packed serve)."""
+    from repro_torch.models import model
+    from repro_torch.models.param import count_params
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import Request
+    record = phase_mla_kernels(torch, timer, bw, peak)
+    cfg = deepseek_config(1.25)
+    full = dataclasses.replace(cfg, n_layers=60)
+    m = cfg.mla
+    log(f"mla: {DEEPSEEK} ({cfg.citation}) cut: n_layers 60 -> "
+        f"{cfg.n_layers} (layer 0 dense FFN {cfg.d_ff}, layer 1 MoE); kept "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads, MLA rank "
+        f"{m.kv_lora_rank} + rope {m.qk_rope_dim} (q rank {m.q_lora_rank}, "
+        f"nope {m.qk_nope_dim}, v {m.v_head_dim}), vocab {cfg.vocab_size}, "
+        f"{cfg.moe}; the whole model "
+        f"{count_params(model.model_defs(full)) / 1e9:.1f}B params")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"mla: {count_params(model.model_defs(cfg)) / 1e9:.3f}B params, "
+        f"seeded init {time.perf_counter() - t0:.1f} s, memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    dropless = deepseek_config(cfg.moe.num_experts / cfg.moe.top_k)
+    phase_moe_forward(torch, dropless, params, tag="mla forward")
+    prompts = serve_prompts(cfg)
+    runs = {"packed": dict(step_mode="packed", async_depth=0),
+            "prefix caching": dict(step_mode="packed", async_depth=0,
+                                   prefix_caching=True,
+                                   kv_block_size=KV_BLOCK),
+            "int8": dict(step_mode="packed", async_depth=0, kv_dtype="int8"),
+            "legacy": dict(step_mode="legacy"),
+            "recompute": dict(prefill_mode="recompute")}
+    outs, walls, launches = {}, {}, 0
+    for name, kw in runs.items():
+        tag = f"mla {name} (capacity {dropless.moe.capacity_factor:.2f})"
+        mode = name if name in LEGACY_MODES else "packed"
+        eng = ServeEngine(dropless, params, EngineConfig(max_slots=8,
+                                                      max_len=1024, **kw))
+        zero_counts()
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=32))
+        done = eng.run()
+        torch.cuda.synchronize()
+        c = read_counts()
+        s = eng.stats
+        log(f"{tag}: {len(done)}/8 finished, {s.iterations} iterations, "
+            f"{s.total_tokens} tokens in {s.wall_time:.3f} s = "
+            f"{s.throughput:.1f} tok/s, {s.model_dispatches} dispatches, "
+            f"{s.dispatches_per_iter} dispatch/iter, KV "
+            f"{eng.kv.bytes_per_token} B/token; launches {c}")
+        if len(done) != 8 or any(len(r.output) != 32 for r in done):
+            raise AssertionError(f"{tag}: not every request finished 32 "
+                                 "tokens")
+        if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
+            raise AssertionError(f"{tag}: token id out of range")
+        check_off_path(tag, c)
+        check_mla_counts(tag, mode, dropless, c, s)
+        outs[name] = {r.rid: r.output for r in done}
+        walls[name] = s.wall_time
+        if name == "packed":
+            launches = c["mla_attention"]
+        check_teacher_forced(torch, tag, dropless, params, outs[name],
+                             prompts, "int8" if name == "int8" else None)
+        del eng, done
+    for name in ("prefix caching", "legacy", "recompute"):
+        agreement(f"mla: tokens packed vs {name}", outs["packed"],
+                  outs[name])
+    agreement("mla: tokens int8 vs bf16 KV (packed)", outs["packed"],
+              outs["int8"], bound=False)
+    busy["mla"] = phase_profile(torch, dropless, params, prompts,
+                                walls["packed"], tag="mla profile")
+    with RouteRecorder() as rec:
+        eng, out125, c = serve_run(torch, cfg, params, prompts,
+                                   "mla serve (capacity 1.25)",
+                                   "mla_attention", async_depth=0)
+    check_mla_counts("mla packed (capacity 1.25)", "packed", cfg, c,
+                     eng.stats)
+    drop, pairs, least = rec.dropped()
+    log(f"mla serve (capacity 1.25): {drop} of {pairs} routed (token, "
+        f"expert) pairs dropped = {drop / pairs:.4f} (padding rows "
+        f"included); these choices drop nothing above capacity factor "
+        f"{least:.2f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    agreement(f"mla: tokens at capacity 1.25 vs "
+              f"{dropless.moe.capacity_factor:.2f} (packed)", out125,
+              outs["packed"], bound=False)
+    del eng, rec, params
+    torch.cuda.empty_cache()
+    return record, launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -2543,9 +2850,15 @@ def main() -> int:
 
     libs = build.build()
     log(f"build: {libs.build_seconds:.1f} s")
+    # each kernel's registers, stack and spills, under its library
+    fn = ""
     for line in libs.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("---"):
+        if line.startswith("---"):
             log("  " + line.strip())
+        elif "Function properties for" in line:
+            fn = line.split(" for ", 1)[1].strip()
+        elif "registers" in line or "spill" in line:
+            log(f"  {fn}: {line.strip()}")
     lap("build")
 
     cfg = get_config("qwen3-8b")
@@ -2601,6 +2914,9 @@ def main() -> int:
     lap("llama")
     phase_moe(torch)
     lap("moe")
+    record["mla_attention"], launches["mla_attention"] = phase_mla(
+        torch, Timer(torch), bw, peak, busy)
+    lap("mla")
     for tag, got in busy.items():
         if got is not None and not any(k in tag for k in LEGACY_MODES):
             log(f"packed attention in the {tag} serve: {got[1]:.1f} ms of "
@@ -2619,6 +2935,7 @@ def main() -> int:
                          "src/repro/kernels/swiglu.py:45")
     sources["ssm_scan"] = SSM_SCAN
     sources.update(OPS_ONLY)
+    sources["mla_attention"] = MLA
     kernels = []
     for kname, (src, replaces) in sources.items():
         rec = record[kname]
@@ -2629,7 +2946,9 @@ def main() -> int:
                             bound_by=rec["bound_by"],
                             library_ms=rec["library_ms"], shape=rec["shape"],
                             **({"groups": groups[kname]} if kname in groups
-                               else {})))
+                               else {}),
+                            **{k: rec[k] for k in ("library", "cases")
+                               if k in rec}))
     log(f"total {time.perf_counter() - t_start:.1f} s; by phase (s) {phases}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

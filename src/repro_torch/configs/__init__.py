@@ -1,4 +1,4 @@
 from repro_torch.configs.base import (  # noqa: F401
     ATTN, FFN_DENSE, FFN_MOE, FFN_MOE_DENSE, MAMBA, LayerSpec, MambaConfig,
-    ModelConfig, MoEConfig, get_config, register, scale_down,
+    MLAConfig, ModelConfig, MoEConfig, get_config, register, scale_down,
 )

@@ -2,9 +2,9 @@
 
 Only the fields and helpers the port's serving paths read are kept
 (``ModelConfig``, ``LayerSpec``, ``MambaConfig``, ``MoEConfig``,
-``layer_groups``, ``scale_down`` and the registry).  Layer and FFN kinds
-keep the JAX names; the kinds of later slices (MLA, the xLSTM mixers) come
-with them.
+``MLAConfig``, ``layer_groups``, ``scale_down`` and the registry).  Layer
+and FFN kinds keep the JAX names; the kinds of later slices (the xLSTM
+mixers) come with them.
 """
 from __future__ import annotations
 
@@ -41,6 +41,16 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class MambaConfig:
     d_state: int = 16
     d_conv: int = 4
@@ -62,6 +72,7 @@ class ModelConfig:
     block_pattern: tuple[LayerSpec, ...] = (LayerSpec(),)
     first_layers: tuple[LayerSpec, ...] = ()
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     mamba: Optional[MambaConfig] = None
     qk_norm: bool = False
     ffn_gated: bool = True           # SwiGLU (3 mats) vs plain MLP (2 mats)
@@ -125,8 +136,8 @@ def get_config(name: str) -> ModelConfig:
 def _load_all() -> None:
     # import each config module for its register() side effect
     from repro_torch.configs import (  # noqa: F401
-        arctic_480b, jamba_1_5_large_398b, llama2_70b, qwen3_4b, qwen3_8b,
-        tiny)
+        arctic_480b, deepseek_v2_236b, jamba_1_5_large_398b, llama2_70b,
+        qwen3_4b, qwen3_8b, tiny)
 
 
 def scale_down(cfg: ModelConfig, *, n_layers: int = 0, d_model: int = 128,
@@ -135,7 +146,8 @@ def scale_down(cfg: ModelConfig, *, n_layers: int = 0, d_model: int = 128,
     package's ``scale_down``, restricted to the fields kept here): the
     block pattern and the Mamba settings stay, the widths shrink; at most
     4 experts, top-2, expert and shared widths 2·d_model, dispatch groups
-    of 64 tokens."""
+    of 64 tokens; MLA at latent rank 32, q rank 48, nope and value dims
+    = the head dim, rope dim 8."""
     pat_len = min(len(cfg.block_pattern), 8)
     layers = n_layers or (len(cfg.first_layers) + pat_len)
     kv = max(1, min(cfg.n_kv_heads, n_heads))
@@ -147,7 +159,12 @@ def scale_down(cfg: ModelConfig, *, n_layers: int = 0, d_model: int = 128,
             top_k=min(cfg.moe.top_k, 2), expert_d_ff=d_model * 2,
             shared_d_ff=d_model * 2 if cfg.moe.num_shared_experts else 0,
             dispatch_group=64)
+    mla = None
+    if cfg.mla is not None:
+        mla = MLAConfig(kv_lora_rank=32, q_lora_rank=48, qk_nope_dim=hd,
+                        qk_rope_dim=8, v_head_dim=hd)
     return dataclasses.replace(
         cfg, name=cfg.name + "-smoke", n_layers=layers, d_model=d_model,
         n_heads=n_heads, n_kv_heads=kv, head_dim=hd,
-        d_ff=0 if cfg.d_ff == 0 else d_model * 3, vocab_size=vocab, moe=moe)
+        d_ff=0 if cfg.d_ff == 0 else d_model * 3, vocab_size=vocab, moe=moe,
+        mla=mla)

@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # decode attention, paged decode attention (a second C entry of
 # csrc/decode_attention.cu, in its library) and the fused op share the unit
 # of csrc/attn_decode.cuh, SwiGLU and the fused op the GEMM mainloop of
-# csrc/gemm_sm90.cuh.
+# csrc/gemm_sm90.cuh; MLA's latent attention takes the unit's MMA
+# primitives.
 def _pa(quant: int, block_table: int) -> tuple[str, tuple[str, ...]]:
     return ("packed_attention", (f"-DREPRO_PA_QUANT={quant}",
                                  f"-DREPRO_PA_BLOCK_TABLE={block_table}"))
@@ -46,6 +47,7 @@ TARGETS = {
     "flash_attention": ("flash_attention", ()),
     "swiglu": ("swiglu", ()),
     "ssm_scan": ("ssm_scan", ()),
+    "mla_attention": ("mla_attention", ()),
 }
 
 _c = ctypes
@@ -64,6 +66,9 @@ SIGNATURES = {
     "decode_attention": ("repro_decode_attention",
                          [_void_p] * 8 + [_int] * 7 + [_ll] * 4
                          + [_float, _void_p, _void_p]),
+    "mla_attention": ("repro_mla_attention",
+                      [_void_p] * 8 + [_int] * 7 + [_ll] * 4
+                      + [_float, _void_p]),
     "fused_overlap": ("repro_fused_overlap",
                       [_void_p] * 11 + [_int] * 10 + [_ll] * 4
                       + [_float, _float, _void_p, _void_p]),

@@ -103,6 +103,8 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
            "q (B, H, D), caches (B, S, KV, D)")
     b, h, d = q.shape
     n, s, kvh, dk = k_cache.shape
+    _check(v_cache.shape[-1] == d, f"d_v != d_qk ({v_cache.shape[-1]} vs "
+           f"{d}): absorbed MLA's latent attention is ops.mla_attention")
     _check(tuple(v_cache.shape) == (n, s, kvh, d) and dk == d,
            f"shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
            f"v {tuple(v_cache.shape)}")
@@ -163,15 +165,17 @@ launch.units = None
 
 
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
-                          v_cache: torch.Tensor,
-                          cache_len: torch.Tensor) -> torch.Tensor:
+                          v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                          logit_scale: Optional[float] = None
+                          ) -> torch.Tensor:
     """Launch the CUDA kernel (same contract as ``decode_attention_ref``,
-    with ``cache_len >= 1``: a row with no valid key gives zeros).  The
-    caches are read in place through their (row, position) strides, rows
-    past ``cache_len`` are never read, and ``cache_len`` is never read on
-    the host.  Raises on any input the kernel does not take and on a failed
-    launch; counts launches in ``decode_attention_cuda.launches``."""
-    out = launch(q, k_cache, v_cache, cache_len)
+    with ``d_v == d_qk`` and ``cache_len >= 1``: a row with no valid key
+    gives zeros).  The caches are read in place through their (row,
+    position) strides, rows past ``cache_len`` are never read, and
+    ``cache_len`` is never read on the host.  Raises on any input the
+    kernel does not take and on a failed launch; counts launches in
+    ``decode_attention_cuda.launches``."""
+    out = launch(q, k_cache, v_cache, cache_len, scale=logit_scale)
     decode_attention_cuda.launches += 1
     return out
 

@@ -15,7 +15,7 @@ what the card's kernel is held against.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -63,16 +63,18 @@ def causal_qmask(sq: int, skv: int, q_offset: Offset,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, q_offset: Offset = 0) -> torch.Tensor:
+                        *, q_offset: Offset = 0,
+                        logit_scale: Optional[float] = None) -> torch.Tensor:
     """Plain version.  q: (B, Sq, H, D); k, v: (B, Skv, KV, D/Dv) with
-    H = KV · group.  Scores are scaled by ``D ** -0.5`` and taken in f32;
-    returns (B, Sq, H, Dv) in q's dtype.  ``d_v != d_qk`` is taken, as in
-    the JAX ref."""
+    H = KV · group.  Scores are scaled by ``logit_scale`` (default
+    ``D ** -0.5``) and taken in f32; returns (B, Sq, H, Dv) in q's dtype.
+    ``d_v != d_qk`` is taken, as in the JAX ref."""
     b, sq, h, d = q.shape
     skv, kv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
+    scale = d ** -0.5 if logit_scale is None else logit_scale
     qg = q.reshape(b, sq, kv, h // kv, d).float()
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * d ** -0.5
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     scores = scores.masked_fill(~causal_qmask(sq, skv, q_offset, q.device),
                                 NEG_INF)
     probs = torch.softmax(scores, dim=-1)
@@ -129,7 +131,8 @@ def _check(cond: bool, what: str) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, q_offset: Offset = 0) -> torch.Tensor:
+                         *, q_offset: Offset = 0,
+                         logit_scale: Optional[float] = None) -> torch.Tensor:
     """Launch the CUDA kernel (same contract as ``flash_attention_ref``,
     with ``d_v == d_qk``).  K and V are read in place through their (batch,
     row) strides — a slot's view of the serving cache — and each row's
@@ -137,7 +140,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device (no host sync).  Raises on any input the kernel does not take
     and on a failed launch; counts launches in
     ``flash_attention_cuda.launches``."""
-    out = launch(q, k, v, q_offset)
+    out = launch(q, k, v, q_offset, logit_scale=logit_scale)
     flash_attention_cuda.launches += 1
     return out
 
@@ -146,7 +149,8 @@ flash_attention_cuda.launches = 0
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           q_offset: Offset = 0, sched=None) -> torch.Tensor:
+           q_offset: Offset = 0, sched=None,
+           logit_scale: Optional[float] = None) -> torch.Tensor:
     """``flash_attention_cuda`` without the count: checks, then one launch
     of the C entry.  bf16 runs ``sched`` (query tiles, chunk, chunks), by
     default ``plan``'s, and records (query tiles, chunk, chunks, CTAs) in
@@ -162,8 +166,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            "q (B, Sq, H, D), k and v (B, Skv, KV, D)")
     b, sq, h, d = q.shape
     _, skv, kvh, _ = k.shape
-    _check(v.shape[-1] == d, "d_v != d_qk waits for absorbed MLA "
-                             "(ROADMAP A5)")
+    _check(v.shape[-1] == d, f"d_v != d_qk ({v.shape[-1]} vs {d}): "
+           "absorbed MLA's latent attention is ops.mla_attention")
     _check(tuple(k.shape) == (b, skv, kvh, d) and v.shape == k.shape,
            f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
            f"v {tuple(v.shape)}")
@@ -214,7 +218,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 out.data_ptr(), None if part is None else part.data_ptr(),
                 tickets, _DTYPES[q.dtype], b, sq, skv,
                 h, kvh, d, scalar, chunk, n_chunks, k.stride(0), k.stride(1),
-                v.stride(0), v.stride(1), float(d ** -0.5), stream)
+                v.stride(0), v.stride(1),
+                float(d ** -0.5 if logit_scale is None else logit_scale),
+                stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: {rc}")
     return out

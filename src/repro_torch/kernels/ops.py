@@ -19,6 +19,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_ref)
 from repro_torch.kernels.fused_overlap import (fused_overlap_cuda,
                                                fused_overlap_ref)
+from repro_torch.kernels.mla_attention import (mla_attention_cuda,
+                                               mla_attention_ref)
 from repro_torch.kernels.packed_attention import (packed_attention_cuda,
                                                   packed_attention_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref
@@ -42,15 +44,33 @@ def packed_attention(q, k_cache, v_cache, token_slot, lengths, *,
                      block_tables: Optional[torch.Tensor] = None,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
+                     logit_scale: Optional[float] = None,
                      impl: Optional[str] = None) -> torch.Tensor:
     """Segment-masked attention over a token-packed stream (DESIGN.md §8):
     token t attends rows [0, lengths[t]) of slot ``token_slot[t]``'s cache;
     ``kv_bucket`` bounds the swept rows (DESIGN.md §9).  ``block_tables``
     reads the caches as physical blocks through per-slot tables (§12);
-    ``k_scale``/``v_scale`` mark int8 caches with per-row scales (§15)."""
+    ``k_scale``/``v_scale`` mark int8 caches with per-row scales (§15).
+    Scores are scaled by ``logit_scale`` (default D ** -0.5).  The kernel
+    takes ``d_v == d_qk`` only: absorbed MLA is ``mla_attention``."""
     fn = packed_attention_cuda if _use_kernel(q, impl) else packed_attention_ref
     return fn(q, k_cache, v_cache, token_slot, lengths, kv_bucket=kv_bucket,
-              block_tables=block_tables, k_scale=k_scale, v_scale=v_scale)
+              block_tables=block_tables, k_scale=k_scale, v_scale=v_scale,
+              logit_scale=logit_scale)
+
+
+def mla_attention(q, c_kv, k_rope, token_slot, lengths, *,
+                  logit_scale: float, kv_bucket: Optional[int] = None,
+                  impl: Optional[str] = None) -> torch.Tensor:
+    """Absorbed MLA's latent attention over a token stream: token t's H
+    query heads (rank + rope columns) attend rows [0, lengths[t]) of slot
+    ``token_slot[t]``, key row ``[c_kv | k_rope]``, value row ``c_kv``,
+    one KV head for all H; ``c_kv`` (N, S, rank) and ``k_rope`` (N, S,
+    rope) are the cache leaves, read in place; ``kv_bucket`` bounds the
+    swept rows.  Returns (T, H, rank)."""
+    fn = mla_attention_cuda if _use_kernel(q, impl) else mla_attention_ref
+    return fn(q, c_kv, k_rope, token_slot, lengths, logit_scale=logit_scale,
+              kv_bucket=kv_bucket)
 
 
 def swiglu(x, w_gate, w_up, *, impl: Optional[str] = None) -> torch.Tensor:
@@ -60,21 +80,25 @@ def swiglu(x, w_gate, w_up, *, impl: Optional[str] = None) -> torch.Tensor:
 
 
 def flash_attention(q, k, v, *, q_offset=0,
+                    logit_scale: Optional[float] = None,
                     impl: Optional[str] = None) -> torch.Tensor:
     """Causal GQA attention: query i of batch row b sees keys
     [0, q_offset[b] + i]; q (B, Sq, H, D), k/v (B, Skv, KV, D);
-    ``q_offset`` an int or a (B,) int32 tensor."""
+    ``q_offset`` an int or a (B,) int32 tensor; scores scaled by
+    ``logit_scale`` (default D ** -0.5)."""
     fn = flash_attention_cuda if _use_kernel(q, impl) else flash_attention_ref
-    return fn(q, k, v, q_offset=q_offset)
+    return fn(q, k, v, q_offset=q_offset, logit_scale=logit_scale)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     logit_scale: Optional[float] = None,
                      impl: Optional[str] = None) -> torch.Tensor:
     """One query per row over its length-masked cache row: q (B, H, D),
-    caches (B, S, KV, D), rows [0, cache_len[b]) attended."""
+    caches (B, S, KV, D), rows [0, cache_len[b]) attended; scores scaled
+    by ``logit_scale`` (default D ** -0.5)."""
     fn = decode_attention_cuda if _use_kernel(q, impl) \
         else decode_attention_ref
-    return fn(q, k_cache, v_cache, cache_len)
+    return fn(q, k_cache, v_cache, cache_len, logit_scale=logit_scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,

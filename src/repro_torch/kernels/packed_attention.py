@@ -98,8 +98,8 @@ def tile_plan(t: int, group: int, sweep: int, *, tq: Optional[int] = None,
     return tq, chunk, max(1, -(-sweep // chunk))
 
 
-def _kv_bucket_view(cache: torch.Tensor,
-                    kv_bucket: Optional[int]) -> torch.Tensor:
+def kv_bucket_view(cache: torch.Tensor,
+                   kv_bucket: Optional[int]) -> torch.Tensor:
     """Rows at or beyond the bucket are never attended, so slicing them off
     is exact (DESIGN.md §9)."""
     if kv_bucket is not None and kv_bucket < cache.shape[1]:
@@ -121,8 +121,8 @@ def _block_sweep(s: int, nb_cols: int, kv_bucket: Optional[int]):
     return bs, sweep
 
 
-def _block_gather_view(cache: torch.Tensor, block_tables: torch.Tensor,
-                       kv_bucket: Optional[int]) -> torch.Tensor:
+def block_gather_view(cache: torch.Tensor, block_tables: torch.Tensor,
+                      kv_bucket: Optional[int]) -> torch.Tensor:
     """Per-slot contiguous view of a block-table cache (DESIGN.md §12):
     ``cache`` (N, S, ...) is physical storage whose flat N·S row space is
     carved into blocks; ``block_tables`` (N, S // bs) names the physical
@@ -143,10 +143,10 @@ def _dequant_views(k_cache, v_cache, k_scale, v_scale, block_tables,
     leaves = [k_cache, v_cache] + ([k_scale, v_scale]
                                    if k_scale is not None else [])
     if block_tables is not None:
-        leaves = [_block_gather_view(x, block_tables, kv_bucket)
+        leaves = [block_gather_view(x, block_tables, kv_bucket)
                   for x in leaves]
     else:
-        leaves = [_kv_bucket_view(x, kv_bucket) for x in leaves]
+        leaves = [kv_bucket_view(x, kv_bucket) for x in leaves]
     if k_scale is None:
         return leaves
     k_cache, v_cache, k_scale, v_scale = leaves
@@ -160,11 +160,12 @@ def packed_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          kv_bucket: Optional[int] = None,
                          block_tables: Optional[torch.Tensor] = None,
                          k_scale: Optional[torch.Tensor] = None,
-                         v_scale: Optional[torch.Tensor] = None
+                         v_scale: Optional[torch.Tensor] = None,
+                         logit_scale: Optional[float] = None
                          ) -> torch.Tensor:
     """Plain version.  q: (T, H, D); k_cache/v_cache: (N_slots, S, KV,
     D/Dv); token_slot, lengths: (T,) int.  Returns (T, H, Dv) in q's dtype;
-    scores are scaled by ``D ** -0.5``.
+    scores are scaled by ``logit_scale`` (default ``D ** -0.5``).
 
     ``block_tables`` ((N_slots, S // block_size) int): the caches are
     physical block storage, read through each slot's table; the sweep
@@ -181,7 +182,7 @@ def packed_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     n, s, kv, _ = k_cache.shape
     dv = v_cache.shape[-1]
     group = h // kv
-    scale = d ** -0.5
+    scale = d ** -0.5 if logit_scale is None else logit_scale
 
     qg = q.reshape(t, kv, group, d).float()
     scores_all = torch.einsum("tkgd,nskd->tnkgs", qg, k_cache.float()) * scale
@@ -207,9 +208,11 @@ def packed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           kv_bucket: Optional[int] = None,
                           block_tables: Optional[torch.Tensor] = None,
                           k_scale: Optional[torch.Tensor] = None,
-                          v_scale: Optional[torch.Tensor] = None
+                          v_scale: Optional[torch.Tensor] = None,
+                          logit_scale: Optional[float] = None
                           ) -> torch.Tensor:
-    """Launch the CUDA kernel (same contract as ``packed_attention_ref``).
+    """Launch the CUDA kernel (same contract as ``packed_attention_ref``,
+    with ``d_v == d_qk``).
     The caches and scales are read in place through their (slot, row)
     strides; each row's (KV, D) block must be contiguous, and in
     block-table mode each leaf's flat row space must be uniform.  Raises on
@@ -218,7 +221,7 @@ def packed_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     variant = VARIANTS[(block_tables is not None, k_scale is not None)]
     out = launch(variant, q, k_cache, v_cache, token_slot, lengths,
                  kv_bucket=kv_bucket, block_tables=block_tables,
-                 k_scale=k_scale, v_scale=v_scale)
+                 k_scale=k_scale, v_scale=v_scale, logit_scale=logit_scale)
     packed_attention_cuda.launches[variant] += 1
     return out
 
@@ -230,11 +233,13 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
            k_scale: Optional[torch.Tensor] = None,
            v_scale: Optional[torch.Tensor] = None,
            tq: Optional[int] = None,
-           chunk: Optional[int] = None) -> torch.Tensor:
+           chunk: Optional[int] = None,
+           logit_scale: Optional[float] = None) -> torch.Tensor:
     """Check the operands and launch build ``target`` of
     ``csrc/packed_attention.cu``, one of the four packed variants.  ``tq``
     and ``chunk`` override ``tile_plan``'s defaults
-    (tools/packed_attention_probe.py sweeps them)."""
+    (tools/packed_attention_probe.py sweeps them); ``logit_scale`` scales
+    the scores (default ``D ** -0.5``)."""
     dev = q.device
     _check(dev.type == "cuda", "q is not a CUDA tensor")
     _check(token_slot is not None, "token_slot is required")
@@ -257,6 +262,8 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
            "q (T, H, D), caches (N, S, KV, D)")
     t, h, d = q.shape
     n, s, kvh, dk = k_cache.shape
+    _check(v_cache.shape[-1] == d, f"d_v != d_qk ({v_cache.shape[-1]} vs "
+           f"{d}): absorbed MLA's latent attention is ops.mla_attention")
     _check(tuple(v_cache.shape) == (n, s, kvh, d) and dk == d,
            f"shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
            f"v {tuple(v_cache.shape)}")
@@ -322,7 +329,8 @@ def launch(target: str, q: torch.Tensor, k_cache: torch.Tensor,
                 _DTYPES[q.dtype], int(quant), t, h, kvh, d, n, sweep,
                 nb_cols, bs, *plan, k_cache.stride(0), k_cache.stride(1),
                 v_cache.stride(0), v_cache.stride(1), *s_strides,
-                float(d ** -0.5), stream)
+                float(d ** -0.5 if logit_scale is None else logit_scale),
+                stream)
     if rc != 0:
         raise RuntimeError(f"{target} kernel launch failed: {rc}")
     return out

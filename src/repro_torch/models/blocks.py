@@ -1,10 +1,11 @@
-"""Per-layer block: a sequence mixer (GQA attention or Mamba) + an FFN
-(dense, MoE, or MoE beside a dense residual), pre-norm residual (port of
-``repro.models.blocks`` for those layer kinds): the packed step
-(``block_packed``) and the legacy step's whole-chunk, decode and
-incremental-chunk paths (``block_full``, ``block_decode``,
-``block_chunk``).  An attention layer's cache is ``{"k", "v"}`` (plus
-int8 scales), a Mamba layer's its state ``{"conv", "ssm"}``.  Every path
+"""Per-layer block: a sequence mixer (GQA or, when the config has ``mla``,
+absorbed MLA attention, or Mamba) + an FFN (dense, MoE, or MoE beside a
+dense residual), pre-norm residual (port of ``repro.models.blocks`` for
+those layer kinds): the packed step (``block_packed``) and the legacy
+step's whole-chunk, decode and incremental-chunk paths (``block_full``,
+``block_decode``, ``block_chunk``).  An attention layer's cache is
+``{"k", "v"}`` for GQA and ``{"c_kv", "k_rope"}`` for MLA (plus int8
+scales), a Mamba layer's its state ``{"conv", "ssm"}``.  Every path
 computes the MoE balance loss; only ``block_full`` returns it, as in
 JAX."""
 from __future__ import annotations
@@ -35,8 +36,11 @@ def check_spec(spec: LayerSpec) -> None:
 def block_defs(cfg: ModelConfig, spec: LayerSpec) -> dict:
     check_spec(spec)
     d, dt = cfg.d_model, cfg.dtype
-    mixer = attn.gqa_defs(cfg) if spec.mixer == ATTN \
-        else ssm_mod.mamba_defs(cfg)
+    if spec.mixer == ATTN:
+        mixer = attn.mla_defs(cfg) if cfg.mla is not None \
+            else attn.gqa_defs(cfg)
+    else:
+        mixer = ssm_mod.mamba_defs(cfg)
     if spec.ffn == FFN_DENSE:
         ffn = moe_mod.ffn_defs(d, cfg.d_ff, dt)
     else:
@@ -65,13 +69,15 @@ def block_full(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                positions: torch.Tensor, *, q_offset=0,
                return_state: bool = False, impl: Optional[str] = None):
     """Whole-chunk prefill for one layer.  Returns (x, aux, state): the
-    MoE balance loss (None for a dense FFN), and with ``return_state`` ``state`` is ``{"kv": (k,
-    v)}`` with the chunk's K/V for attention and the new ``{"conv",
-    "ssm"}`` for Mamba, else None."""
+    MoE balance loss (None for a dense FFN), and with ``return_state``
+    ``state`` is ``{"kv": (k, v)}`` with the chunk's K/V (MLA's latent
+    ``(c_kv, k_rope)``) for attention and the new ``{"conv", "ssm"}`` for
+    Mamba, else None."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == ATTN:
-        r = attn.gqa_full(cfg, p["mixer"], h, positions, q_offset=q_offset,
-                          return_kv=return_state, impl=impl)
+        fn = attn.mla_full if cfg.mla is not None else attn.gqa_full
+        r = fn(cfg, p["mixer"], h, positions, q_offset=q_offset,
+               return_kv=return_state, impl=impl)
         y, kv = r if return_state else (r, None)
         state = {"kv": kv} if return_state else None
     else:
@@ -90,8 +96,9 @@ def block_decode(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
     untouched, so the engine commits only the decoding rows)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == ATTN:
-        y, cache = attn.gqa_decode(cfg, p["mixer"], h, positions, cache,
-                                   cache_len, impl=impl)
+        fn = attn.mla_decode if cfg.mla is not None else attn.gqa_decode
+        y, cache = fn(cfg, p["mixer"], h, positions, cache, cache_len,
+                      impl=impl)
     else:
         y, cache = ssm_mod.mamba_decode(cfg, p["mixer"], h, cache)
     x, _aux = _ffn_apply(cfg, spec, p, x + y, impl)
@@ -108,8 +115,10 @@ def block_chunk(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
     into the given leaves, which may be views of a slot."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == ATTN:
-        y, cache = attn.gqa_prefill_chunk(cfg, p["mixer"], h, positions,
-                                          cache, cache_len, impl=impl)
+        fn = attn.mla_prefill_chunk if cfg.mla is not None \
+            else attn.gqa_prefill_chunk
+        y, cache = fn(cfg, p["mixer"], h, positions, cache, cache_len,
+                      impl=impl)
     else:
         y, state = ssm_mod.mamba_full(cfg, p["mixer"], h, initial=cache,
                                       return_state=True, impl=impl)
@@ -134,10 +143,10 @@ def block_packed(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
     the cache updated in place."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == ATTN:
-        y, cache = attn.gqa_packed(cfg, p["mixer"], h, positions, cache,
-                                   token_slot, token_wpos,
-                                   kv_bucket=kv_bucket, token_dst=token_dst,
-                                   block_tables=block_tables, impl=impl)
+        fn = attn.mla_packed if cfg.mla is not None else attn.gqa_packed
+        y, cache = fn(cfg, p["mixer"], h, positions, cache, token_slot,
+                      token_wpos, kv_bucket=kv_bucket, token_dst=token_dst,
+                      block_tables=block_tables, impl=impl)
     else:
         if token_active is None:
             raise ValueError("a Mamba layer's packed step needs token_active")
@@ -150,9 +159,10 @@ def block_packed(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
 def block_init_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, device: torch.device,
                      kv_dtype: Optional[str] = None) -> dict:
-    """Attention's K/V cache (``kv_dtype`` applies to it only), or a Mamba
-    layer's zero state."""
+    """Attention's K/V (MLA's latent) cache (``kv_dtype`` applies to it
+    only), or a Mamba layer's zero state."""
     check_spec(spec)
     if spec.mixer == MAMBA:
         return ssm_mod.mamba_init_cache(cfg, batch, device)
-    return attn.gqa_init_cache(cfg, batch, max_len, device, kv_dtype)
+    fn = attn.mla_init_cache if cfg.mla is not None else attn.gqa_init_cache
+    return fn(cfg, batch, max_len, device, kv_dtype)

@@ -57,6 +57,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return _rope_rotate(x, ang)
 
 
+def apply_rope_nohead(x: torch.Tensor, positions: torch.Tensor,
+                      theta: float) -> torch.Tensor:
+    """x: (B, S, D) — no head axis (MLA's decoupled key).  positions: (S,)
+    or (B, S)."""
+    if x.dim() != 3:
+        raise ValueError(f"apply_rope_nohead wants (B, S, D), got "
+                         f"{tuple(x.shape)}")
+    ang = positions.float()[..., None] * rope_freqs(x.shape[-1], theta,
+                                                    x.device)
+    if ang.dim() == 2:                      # positions were (S,)
+        ang = ang[None]
+    return _rope_rotate(x, ang)
+
+
 # ---------------------------------------------------------------------------
 # causal depthwise conv (mamba) — streaming decode and chunk carries
 # ---------------------------------------------------------------------------

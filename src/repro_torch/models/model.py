@@ -6,8 +6,9 @@
 Parameters are plain dicts of tensors in the JAX layouts, with the
 per-layer leaves unstacked into ``params["layers"]`` (a Python loop over
 layers takes the place of ``jax.lax.scan``); the cache is a list of
-per-layer dicts: ``{"k", "v"}`` for attention (plus ``"k_s"``/``"v_s"``
-scales for int8 KV) and the recurrent state ``{"conv", "ssm"}`` for Mamba.
+per-layer dicts: ``{"k", "v"}`` for GQA attention and the latent
+``{"c_kv", "k_rope"}`` for MLA (plus ``<name>_s`` scales for int8 KV) and
+the recurrent state ``{"conv", "ssm"}`` for Mamba.
 """
 from __future__ import annotations
 
@@ -17,15 +18,17 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.param import ParamDef, init_params
 
 
 def check_config(cfg: ModelConfig) -> None:
-    """The port runs decoders of GQA attention and Mamba layers (hybrids
-    included), each with a dense SwiGLU, MoE or MoE + dense FFN, untied
-    embeddings and no modality frontend; anything else raises."""
+    """The port runs decoders of GQA or absorbed-MLA attention and Mamba
+    layers (hybrids included), each with a dense SwiGLU, MoE or MoE + dense
+    FFN, untied embeddings and no modality frontend; anything else
+    raises."""
     if cfg.frontend != "none" or cfg.tie_embeddings or not cfg.ffn_gated:
         raise NotImplementedError(
             f"{cfg.name}: frontends, tied embeddings and ungated FFNs are "
@@ -55,9 +58,10 @@ def init(cfg: ModelConfig, seed: int = 0,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Optional[str | torch.device] = None,
                kv_dtype: Optional[str] = None) -> list:
-    """Zeroed per-layer slot caches ``{"k", "v"}: (batch, max_len, KV, hd)``;
-    ``kv_dtype="int8"`` stores int8 K/V with f32 ``{"k_s", "v_s"}: (batch,
-    max_len, KV)`` scales (DESIGN.md §15)."""
+    """Zeroed per-layer slot caches ``{"k", "v"}: (batch, max_len, KV, hd)``
+    (MLA: ``{"c_kv": (batch, max_len, rank), "k_rope": (batch, max_len,
+    rope)}``); ``kv_dtype="int8"`` stores int8 values with f32 scale leaves
+    ``<name>_s`` of one scale per row (DESIGN.md §15)."""
     check_config(cfg)
     dev = resolve_device(device)
     return [blocks.block_init_cache(cfg, spec, batch, max_len, dev, kv_dtype)
@@ -118,7 +122,8 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
     Returns (logits (B, S, vocab), aux) or, with ``return_states``,
     (logits, aux, states): ``states[i]`` is layer i's ``{"kv": (k, v)}``,
-    each (B, S, KV, hd), for an attention layer and its final ``{"conv",
+    each (B, S, KV, hd) (MLA: the latent ``(c_kv, k_rope)``), for an
+    attention layer and its final ``{"conv",
     "ssm"}`` for a Mamba layer, for handing off to a decode cache.  ``aux``
     is the MoE balance loss summed over the layers (0 without experts)."""
     x = _embed(params, tokens)
@@ -194,9 +199,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     cache = init_cache(cfg, b, max_len or s, device=tokens.device)
     for spec, c, st in zip(cfg.layer_specs(), cache, states):
         if spec.mixer == ATTN:
-            k, v = st["kv"]
-            c["k"][:, :s] = k
-            c["v"][:, :s] = v
+            for name, val in zip(attn.kv_names(cfg), st["kv"]):
+                c[name][:, :s] = val
         else:
             for name, leaf in c.items():
                 leaf.copy_(st[name])

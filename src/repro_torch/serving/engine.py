@@ -75,6 +75,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import model as model_lib
 from repro_torch.serving import draft as draft_lib
 from repro_torch.serving import sampling
@@ -839,16 +840,16 @@ class ServeEngine:
         return int(self._fetch(*staged)[0])
 
     def _scatter_states(self, slot: int, states: list) -> None:
-        """Write each attention layer's prefix K/V into rows [0, s) of
-        ``slot`` and each recurrent layer's state whole into the slot (the
-        port of the JAX ``_scatter_states`` / ``_write_slot_seq`` /
-        ``_write_slot``)."""
+        """Write each attention layer's prefix K/V (MLA's latent c_kv and
+        k_rope) into rows [0, s) of ``slot`` and each recurrent layer's
+        state whole into the slot (the port of the JAX ``_scatter_states``
+        / ``_write_slot_seq`` / ``_write_slot``)."""
+        names = attn.kv_names(self.cfg)
         for spec, layer, st in zip(self.cfg.layer_specs(), self.cache,
                                    states):
             if spec.mixer == ATTN:
-                k, v = st["kv"]
-                layer["k"][slot, :k.shape[1]] = k[0]
-                layer["v"][slot, :v.shape[1]] = v[0]
+                for name, val in zip(names, st["kv"]):
+                    layer[name][slot, :val.shape[1]] = val[0]
             else:
                 for name, leaf in layer.items():
                     leaf[slot].copy_(st[name][0])

@@ -1228,3 +1228,180 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# ---- absorbed MLA's latent attention (csrc/mla_attention.cu) ---------------
+MLA_SCALE = 192 ** -0.5      # DeepSeek-V2's (qk_nope_dim + qk_rope_dim)^-0.5
+
+
+def _mla_operands(cuda, dtype, t, h, n, s, seed=0):
+    """q (T, H, 576) and the latent leaves c_kv (N, S, 512), k_rope (N, S,
+    64) as views of one (N·S + 1)-row store each, as the cache builds
+    them."""
+    from repro_torch.kernels import mla_attention as mla
+    rng = np.random.default_rng(seed)
+    q = _normal(rng, cuda, dtype, t, h, mla.RANK + mla.ROPE)
+    leaves = []
+    for width in (mla.RANK, mla.ROPE):
+        store = _normal(rng, cuda, dtype, n * s + 1, width)
+        leaves.append(store[:n * s].view(n, s, width))
+    return q, leaves[0], leaves[1]
+
+
+def _mla_stream(use, t_dec=4, n=5, s=300, seed=0):
+    """(slot, lengths, kv_bucket, N, S) of one of the kernel's three uses:
+    ``packed`` decode tokens then a 40- and a 17-token chunk at bucket 257
+    (lengths past it clamp, a partial last stage); ``decode`` one token
+    per row, lengths 1 ... S; ``chunk`` two rows of 37 queries at offsets
+    100 and 280 (lengths past S clamp)."""
+    rng = np.random.default_rng(seed)
+    if use == "packed":
+        slot = [0, 1, 2, 3][:t_dec] + [4] * 40 + [1] * 17
+        lens = list(rng.integers(1, 300, t_dec)) + list(range(201, 241)) \
+            + list(range(1, 18))
+        return slot, lens, 257, n, s
+    if use == "decode":
+        return list(range(6)), [1, 33, 128, 129, 299, 300], None, 6, s
+    offs = [100, 280]
+    slot = [b for b in range(2) for _ in range(37)]
+    lens = [o + i + 1 for o in offs for i in range(37)]
+    return slot, lens, None, 2, s
+
+
+def _mla_call(cuda, slot, lens):
+    as_t = [torch.tensor(np.asarray(a, np.int32), device=cuda)
+            for a in (slot, lens)]
+    return as_t
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("use", ["packed", "decode", "chunk"])
+def test_mla_attention_kernel(cuda, use, h, dtype):
+    """Rank 512, rope 64, at 64 and 128 heads: the kernel against its plain
+    version in its three uses (the decode batch's few items split the
+    sweep over the SMs and merge)."""
+    from repro_torch.kernels import mla_attention as mla
+    slot, lens, bucket, n, s = _mla_stream(use)
+    q, c_kv, k_rope = _mla_operands(cuda, dtype, len(slot), h, n, s)
+    slot_t, lens_t = _mla_call(cuda, slot, lens)
+    before = mla.mla_attention_cuda.launches
+    out = mla.mla_attention_cuda(q, c_kv, k_rope, slot_t, lens_t,
+                                 logit_scale=MLA_SCALE, kv_bucket=bucket)
+    torch.cuda.synchronize()
+    assert mla.mla_attention_cuda.launches == before + 1
+    if use == "decode":
+        assert mla.launch.schedule[1] > 1
+    want = mla.mla_attention_ref(q, c_kv, k_rope, slot_t, lens_t,
+                                 logit_scale=MLA_SCALE, kv_bucket=bucket)
+    torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bucket", [0, 31, 32, 33, 128, 300])
+def test_mla_attention_bucket_edges_and_zeros(cuda, bucket, dtype):
+    """``kv_bucket`` at and around a stage's 32 rows (partial last
+    stages), with tokens of out-of-range slots (-1 and N) and of lengths 0
+    and -2, which give zeros, beside ordinary ones; every split schedule
+    (one chunk, 32-row chunks) gives the same."""
+    from repro_torch.kernels import mla_attention as mla
+    slot = [0, -1, 3, 1, 2, 0, 1, 2]
+    lens = [5, 9, 4, 0, -2, 300, 33, 32]
+    q, c_kv, k_rope = _mla_operands(cuda, dtype, len(slot), 128, 3, 300, 1)
+    slot_t, lens_t = _mla_call(cuda, slot, lens)
+    want = mla.mla_attention_ref(q, c_kv, k_rope, slot_t, lens_t,
+                                 logit_scale=MLA_SCALE, kv_bucket=bucket)
+    sweep = bucket
+    for sched in (None, (max(32, -(-sweep // 32) * 32), 1),
+                  (32, max(1, -(-sweep // 32)))):
+        out = mla.launch(q, c_kv, k_rope, slot_t, lens_t,
+                         logit_scale=MLA_SCALE, kv_bucket=bucket, sched=sched)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
+        zero = torch.tensor([1, 2, 3, 4], device=cuda)   # the undefined ones
+        assert not out[zero].any()
+
+
+def test_mla_attention_refuses_unbuilt_shapes(cuda):
+    """Other ranks, rope dims and head counts, half precision, a
+    misaligned leaf, GQA-shaped caches: each raises with its reason and
+    nothing launches; the three GQA kernels refuse d_v != d_qk, naming
+    ops.mla_attention."""
+    from repro_torch.kernels import mla_attention as mla
+    slot_t, lens_t = _mla_call(cuda, [0, 1], [3, 4])
+    q, c_kv, k_rope = _mla_operands(cuda, "bfloat16", 2, 64, 2, 64)
+    before = mla.mla_attention_cuda.launches
+    bad = {
+        "kv_lora_rank": (q[..., :-64], c_kv[..., :-64], k_rope),
+        "qk_rope_dim": (q[..., :-32], c_kv, k_rope[..., :32]),
+        "heads": (torch.cat([q, q[:, :32]], 1), c_kv, k_rope),
+        "float32 or bfloat16": (q.half(), c_kv.half(), k_rope.half()),
+        "16-byte aligned": (q, c_kv.new_zeros(2 * 64 * 512 + 8)
+                            [4:4 + 2 * 64 * 512].view(2, 64, 512), k_rope),
+    }
+    for what, args in bad.items():
+        with pytest.raises(ValueError, match=what):
+            mla.mla_attention_cuda(args[0].contiguous(), *args[1:], slot_t,
+                                   lens_t, logit_scale=MLA_SCALE)
+    assert mla.mla_attention_cuda.launches == before
+    k = c_kv.new_zeros(2, 64, 1, 576)
+    v = c_kv[:, :, None]
+    with pytest.raises(ValueError, match="ops.mla_attention"):
+        packed_attention_cuda(q, k, v, slot_t, lens_t)
+    with pytest.raises(ValueError, match="ops.mla_attention"):
+        flash_attention_cuda(q[None], k[:1], v[:1])
+    with pytest.raises(ValueError, match="ops.mla_attention"):
+        decode_attention_cuda(q, k, v, lens_t)
+
+
+def _mla_small_config(**kw):
+    """DeepSeek-V2's layers at a width the MLA kernel takes (64 heads, the
+    full latent rank 512 and rope 64, a 16-wide nope and value head), f32,
+    ``capacity_factor`` 16."""
+    from repro_torch.configs import MLAConfig
+    cfg = scale_down(get_config("deepseek-v2-236b"), d_model=256, n_heads=64,
+                     **kw)
+    return dataclasses.replace(
+        cfg, dtype="float32",
+        mla=MLAConfig(kv_lora_rank=512, q_lora_rank=48, qk_nope_dim=16,
+                      qk_rope_dim=64, v_head_dim=16),
+        moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+
+
+@pytest.mark.parametrize("mode", [dict(step_mode="packed"),
+                                  dict(step_mode="packed", kv_dtype="int8",
+                                       kv_block_size=8, prefix_caching=True),
+                                  dict(step_mode="legacy"),
+                                  dict(prefill_mode="recompute")])
+def test_mla_engine_on_card_matches_cpu(cuda, mode):
+    """DeepSeek-V2's dense layer 0 and MoE layer 1 with MLA at a shape the
+    kernel takes, f32: the packed step (contiguous; int8 with prefix
+    caching), the legacy step and recompute prefill on the card serve the
+    same greedy tokens as on the CPU, with slot reuse; the MLA kernel
+    launches on the card and no GQA attention kernel does."""
+    from repro_torch.kernels.mla_attention import mla_attention_cuda
+    cfg = _mla_small_config()
+    params = model.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(4)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                             int(rng.integers(3, 40)))]
+               for _ in range(6)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, _to(params, dev), EngineConfig(
+            max_slots=2, max_len=64, discrete_sizes=(16, 8),
+            avg_decode_len=4, **mode), device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=pr, max_new_tokens=6))
+        gqa = (packed_attention_cuda, flash_attention_cuda,
+               decode_attention_cuda)
+        before = [sum(packed_attention_cuda.launches.values()),
+                  flash_attention_cuda.launches,
+                  decode_attention_cuda.launches, mla_attention_cuda.launches]
+        outs[dev] = {r.rid: r.output for r in eng.run()}
+        after = [sum(packed_attention_cuda.launches.values()),
+                 flash_attention_cuda.launches,
+                 decode_attention_cuda.launches, mla_attention_cuda.launches]
+        assert after[:len(gqa)] == before[:len(gqa)]
+        assert (after[3] > before[3]) == (dev == "cuda")
+    assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6
