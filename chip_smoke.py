@@ -25,17 +25,20 @@ Phases (any failure exits non-zero; no phase is caught):
                state and a 513-token prompt from zero state; SwiGLU (bf16)
                at Qwen3-8B's widths for T = 8, 64, 256, 257 and for T = 8,
                256 at Jamba-1.5-Large's (8192 -> 24576), Arctic's dense
-               residual's (7168 -> 4864) and LLaMA-2-70B's (8192 -> 28672),
-               each with its tiles and CTA groups, beside the library pair
-               (two torch.matmul, then F.silu(g) * u).
-     groups  — the attention kernels at the GQA groups built for head_dim
-               128 only, against their plain versions in f32 and bf16 at
-               the shapes above: at group 7 (Arctic's 56 / 8 heads) packed
-               attention in its four builds, decode, paged decode, flash
-               (the chunk shape) and the fused op's attention role, each
-               timed beside its plain version, its bound and masked SDPA
-               where one call computes it; at groups 3 (24 / 8) and 9
-               (36 / 4) packed attention, decode and flash.
+               residual's (7168 -> 4864), LLaMA-2-70B's (8192 -> 28672) and
+               LLaVA-NeXT-34B's (7168 -> 20480), each with its tiles and
+               CTA groups, beside the library pair (two torch.matmul, then
+               F.silu(g) * u).
+     groups  — the attention kernels at the other GQA shapes the served
+               models give them, against their plain versions in f32 and
+               bf16 at the shapes above: at group 7 (Arctic's 56 / 8
+               heads) packed attention in its four builds, decode, paged
+               decode, flash (the chunk shape) and the fused op's
+               attention role, each timed beside its plain version, its
+               bound and masked SDPA where one call computes it; at groups
+               3 (24 / 8), 9 (36 / 4) and 1 (MusicGen-medium's 24 / 24 at
+               head_dim 64) packed attention, decode and flash; at group 8
+               (Jamba's 64 / 8) the int8 build of packed attention.
      paged   — paged decode attention through ``ops.paged_decode_attention``
                (its only caller) at Qwen3-8B's heads: 8 rows of the serve
                phase's lengths + 16 over a shuffled pool of 16-row pages,
@@ -65,9 +68,10 @@ Phases (any failure exits non-zero; no phase is caught):
                (cuBLAS) and flash attention's shares of the busy time and
                the kernels that take
                the device time, summed from the trace's
-               device events; once per kind of engine (this one, the
-               legacy step, block tables, the hybrid's two steps) the sum
-               must agree with ``key_averages`` within 1%.
+               device events; once per kind of engine (this one, block
+               tables in the shared-prefix phase, the legacy step in the
+               hybrid phase) the sum must agree with ``key_averages``
+               within 1%.
   7. legacy  — the serve phase's requests on the legacy step, once with
                incremental and once with recompute prefill (profiled as in
                6): flash and decode attention launch 36 times per dispatch
@@ -95,7 +99,7 @@ Phases (any failure exits non-zero; no phase is caught):
                serve and agree with its tokens; on the bf16 model, the
                n-gram drafter on 8 motif prompts (the default depth) must
                agree with a plain run of them and be accepted above 0.5.
- 11. sampling — temperature 0.8, top_k 50: the sampler's Philox bits on
+ 11. sampling — temperature 0.8, top_k 50: the sampler's threefry bits on
                the card equal the CPU's over the whole vocab and at
                gathered indices; the whole-vocab Gumbel noise is finite and
                4096 rows whose index 0 outweighs each other index by e^30
@@ -117,8 +121,13 @@ Phases (any failure exits non-zero; no phase is caught):
                dispatch on legacy and recompute and never on the packed
                step; each attention kernel once per dispatch of its kind,
                SwiGLU 8 times; tokens agree between the steps and with a
-               teacher-forced plain ``forward_full``; the legacy, recompute
-               and packed runs are profiled (the legacy and recompute
+               teacher-forced plain ``forward_full``; then the packed step
+               with int8 KV (the attention layer's leaves int8, the Mamba
+               state f32; the legacy step refuses int8, as JAX's does): the
+               int8 build of packed attention once per iteration, tokens
+               agree with a teacher-forced plain forward through an int8
+               cache (the int8 run's checked run is its profiled run);
+               the four runs are profiled (the legacy and recompute
                lines with the scan's device ms, launches and share of the
                busy time).  Then one line per profiled packed serve
                (Qwen3-8B, the four shared-prefix modes, the hybrid): packed
@@ -170,17 +179,46 @@ Phases (any failure exits non-zero; no phase is caught):
                int8); the contiguous serve profiled (the MLA kernel's
                share of the busy time); the packed serve at the published
                capacity 1.25 with its dropped share.
+  16. families — the JAX package's remaining model families at full
+               width, cut in depth (``FAMILIES``): xLSTM-1.3B (one 8-layer
+               group: 7 mLSTM + 1 sLSTM, no attention, no FFN),
+               StarCoder2-7B (8 of 32; GQA group 9, GELU MLP), Minitron-4B
+               (8 of 32; group 3, GELU MLP), LLaVA-NeXT-34B (4 of 60; group
+               7, SwiGLU, served text-only as JAX serves it) and
+               MusicGen-medium (8 of 48; group 1 at head_dim 64, GELU MLP,
+               4 codebook streams, codebook 0 fed back).  Each serves the
+               serve phase's 8 prompt lengths (ids in its vocab) on the
+               packed step, the legacy step and recompute prefill, counted
+               from 0 and profiled (the checked run is the profiled one,
+               its walls stretched by the profiler; xLSTM's runs are not
+               profiled, for time): the kernels launch
+               as the dispatches say (xLSTM none at all; MusicGen packed
+               attention at group 1, head_dim 64); tokens agree with a
+               teacher-forced plain forward of the step's formulas
+               (packed: ``forward_packed``; legacy, recompute:
+               ``prefill`` + ``forward_decode``) and between the steps.
+               xLSTM's packed and prefill formulas round apart in bf16
+               (its recurrent conv steps token by token on the packed
+               step and as shifted multiply-adds in a prefill), so a
+               witness teacher-forces request 0 through both in bf16 and
+               f32: in f32 their logits agree within 1e-2, in bf16 the
+               served tokens agree with ``forward_full`` at >= 0.5 and
+               with the legacy engine's at >= 0.65 where contexts agree.
+               The JSON gives packed, flash and decode attention their
+               launches by group here.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -199,6 +237,14 @@ LIB_TOL = (2e-2, 2e-2)      # the SDPA yardstick may round in bf16 inside
 FWD_LOGIT_ATOL = 0.1    # whole forward, kernels vs plain, bf16 logits
 FWD_ARGMAX_MIN = 0.9    # share of tokens whose greedy argmax agrees
 SERVE_AGREE_MIN = 0.9   # served tokens vs teacher-forced plain forward
+# xLSTM in bf16, its packed step's tokens vs the prefill's formulas, which
+# round apart (``xlstm_witness``): request 0 vs a teacher-forced
+# forward_full (18 of 32 measured), the packed vs the legacy engine where
+# contexts agree (0.680 measured); in f32 the two formulas' logits differ
+# by 1e-4 at most (measured)
+XLSTM_SERVED_AGREE_MIN = 0.5
+XLSTM_ENGINES_AGREE_MIN = 0.65
+XLSTM_F32_GAP_MAX = 1e-2
 # packed-attention kernel -> (block tables, int8 KV), the TPU kernel it
 # replaces (the function that reaches pl.pallas_call, or its kernel body)
 _TPU_PA = "src/repro/kernels/packed_attention.py"
@@ -247,6 +293,8 @@ GEMM_F32_TOL = (1e-4, 1e-4)
 SFU_PER_CLOCK_SM = 16
 F32_PEAK = 67e12
 JAMBA = "jamba-1.5-large-398b"
+MUSICGEN = "musicgen-medium"
+LLAVA = "llava-next-34b"
 ARCTIC = "arctic-480b"
 LLAMA = "llama2-70b"
 LLAMA_LAYERS = 8        # of 80: ~7.4B params, ~14.7 GB in bf16
@@ -259,7 +307,20 @@ MLA = (f"{_CSRC}/mla_attention.cu", f"{_TPU_PA}:135")
 HYBRID_LAYERS = 8       # one pattern group: 7 Mamba + 1 attention layer
 HYBRID_MODES = {"legacy": dict(step_mode="legacy"),
                 "recompute": dict(prefill_mode="recompute"),
-                "packed": dict(step_mode="packed", async_depth=0)}
+                "packed": dict(step_mode="packed", async_depth=0),
+                # the attention layer's K/V int8, the Mamba state f32 (the
+                # legacy step refuses int8 KV, as JAX's does)
+                "packed int8": dict(step_mode="packed", async_depth=0,
+                                    kv_dtype="int8")}
+# the families phase: the JAX package's remaining model families at full
+# width, each cut to this many layers (xLSTM's: its 8-layer pattern group,
+# 7 mLSTM + 1 sLSTM), on the three steps of the hybrid phase
+FAMILIES = {"xlstm-1.3b": 8, "starcoder2-7b": 8, "minitron-4b": 8,
+            LLAVA: 4, MUSICGEN: 8}
+FAMILY_MODES = {mode: HYBRID_MODES[mode]
+                for mode in ("packed", "legacy", "recompute")}
+# every kernel an attention-free model (xLSTM) must not launch
+NOT_ON_XLSTM = (*ATTENTION, *LEGACY, "mla_attention", "ssm_scan", "swiglu")
 SPEC_K = 4              # drafts per verify segment in the spec phase
 SPEC_ACCEPT_MIN = 0.6   # the replay drafter's acceptance must exceed it
 SPEC_NGRAM_ACCEPT_MIN = 0.5  # the n-gram drafter's on the motif prompts
@@ -956,25 +1017,37 @@ def phase_overlap(torch, cfg, timer, bw, peak) -> tuple[dict, int]:
 
 
 def group_configs():
-    """The GQA groups built at head_dim 128 only, each as a config whose
-    heads the attention cases read: group 7 at Arctic's heads (56 / 8, the
-    port's copy of its config), groups 3 (24 / 8) and 9 (36 / 4) on Qwen3-8B's
-    other fields."""
+    """The attention shapes the served models give the kernels beyond
+    Qwen3-8B's group 4: (group, config whose heads the attention cases
+    read, its head_dim, the kernels held there).  Group 7 at Arctic's
+    heads (56 / 8, the port's copy of its config) in every kernel; groups
+    3 (24 / 8) and 9 (36 / 4) on Qwen3-8B's other fields, and group 1 at
+    MusicGen-medium's heads (24 / 24, head_dim 64), in packed, flash and
+    decode attention; group 8 at Jamba's attention layer (64 / 8) in the
+    int8 build of packed attention (the hybrid's int8 KV)."""
     from repro_torch.configs import get_config
     qwen = get_config("qwen3-8b")
-    return {7: get_config(ARCTIC),
-            3: dataclasses.replace(qwen, n_heads=24, n_kv_heads=8),
-            9: dataclasses.replace(qwen, n_heads=36, n_kv_heads=4)}
+    steps = ("packed_attention", "flash_attention", "decode_attention")
+    return [(7, get_config(ARCTIC), 128,
+             (*ATTENTION, "flash_attention", "decode_attention",
+              "paged_decode_attention", "fused_overlap")),
+            (3, dataclasses.replace(qwen, n_heads=24, n_kv_heads=8), 128,
+             steps),
+            (9, dataclasses.replace(qwen, n_heads=36, n_kv_heads=4), 128,
+             steps),
+            (1, get_config(MUSICGEN), 64, steps),
+            (8, get_config(JAMBA), 128, ("packed_attention_quant",))]
 
 
 def phase_groups(torch, timer, bw, peak) -> dict:
-    """The attention kernels at GQA groups 3, 7 and 9 (head_dim 128)
-    against their plain versions in f32 and bf16, at the kernels phase's
-    shapes: at group 7 (Arctic's heads) packed attention in its four
-    builds, decode, paged decode, flash (the chunk shape) and the fused
-    op's attention role, each timed in bf16 beside its plain version, its
-    bound and (where one call computes it) masked SDPA; at groups 3 and 9
-    packed attention, decode and flash.  Returns {kernel: groups held}."""
+    """The attention kernels at ``group_configs``' shapes against their
+    plain versions in f32 and bf16, at the kernels phase's shapes: at
+    group 7 (Arctic's heads) packed attention in its four builds, decode,
+    paged decode, flash (the chunk shape) and the fused op's attention
+    role, each timed in bf16 beside its plain version, its bound and
+    (where one call computes it) masked SDPA; at groups 3, 9 and 1
+    (head_dim 64) packed attention, decode and flash; at group 8 the int8
+    build of packed attention.  Returns {kernel: groups held}."""
     from functools import partial
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention_cuda, paged_decode_attention_ref)
@@ -1005,46 +1078,51 @@ def phase_groups(torch, timer, bw, peak) -> dict:
     def tol(dtype):
         return F32_TOL if dtype == torch.float32 else BF16_TOL
 
-    for g, gcfg in group_configs().items():
-        if gcfg.gqa_group != g or gcfg.resolved_head_dim != 128:
+    for g, gcfg, hd, kernels in group_configs():
+        if gcfg.gqa_group != g or gcfg.resolved_head_dim != hd:
             raise AssertionError(f"group {g}: config {gcfg.name} has group "
                                  f"{gcfg.gqa_group}, head_dim "
                                  f"{gcfg.resolved_head_dim}")
-        heads = f"H={gcfg.n_heads} KV={gcfg.n_kv_heads} D=128"
+        heads = f"H={gcfg.n_heads} KV={gcfg.n_kv_heads} D={hd}"
         # packed attention, contiguous: the kernels phase's mixed stream
-        errs = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            args, nbytes, flops = attention_case(torch, gcfg, 1024, 1024,
-                                                 dtype)
-            errs[dtype] = check_close(
-                f"group {g} packed_attention {dtype}",
-                packed_attention_cuda(*args, kv_bucket=1024),
-                packed_attention_ref(*args, kv_bucket=1024), tol(dtype))
-        timed = None
-        if g == 7:
-            sq, sk, sv, mask = sdpa_inputs(torch, args, 1024)
+        if "packed_attention" in kernels:
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                args, nbytes, flops = attention_case(torch, gcfg, 1024, 1024,
+                                                     dtype)
+                errs[dtype] = check_close(
+                    f"group {g} packed_attention {dtype}",
+                    packed_attention_cuda(*args, kv_bucket=1024),
+                    packed_attention_ref(*args, kv_bucket=1024), tol(dtype))
+            timed = None
+            if g == 7:
+                sq, sk, sv, mask = sdpa_inputs(torch, args, 1024)
 
-            def lib():
-                return F.scaled_dot_product_attention(
-                    sq, sk, sv, attn_mask=mask, enable_gqa=True)
-            check_close("group 7 sdpa yardstick", lib()[0].permute(1, 0, 2),
-                        packed_attention_ref(*args, kv_bucket=1024), LIB_TOL)
-            timed = (partial(packed_attention_cuda, *args, kv_bucket=1024),
-                     partial(packed_attention_ref, *args, kv_bucket=1024),
-                     lib, nbytes, flops)
-        report("packed_attention", g, f"T={args[0].shape[0]} {heads} "
-               f"kv_bucket=1024; {streamed_mb(args, {}, 1024)}", errs, timed)
-        del args
-        # the other three builds at group 7
+                def lib():
+                    return F.scaled_dot_product_attention(
+                        sq, sk, sv, attn_mask=mask, enable_gqa=True)
+                check_close("group 7 sdpa yardstick",
+                            lib()[0].permute(1, 0, 2),
+                            packed_attention_ref(*args, kv_bucket=1024),
+                            LIB_TOL)
+                timed = (partial(packed_attention_cuda, *args,
+                                 kv_bucket=1024),
+                         partial(packed_attention_ref, *args,
+                                 kv_bucket=1024), lib, nbytes, flops)
+            report("packed_attention", g, f"T={args[0].shape[0]} {heads} "
+                   f"kv_bucket=1024; {streamed_mb(args, {}, 1024)}", errs,
+                   timed)
+            del args
+        # the other three builds (timed at group 7)
         for kname, ((blocked, quant), _) in ATTENTION.items():
-            if g != 7 or not (blocked or quant):
+            if kname not in kernels or not (blocked or quant):
                 continue
             errs = {}
             for dtype in (torch.float32, torch.bfloat16):
                 args, kw, nbytes, flops = variant_case(torch, gcfg, 1024,
                                                        dtype, blocked, quant)
                 errs[dtype] = check_close(
-                    f"group 7 {kname} {dtype}",
+                    f"group {g} {kname} {dtype}",
                     packed_attention_cuda(*args, kv_bucket=1024, **kw),
                     packed_attention_ref(*args, kv_bucket=1024, **kw),
                     tol(dtype))
@@ -1053,11 +1131,13 @@ def phase_groups(torch, timer, bw, peak) -> dict:
                                   kv_bucket=1024, **kw),
                           partial(packed_attention_ref, *args,
                                   kv_bucket=1024, **kw), None, nbytes,
-                          flops))
+                          flops) if g == 7 else None)
             del args, kw
         # flash (the chunk shape) and decode attention
         for kname, case in (("flash_attention", "chunk"),
                             ("decode_attention", "decode")):
+            if kname not in kernels:
+                continue
             errs = {}
             for dtype in (torch.float32, torch.bfloat16):
                 kernel, plain, lib, lib_out, nbytes, flops, desc = \
@@ -1231,7 +1311,8 @@ def swiglu_case(torch, d: int, ff: int, seed: int = 7):
 def phase_swiglu(torch, cfg, timer, bw, peak) -> dict:
     """SwiGLU (bf16) at Qwen3-8B's widths for T = 8, 64, 256 and 257, and
     for T = 8 and 256 at Jamba-1.5-Large's (8192 -> 24576), Arctic's dense
-    residual's (7168 -> 4864) and LLaMA-2-70B's (8192 -> 28672): kernel
+    residual's (7168 -> 4864), LLaMA-2-70B's (8192 -> 28672) and
+    LLaVA-NeXT-34B's (7168 -> 20480): kernel
     against plain, its schedule (``swiglu.plan``), its time beside the
     plain version's, the library pair's and the bound.  Returns the record
     at Qwen3-8B's T = 256."""
@@ -1241,7 +1322,7 @@ def phase_swiglu(torch, cfg, timer, bw, peak) -> dict:
     record = None
     widths = [((cfg.d_model, cfg.d_ff), (8, 64, 256, 257))] + [
         ((c.d_model, c.d_ff), (8, 256))
-        for c in (get_config(n) for n in (JAMBA, ARCTIC, LLAMA))]
+        for c in (get_config(n) for n in (JAMBA, ARCTIC, LLAMA, LLAVA))]
     for i, ((d, ff), ts) in enumerate(widths):
         gen, wg, wu, library = swiglu_case(torch, d, ff)
         for t in ts:
@@ -1369,11 +1450,12 @@ def read_counts() -> dict:
                 **{kname: fn.launches for kname, fn in single.items()})
 
 
-def check_off_path(tag: str, counts: dict) -> None:
+def check_off_path(tag: str, counts: dict, also=()) -> None:
     """The kernels that only their ``ops`` entries call never launch on a
-    serve path."""
-    if any(counts[kname] for kname in OPS_ONLY):
-        raise AssertionError(f"{tag}: an ops-only kernel launched: {counts}")
+    serve path, nor do the kernels named in ``also``."""
+    if any(counts[kname] for kname in (*OPS_ONLY, *also)):
+        raise AssertionError(f"{tag}: a kernel off this path launched: "
+                             f"{counts}")
 
 
 def phase_serve(torch, cfg):
@@ -1443,7 +1525,6 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
     unless the two sums agree within 1%.  Returns (device busy ms, packed
     attention's, SwiGLU's and the library GEMMs' ms), or None when the
     profiler saw no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.config import EngineConfig
     from repro_torch.serving.engine import ServeEngine
@@ -1462,6 +1543,19 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
             eng.run()
         torch.cuda.synchronize()
         t_stop = time.perf_counter()
+    return device_time(prof, t_stop, eng.stats, tag, serve_wall, cross_check)
+
+
+def device_time(prof, t_stop: float, stats, tag: str,
+                serve_wall: Optional[float] = None,
+                cross_check: bool = False):
+    """``phase_profile``'s sums over a finished profile ``prof`` of a serve
+    whose engine stats are ``stats``: the device's busy time, its share of
+    the profiled wall (and of ``serve_wall``, an unprofiled run's, when
+    given), device events per iteration, the port's kernels' and cuBLAS's
+    shares and the costliest kernels, logged under ``tag``.  Returns what
+    ``phase_profile`` returns."""
+    from torch.autograd import DeviceType
     # the device's events straight from the trace (a private attribute of
     # the profiler), summed by name: building the profiler's per-event
     # objects for ~250k events takes most of a minute, so ``cross_check``
@@ -1483,7 +1577,7 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
             raise AssertionError(f"{tag}: the trace's device time "
                                  f"{dev_us / 1e3:.1f} ms disagrees with "
                                  f"key_averages' {ka / 1e3:.1f} ms")
-    wall_us = eng.stats.wall_time * 1e6
+    wall_us = stats.wall_time * 1e6
     if dev_us == 0:
         log(f"{tag}: the profiler saw no device time")
         return None
@@ -1500,11 +1594,13 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
             if "ssm_scan" in name]
     scan_us, scan_n = sum(us for us, _ in scan), sum(n for _, n in scan)
     log(f"{tag}: device busy {dev_us / 1e3:.1f} ms over "
-        f"{eng.stats.iterations} iterations: {dev_us / wall_us:.3f} of the "
+        f"{stats.iterations} iterations: {dev_us / wall_us:.3f} of the "
         f"profiled wall ({wall_us / 1e3:.1f} ms, idle share "
-        f"{1 - dev_us / wall_us:.3f}), {dev_us / 1e6 / serve_wall:.3f}"
-        f" of the unprofiled serve's wall ({serve_wall * 1e3:.1f} ms); "
-        f"{sum(n for _, n in totals.values()) / eng.stats.iterations:.0f} device "
+        f"{1 - dev_us / wall_us:.3f})"
+        + (f", {dev_us / 1e6 / serve_wall:.3f} of the unprofiled serve's "
+           f"wall ({serve_wall * 1e3:.1f} ms)" if serve_wall else "")
+        + "; "
+        f"{sum(n for _, n in totals.values()) / stats.iterations:.0f} device "
         f"events per iteration; packed attention {pa_us / 1e3:.1f} ms = "
         f"{pa_us / dev_us:.3f} of the busy time; SwiGLU {sw_us / 1e3:.1f} ms "
         f"= {sw_us / dev_us:.3f}; library GEMMs (cuBLAS) {lib_us / 1e3:.1f} "
@@ -1526,6 +1622,21 @@ def phase_profile(torch, cfg, params, prompts, serve_wall: float,
     return dev_us / 1e3, pa_us / 1e3, sw_us / 1e3, lib_us / 1e3
 
 
+def stream_ids(torch, cfg, seq: list):
+    """A token stream as the engine feeds it: (1, n) int32 ids on the card,
+    the audio stub's repeated across its codebooks, (1, n, K)."""
+    ids = torch.tensor([seq], dtype=torch.int32, device="cuda")
+    if cfg.frontend == "audio":
+        ids = ids[..., None].expand(*ids.shape, cfg.num_codebooks)
+    return ids
+
+
+def kept_logits(cfg, lg):
+    """Logits (..., V) of the token the engine keeps: the audio stub's
+    codebook 0 of (..., K, V)."""
+    return lg[..., 0, :] if cfg.frontend == "audio" else lg
+
+
 def teacher_forced(torch, cfg, params, seq: list, kv_dtype=None):
     """Plain-version forward of one whole token stream through a fresh
     one-slot cache (int8 for ``kv_dtype="int8"``): logits (len(seq), V)."""
@@ -1534,10 +1645,49 @@ def teacher_forced(torch, cfg, params, seq: list, kv_dtype=None):
     pos = torch.arange(n, dtype=torch.int32, device="cuda")
     cache = model.init_cache(cfg, 1, 1024, device="cuda", kv_dtype=kv_dtype)
     lg, _ = model.forward_packed(
-        cfg, params, torch.tensor([seq], dtype=torch.int32, device="cuda"),
-        cache, torch.zeros(n, dtype=torch.int32, device="cuda"), pos, pos,
-        kv_bucket=1024, impl="plain")
-    return lg[0].float()
+        cfg, params, stream_ids(torch, cfg, seq), cache,
+        torch.zeros(n, dtype=torch.int32, device="cuda"), pos, pos,
+        torch.ones(n, dtype=torch.bool, device="cuda"), kv_bucket=1024,
+        impl="plain")
+    return kept_logits(cfg, lg[0]).float()
+
+
+# the plain forwards a served request is teacher-forced through, by the
+# step whose formulas they share: the packed step's (``forward_packed``
+# through a one-slot cache), the prefill's (``forward_full``: a recurrent
+# layer's conv as shifted multiply-adds, where the steps run it token by
+# token) and the legacy step's (``prefill`` of the prompt, then one
+# ``forward_decode`` per served token)
+FORMULAS = {"packed": "forward", "full": "forward_full",
+            "steps": "prefill + decode"}
+
+
+def served_logits(torch, cfg, params, prompt: list, out: list,
+                  formulas: str = "packed", kv_dtype=None):
+    """Plain-version logits (len(out), V) in f32 that predict a served
+    request's tokens ``out`` after ``prompt``, teacher-forced through the
+    ``FORMULAS`` entry ``formulas``."""
+    from repro_torch.models import model
+    if formulas == "packed":
+        seq = prompt + out[:-1]
+        return teacher_forced(torch, cfg, params, seq,
+                              kv_dtype)[len(prompt) - 1:]
+    if formulas == "full":
+        lg, _ = model.forward_full(cfg, params,
+                                   stream_ids(torch, cfg, prompt + out[:-1]),
+                                   impl="plain")
+        return kept_logits(cfg, lg[0, len(prompt) - 1:]).float()
+    lg, cache, clen = model.prefill(cfg, params,
+                                    stream_ids(torch, cfg, prompt),
+                                    max_len=1024, impl="plain")
+    rows = [lg[0]]
+    for tok in out[:-1]:
+        lg, cache = model.forward_decode(cfg, params,
+                                         stream_ids(torch, cfg, [tok]), cache,
+                                         clen, impl="plain")
+        clen = clen + 1
+        rows.append(lg[0])
+    return kept_logits(cfg, torch.stack(rows)).float()
 
 
 def serve_prompts(cfg) -> list:
@@ -1549,21 +1699,30 @@ def serve_prompts(cfg) -> list:
             for n in lens]
 
 
-def check_teacher_forced(torch, tag: str, cfg, params, done: dict,
-                         prompts: list, kv_dtype=None) -> float:
-    """Request 0's served tokens against a teacher-forced plain forward of
-    its whole stream (through an int8 cache for ``kv_dtype="int8"``);
-    fails under SERVE_AGREE_MIN."""
-    out = done[0]
-    lg = teacher_forced(torch, cfg, params, prompts[0] + out[:-1], kv_dtype)
-    ref = lg[len(prompts[0]) - 1:].argmax(-1).tolist()
+def check_agreement(tag: str, what: str, lg, out: list,
+                    bound: float = SERVE_AGREE_MIN) -> float:
+    """Request 0's served tokens ``out`` against the argmax of logits
+    ``lg`` (len(out), V) that ``what`` gave; fails under ``bound``."""
+    ref = lg.argmax(-1).tolist()
     agree = float(np.mean(np.asarray(ref) == np.asarray(out)))
-    log(f"{tag}: request 0 ({len(prompts[0])} prompt tokens) greedy tokens "
-        f"vs a teacher-forced plain forward: agreement {agree:.4f} (tol >= "
-        f"{SERVE_AGREE_MIN})")
-    if agree < SERVE_AGREE_MIN:
-        raise AssertionError(f"{tag}: tokens disagree with the plain forward")
+    log(f"{tag}: request 0 greedy tokens vs {what}: agreement {agree:.4f} "
+        f"(tol >= {bound})")
+    if agree < bound:
+        raise AssertionError(f"{tag}: tokens disagree with {what}")
     return agree
+
+
+def check_teacher_forced(torch, tag: str, cfg, params, done: dict,
+                         prompts: list, kv_dtype=None,
+                         formulas: str = "packed") -> float:
+    """Request 0's served tokens against a teacher-forced plain forward of
+    its whole stream through the step formulas ``formulas``
+    (``served_logits``; through an int8 cache for ``kv_dtype="int8"``);
+    fails under SERVE_AGREE_MIN."""
+    lg = served_logits(torch, cfg, params, prompts[0], done[0], formulas,
+                       kv_dtype)
+    return check_agreement(tag, f"a teacher-forced plain {FORMULAS[formulas]}"
+                           f" ({len(prompts[0])} prompt tokens)", lg, done[0])
 
 
 def context_agreement(a: dict, b: dict):
@@ -1636,9 +1795,10 @@ def phase_legacy(torch, cfg, params, prompts, packed: dict) -> dict:
         if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
             raise AssertionError(f"{mode}: token id out of range")
         outs[mode] = {r.rid: r.output for r in done}
+        # not cross-checked: the legacy engine's kind is, on the hybrid's
+        # legacy step (~53k events; here ~400k took ~80 s on a slow host)
         phase_profile(torch, cfg, params, prompts, s.wall_time,
-                      tag=f"{mode} profile", cross_check=mode == "legacy",
-                      **kw)
+                      tag=f"{mode} profile", **kw)
         del eng
         torch.cuda.empty_cache()
     for a, b, bound in (("legacy", "packed", True),
@@ -1821,18 +1981,19 @@ def serve_run(torch, cfg, params, prompts, tag: str, kname: str,
     return eng, {r.rid: r.output for r in done}, counts
 
 
-def agreement(tag: str, a: dict, b: dict, bound: bool = True) -> float:
+def agreement(tag: str, a: dict, b: dict,
+              bound: Optional[float] = SERVE_AGREE_MIN) -> float:
     """Log two runs' token agreement (``context_agreement``) and the share
-    of requests whose tokens are identical; fail under ``SERVE_AGREE_MIN``
-    at the positions whose earlier tokens agree when ``bound``."""
+    of requests whose tokens are identical; fail under ``bound`` (None:
+    no bound) at the positions whose earlier tokens agree."""
     same_ctx, raw, first = context_agreement(a, b)
     exact = float(np.mean([a[rid] == b[rid] for rid in a]))
     log(f"{tag}: agreement {same_ctx:.4f} at the positions whose earlier "
-        f"tokens agree" + (f" (tol >= {SERVE_AGREE_MIN})" if bound
+        f"tokens agree" + (f" (tol >= {bound})" if bound is not None
                            else " (no bound)")
         + f"; {raw:.4f} at all positions; requests token-identical "
         f"{exact:.3f}; first differing position per request {first}")
-    if bound and same_ctx < SERVE_AGREE_MIN:
+    if bound is not None and same_ctx < bound:
         raise AssertionError(f"{tag}: tokens disagree")
     return same_ctx
 
@@ -1959,7 +2120,7 @@ def phase_sampling(torch, cfg, params, prompts, plain: dict) -> None:
     from repro_torch.serving import sampling
     rid = torch.arange(8).repeat_interleave(16)
     pos = torch.arange(100, 116).repeat(8)
-    keys = sampling.packed_keys(1234, rid, pos)
+    keys = sampling.packed_keys(1234, rid, pos, 1025)
     idx = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (128, 64)))
     for what, index in ((f"{cfg.vocab_size} vocab indices",
@@ -1974,12 +2135,13 @@ def phase_sampling(torch, cfg, params, prompts, plain: dict) -> None:
             raise AssertionError("sampling: the card's bits differ from the "
                                  "CPU's")
     # no uniform floor over the whole vocab: index 0 outweighs each other
-    # index by e^30, so every row must draw it (noise that reached +inf at
-    # the top word would give ~V / 2^24 of the rows a uniform index)
+    # index by e^30, more than the noise's spread (20.4), so every row must
+    # draw it (noise that reached +inf at the top word would give ~V / 2^24
+    # of the rows a uniform index)
     floor_rows, chunk, strays, finite = 4096, 256, 0, True
     for start in range(0, floor_rows, chunk):
         r = torch.arange(start, start + chunk, device="cuda")
-        kk = sampling.packed_keys(7, r, torch.zeros_like(r))
+        kk = sampling.packed_keys(7, r, torch.zeros_like(r), 1025)
         finite &= bool(torch.isfinite(
             sampling.gumbel(kk, cfg.vocab_size)).all())
         lg = torch.full((chunk, cfg.vocab_size), -30.0, device="cuda")
@@ -2001,14 +2163,14 @@ def phase_sampling(torch, cfg, params, prompts, plain: dict) -> None:
     logits = torch.randn((rows, cfg.vocab_size), generator=g,
                          device="cuda").to(torch.bfloat16)
     k = sampling.packed_keys(0, torch.arange(rows, device="cuda"),
-                             torch.full((rows,), 500, device="cuda"))
+                             torch.full((rows,), 500, device="cuda"), 1025)
     passes = {"greedy": lambda: sampling.greedy(logits),
               "temperature 0.8 (Gumbel noise over the whole vocab)":
                   lambda: sampling.sample_tokens(logits, k, 0.8),
               "temperature 0.8, top_k 50":
                   lambda: sampling.sample_tokens(logits, k, 0.8, 50)}
-    # a pass is ~400 small launches: the spin must outlast their enqueue
-    # for the events to time the device alone
+    # a pass is a few hundred small launches: the spin must outlast their
+    # enqueue for the events to time the device alone
     timer = Timer(torch)
     timer.SPIN_CYCLES = 40_000_000
     times = {name: (timer(fn), host_us(torch, fn, n=10) / 1e3)
@@ -2031,15 +2193,15 @@ def phase_sampling(torch, cfg, params, prompts, plain: dict) -> None:
                 **SAMPLING)
         if outs[(depth, 0)] != outs[(depth, 1)]:
             agreement(f"sampling depth {depth}: run 0 vs run 1",
-                      outs[(depth, 0)], outs[(depth, 1)], bound=False)
+                      outs[(depth, 0)], outs[(depth, 1)], bound=None)
             raise AssertionError(f"sampling: two runs at depth {depth} with "
                                  "the same seed differ")
         log(f"sampling depth {depth}: two runs with the same seed give "
             "identical tokens")
     agreement("sampling: tokens depth 0 vs depth 1", outs[(0, 0)],
-              outs[(1, 0)], bound=False)
+              outs[(1, 0)], bound=None)
     agreement("sampling: tokens vs the greedy serve's", outs[(0, 0)], plain,
-              bound=False)
+              bound=None)
 
 
 def hybrid_config():
@@ -2107,34 +2269,44 @@ def phase_hybrid_forward(torch, cfg, params):
                              "disagree")
 
 
-def check_step_counts(tag: str, mode: str, cfg, c: dict, s) -> None:
+def check_step_counts(tag: str, mode: str, cfg, c: dict, s,
+                      kname: str = "packed_attention") -> None:
     """Each kernel launched as often as the step's dispatches say: on
     legacy and recompute the scan once per Mamba layer and flash attention
     once per attention layer and
     prefill dispatch, decode attention once per decode dispatch (the
     remaining dispatches are the incremental mode's slot resets, one per
-    request); on the packed step packed attention once per iteration and
-    no scan; SwiGLU once per layer of every forward."""
-    n_mamba = sum(sp.mixer != "attn" for sp in cfg.layer_specs())
-    n_attn = cfg.n_layers - n_mamba
-    others = [k for k in ATTENTION if not (mode == "packed"
-                                           and k == "packed_attention")]
+    request); on the packed step the packed-attention build ``kname`` once
+    per attention layer and iteration and no scan; SwiGLU once per gated
+    dense FFN (a layer's own or Arctic's residual) of every forward.  A
+    model without attention (xLSTM) launches no attention kernel, and one
+    without a gated FFN (the ungated MLP, xLSTM) no SwiGLU."""
+    specs = cfg.layer_specs()
+    n_mamba = sum(sp.mixer == "mamba" for sp in specs)
+    n_attn = sum(sp.mixer == "attn" for sp in specs)
+    n_swiglu = sum(sp.ffn in ("dense", "moe+dense") for sp in specs) \
+        if cfg.ffn_gated else 0
+    others = [k for k in ATTENTION if not (mode == "packed" and k == kname)]
+    resets = 8 if mode == "legacy" else 0
     if mode == "packed":
         forwards = s.iterations
-        ok = (c["packed_attention"] == n_attn * s.iterations > 0
+        ok = (s.iterations > 0 and c[kname] == n_attn * s.iterations
               and c["ssm_scan"] == c["flash_attention"]
               == c["decode_attention"] == 0)
-    else:
+    elif n_attn:
         chunks = c["flash_attention"] // n_attn
         decodes = c["decode_attention"] // n_attn
         forwards = chunks + decodes
-        resets = 8 if mode == "legacy" else 0
         ok = (chunks > 0 and decodes > 0
               and c["ssm_scan"] == n_mamba * chunks
               and c["flash_attention"] == n_attn * chunks
               and c["decode_attention"] == n_attn * decodes
               and forwards + resets == s.model_dispatches)
-    ok = ok and c["swiglu"] == cfg.n_layers * forwards \
+    else:
+        forwards = s.model_dispatches - resets
+        ok = (forwards > 0 and c["flash_attention"] == c["decode_attention"]
+              == c["ssm_scan"] == 0)
+    ok = ok and c["swiglu"] == n_swiglu * forwards \
         and not any(c[k] for k in others)
     if not ok:
         raise AssertionError(f"{tag}: launches {c} do not match "
@@ -2143,14 +2315,11 @@ def check_step_counts(tag: str, mode: str, cfg, c: dict, s) -> None:
 
 
 def phase_hybrid(torch, busy: dict) -> dict:
-    """The hybrid model on the three steps (see the module docstring); each
-    run is profiled into ``busy``.  Returns the scan's launches in the
-    legacy run."""
+    """The hybrid model on the three steps, and on the packed step with
+    int8 KV (see the module docstring); each run is profiled into
+    ``busy``.  Returns the scan's launches in the legacy run."""
     from repro_torch.models import model
     from repro_torch.models.param import count_params
-    from repro_torch.serving.config import EngineConfig
-    from repro_torch.serving.engine import ServeEngine
-    from repro_torch.serving.request import Request
     cfg = hybrid_config()
     t0 = time.perf_counter()
     params = model.init(cfg, seed=0, device="cuda")
@@ -2163,19 +2332,20 @@ def phase_hybrid(torch, busy: dict) -> dict:
     lens = [len(p) for p in prompts]
     outs, counts = {}, {}
     for mode, kw in HYBRID_MODES.items():
-        eng = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=1024,
-                                                    **kw))
-        zero_counts()
-        for i, p in enumerate(prompts):
-            eng.submit(Request(rid=i, prompt=p, max_new_tokens=32))
-        done = eng.run()
-        torch.cuda.synchronize()
-        c = counts[mode] = read_counts()
+        step = "packed" if kw.get("step_mode") == "packed" else mode
+        int8 = kw.get("kv_dtype") == "int8"
+        # the int8 run's checked run is its profiled run (for time)
+        eng, done, c, res = counted_serve(torch, cfg, params, prompts,
+                                          f"hybrid {mode}", int8, **kw)
+        if int8:
+            busy[f"hybrid {mode}"] = res
+        counts[mode] = c
         check_off_path(f"hybrid {mode}", c)
         s = eng.stats
         log(f"hybrid {mode}: prompts {lens}, {len(done)}/8 finished, "
             f"{s.iterations} iterations, {s.total_tokens} tokens in "
-            f"{s.wall_time:.3f} s = {s.throughput:.1f} tok/s, "
+            f"{s.wall_time:.3f} s{' (profiled)' if int8 else ''} = "
+            f"{s.throughput:.1f} tok/s, "
             f"{s.model_dispatches} dispatches ({s.dispatches_per_iter:.3f}/"
             f"iter), {s.host_syncs} syncs ({s.syncs_per_iter:.3f}/iter), "
             f"prefill work {s.prefill_model_tokens} tokens "
@@ -2191,32 +2361,35 @@ def phase_hybrid(torch, busy: dict) -> dict:
                                  "32 tokens")
         if any(not 0 <= t < cfg.vocab_size for r in done for t in r.output):
             raise AssertionError(f"hybrid {mode}: token id out of range")
-        if mode == "packed" and (s.dispatches_per_iter != 1.0
+        if step == "packed" and (s.dispatches_per_iter != 1.0
                                  or s.syncs_per_iter != 1.0):
-            raise AssertionError("hybrid packed: not one dispatch and one "
+            raise AssertionError(f"hybrid {mode}: not one dispatch and one "
                                  "sync per iteration")
-        check_step_counts(f"hybrid {mode}", mode, cfg, c, s)
+        check_step_counts(f"hybrid {mode}", step, cfg, c, s,
+                          "packed_attention_quant" if int8
+                          else "packed_attention")
         outs[mode] = {r.rid: r.output for r in done}
-        # request 0's tokens against a teacher-forced plain forward_full
-        r0 = min(done, key=lambda r: r.rid)
-        seq = torch.tensor([r0.prompt + r0.output[:-1]], dtype=torch.int32,
-                           device="cuda")
-        lg, _ = model.forward_full(cfg, params, seq, impl="plain")
-        ref = lg[0, r0.prompt_len - 1:].argmax(-1).tolist()
-        agree = float(np.mean(np.asarray(ref) == np.asarray(r0.output)))
-        log(f"hybrid {mode}: request 0 ({r0.prompt_len} prompt tokens) vs a "
-            f"teacher-forced plain forward_full: agreement {agree:.4f} "
-            f"(tol >= {SERVE_AGREE_MIN})")
-        if agree < SERVE_AGREE_MIN:
-            raise AssertionError(f"hybrid {mode}: tokens disagree with the "
-                                 "plain forward")
+        if int8:
+            # through an int8 cache: never held to the bf16 tokens (C1)
+            check_teacher_forced(torch, f"hybrid {mode}", cfg, params,
+                                 outs[mode], prompts, kv_dtype="int8")
+        else:
+            check_teacher_forced(torch, f"hybrid {mode}", cfg, params,
+                                 outs[mode], prompts, formulas="full")
         wall = s.wall_time
-        del eng, lg
+        del eng
         torch.cuda.empty_cache()
-        # the recompute step is the legacy engine's kind: no cross-check
+        if int8:
+            continue
+        # cross-checked: the legacy step, for the legacy engine's kind
+        # (~53k events); the packed runs are the packed engine's kind,
+        # cross-checked in the profile phase (at ~390k events a second
+        # cross-check here took ~90 s on a slow host)
         busy[f"hybrid {mode}"] = phase_profile(
             torch, cfg, params, prompts, wall, tag=f"hybrid {mode} profile",
-            cross_check=mode != "recompute", **kw)
+            cross_check=mode == "legacy", **kw)
+    agreement("hybrid: tokens packed vs packed int8", outs["packed"],
+              outs["packed int8"], bound=None)
     for a, b in (("legacy", "packed"), ("legacy", "recompute"),
                  ("recompute", "packed")):
         same_ctx, raw, first = context_agreement(outs[a], outs[b])
@@ -2541,7 +2714,7 @@ def phase_moe(torch) -> None:
               outs["legacy"])
     agreement(f"moe: tokens at capacity 1.25 vs "
               f"{dropless.moe.capacity_factor} (packed)", out125,
-              outs["packed"], bound=False)
+              outs["packed"], bound=None)
     del params
     torch.cuda.empty_cache()
 
@@ -2800,7 +2973,7 @@ def phase_mla(torch, timer, bw, peak, busy: dict) -> tuple[dict, int]:
         agreement(f"mla: tokens packed vs {name}", outs["packed"],
                   outs[name])
     agreement("mla: tokens int8 vs bf16 KV (packed)", outs["packed"],
-              outs["int8"], bound=False)
+              outs["int8"], bound=None)
     busy["mla"] = phase_profile(torch, dropless, params, prompts,
                                 walls["packed"], tag="mla profile")
     with RouteRecorder() as rec:
@@ -2817,10 +2990,196 @@ def phase_mla(torch, timer, bw, peak, busy: dict) -> tuple[dict, int]:
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     agreement(f"mla: tokens at capacity 1.25 vs "
               f"{dropless.moe.capacity_factor:.2f} (packed)", out125,
-              outs["packed"], bound=False)
+              outs["packed"], bound=None)
     del eng, rec, params
     torch.cuda.empty_cache()
     return record, launches
+
+
+def family_config(name: str, layers: int):
+    """A config of the families phase, cut to ``layers`` (the whole model
+    would not fit or would take longer than the phase's share)."""
+    from repro_torch.configs import get_config
+    full = get_config(name)
+    cfg = dataclasses.replace(full, name=f"{full.name}-{layers}l",
+                              n_layers=layers)
+    attn = any(sp.mixer == "attn" for sp in cfg.layer_specs())
+    log(f"families: {full.name} ({full.citation}) cut: n_layers "
+        f"{full.n_layers} -> {layers}; kept d_model {cfg.d_model}, "
+        + (f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads (group "
+           f"{cfg.gqa_group}), head_dim {cfg.resolved_head_dim}, "
+           if attn else f"{cfg.n_heads} heads, {cfg.xlstm}, ")
+        + (f"d_ff {cfg.d_ff} ({'SwiGLU' if cfg.ffn_gated else 'GELU MLP'}), "
+           if cfg.d_ff else "no FFN, ")
+        + f"vocab {cfg.vocab_size}, frontend {cfg.frontend}"
+        + (f" ({cfg.num_codebooks} codebooks)" if cfg.frontend == "audio"
+           else "") + f"; layers {[sp.mixer for sp in cfg.layer_specs()]}")
+    return cfg
+
+
+def counted_serve(torch, cfg, params, prompts, tag: str, trace: bool,
+                  **engine_kw):
+    """A run whose checked run is its profiled one (the families phase, the
+    hybrid's int8 run): a fresh engine serves ``prompts``
+    (32 tokens each) with the kernels' counts set to 0 just before and
+    read just after, under the profiler when ``trace`` (the device's busy
+    time summed as ``phase_profile`` sums it; the wall is the profiled
+    one).  Returns (engine, finished requests, counts, ``device_time``'s
+    result or None)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.config import EngineConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.request import Request
+    eng = ServeEngine(cfg, params, EngineConfig(max_slots=8, max_len=1024,
+                                                **engine_kw))
+    with (profile(activities=[ProfilerActivity.CUDA]) if trace
+          else contextlib.nullcontext()) as prof:
+        zero_counts()
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=32))
+        done = eng.run()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        t_stop = time.perf_counter()
+    res = device_time(prof, t_stop, eng.stats, f"{tag} profile") if trace \
+        else None
+    return eng, done, counts, res
+
+
+def xlstm_witness(torch, cfg, params, prompts, packed: dict) -> None:
+    """Why xLSTM's packed and legacy tokens part in bf16: request 0's
+    packed tokens, teacher-forced through the packed step's formulas
+    (``forward_packed``) and through the prefill's (``forward_full``), in
+    bf16 and again in f32 (the same weights, cast).  The served tokens
+    must agree with the packed formulas in bf16 (SERVE_AGREE_MIN: the
+    families' packed check) and with the prefill's, a route independent
+    of the step that served them (XLSTM_SERVED_AGREE_MIN); in f32 the two
+    formulas' logits must differ by at most XLSTM_F32_GAP_MAX."""
+    tag = f"families {cfg.name} packed"
+    out = packed[0]
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cast(v) for v in tree)
+        return tree.float() if tree.is_floating_point() else tree
+    for name, c, p in (("bf16", cfg, params),
+                       ("f32", dataclasses.replace(cfg, dtype="float32"),
+                        cast(params))):
+        lp = served_logits(torch, c, p, prompts[0], out, "packed")
+        lf = served_logits(torch, c, p, prompts[0], out, "full")
+        gap = float((lp - lf).abs().max())
+        log(f"{tag}: request 0 teacher-forced in {name}, the packed step's "
+            f"formulas vs the prefill's: argmax agreement "
+            f"{float((lp.argmax(-1) == lf.argmax(-1)).float().mean()):.4f}, "
+            f"largest logit gap {gap:.3e} (|logits| max "
+            f"{float(lf.abs().max()):.3f})"
+            + (f" (tol <= {XLSTM_F32_GAP_MAX})" if name == "f32" else ""))
+        if name == "f32" and gap > XLSTM_F32_GAP_MAX:
+            raise AssertionError(f"{tag}: the packed and prefill formulas "
+                                 "disagree in f32")
+        if name == "bf16":
+            check_agreement(tag, "a teacher-forced plain forward", lp, out)
+            check_agreement(tag, "a teacher-forced plain forward_full", lf,
+                            out, XLSTM_SERVED_AGREE_MIN)
+        del lp, lf, p
+    torch.cuda.empty_cache()
+
+
+def phase_families(torch, busy: dict) -> dict:
+    """Each config of ``FAMILIES`` (seeded random bf16 weights, drawn on
+    the card) serves the serve phase's 8 prompt lengths (ids in its own
+    vocab) on the packed step, the legacy step and recompute prefill
+    (``counted_serve``: each run counted from 0 and, but xLSTM's, profiled
+    into ``busy``): every request finishes 32 tokens; the kernels launch
+    as the step's dispatches say (``check_step_counts``: SwiGLU only for
+    LLaVA's gated FFN; xLSTM no attention kernel, scan or SwiGLU at all,
+    ``check_off_path``); MusicGen runs packed attention at group 1 and
+    head_dim 64; request 0's tokens agree with a teacher-forced plain
+    forward of the step's own formulas (packed: ``forward_packed``;
+    legacy, recompute: ``prefill`` + ``forward_decode``), and the steps'
+    tokens with each other (xLSTM's packed and legacy at least
+    XLSTM_ENGINES_AGREE_MIN, after ``xlstm_witness``).  Returns each attention
+    kernel's launches by (group, head dim): packed attention from the
+    packed runs, flash and decode attention from the legacy runs."""
+    from repro_torch.models import model
+    from repro_torch.models.param import count_params
+    by_group: dict = {"packed_attention": {}, "flash_attention": {},
+                      "decode_attention": {}}
+    for name, layers in FAMILIES.items():
+        t_cfg = time.perf_counter()
+        cfg = family_config(name, layers)
+        params = model.init(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        log(f"families {cfg.name}: "
+            f"{count_params(model.model_defs(cfg)) / 1e9:.3f}B params, "
+            f"seeded init {time.perf_counter() - t_cfg:.1f} s")
+        attn = any(sp.mixer == "attn" for sp in cfg.layer_specs())
+        group = f"G {cfg.gqa_group}, head_dim {cfg.resolved_head_dim}"
+        if cfg.frontend == "audio" and (cfg.gqa_group, cfg.resolved_head_dim,
+                                        attn) != (1, 64, True):
+            raise AssertionError(f"families {cfg.name}: not group 1 at "
+                                 "head_dim 64")
+        prompts = serve_prompts(cfg)
+        outs = {}
+        for mode, kw in FAMILY_MODES.items():
+            tag = f"families {cfg.name} {mode}"
+            # not xLSTM's: its packed, legacy and recompute runs' ~670k,
+            # ~320k and ~1.1M device events would take the profiler ~45,
+            # ~20 and ~40 s on a slow host
+            trace = attn
+            eng, done, c, busy[f"{cfg.name} {mode}"] = counted_serve(
+                torch, cfg, params, prompts, tag, trace, **kw)
+            check_off_path(tag, c, () if attn else NOT_ON_XLSTM)
+            s = eng.stats
+            log(f"{tag}: {len(done)}/8 finished, {s.iterations} iterations, "
+                f"{s.total_tokens} tokens in {s.wall_time:.3f} s"
+                + (" (profiled)" if trace else "")
+                + f" = {s.throughput:.1f} tok/s, {s.model_dispatches} "
+                f"dispatches, {s.host_syncs} syncs, prefill work "
+                f"{s.prefill_model_tokens} tokens ({s.prefill_expansion:.3f}"
+                f"x), KV {eng.kv.bytes_per_token} B/token; wall split: host "
+                f"{s.host_time:.3f} s, step enqueue {s.dispatch_time:.3f} s, "
+                f"blocked {s.blocked_sync_time:.3f} s; peak mem "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+                f"launches {c}")
+            if len(done) != 8 or any(len(r.output) != 32 for r in done):
+                raise AssertionError(f"{tag}: not every request finished 32 "
+                                     "tokens")
+            if any(not 0 <= t < cfg.vocab_size for r in done
+                   for t in r.output):
+                raise AssertionError(f"{tag}: token id out of range")
+            if mode == "packed" and (s.dispatches_per_iter != 1.0
+                                     or s.syncs_per_iter != 1.0):
+                raise AssertionError(f"{tag}: not one dispatch and one sync "
+                                     "per iteration")
+            check_step_counts(tag, mode, cfg, c, s)
+            for kname in by_group:
+                if c[kname]:
+                    by_group[kname][group] = \
+                        by_group[kname].get(group, 0) + c[kname]
+            outs[mode] = {r.rid: r.output for r in done}
+            del eng
+            torch.cuda.empty_cache()
+            # each step against the plain forward of its own formulas
+            # (xLSTM's packed step in ``xlstm_witness``)
+            if attn or mode != "packed":
+                check_teacher_forced(torch, tag, cfg, params, outs[mode],
+                                     prompts, formulas="packed"
+                                     if mode == "packed" else "steps")
+        if not attn:
+            xlstm_witness(torch, cfg, params, prompts, outs["packed"])
+        agreement(f"families {cfg.name}: tokens packed vs legacy",
+                  outs["packed"], outs["legacy"],
+                  SERVE_AGREE_MIN if attn else XLSTM_ENGINES_AGREE_MIN)
+        agreement(f"families {cfg.name}: tokens legacy vs recompute",
+                  outs["legacy"], outs["recompute"])
+        log(f"families {cfg.name}: {time.perf_counter() - t_cfg:.1f} s")
+        del params
+        torch.cuda.empty_cache()
+    log(f"families: attention launches by group {by_group}")
+    return by_group
 
 
 def main() -> int:
@@ -2917,6 +3276,8 @@ def main() -> int:
     record["mla_attention"], launches["mla_attention"] = phase_mla(
         torch, Timer(torch), bw, peak, busy)
     lap("mla")
+    families = phase_families(torch, busy)
+    lap("families")
     for tag, got in busy.items():
         if got is not None and not any(k in tag for k in LEGACY_MODES):
             log(f"packed attention in the {tag} serve: {got[1]:.1f} ms of "
@@ -2947,6 +3308,8 @@ def main() -> int:
                             library_ms=rec["library_ms"], shape=rec["shape"],
                             **({"groups": groups[kname]} if kname in groups
                                else {}),
+                            **({"family_launches": families[kname]}
+                               if kname in families else {}),
                             **{k: rec[k] for k in ("library", "cases")
                                if k in rec}))
     log(f"total {time.perf_counter() - t_start:.1f} s; by phase (s) {phases}")

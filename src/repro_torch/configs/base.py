@@ -1,10 +1,9 @@
 """Model configuration: the port's copy of ``repro.configs.base``.
 
 Only the fields and helpers the port's serving paths read are kept
-(``ModelConfig``, ``LayerSpec``, ``MambaConfig``, ``MoEConfig``,
-``MLAConfig``, ``layer_groups``, ``scale_down`` and the registry).  Layer
-and FFN kinds keep the JAX names; the kinds of later slices (the xLSTM
-mixers) come with them.
+(``ModelConfig``, ``LayerSpec``, ``MambaConfig``, ``XLSTMConfig``,
+``MoEConfig``, ``MLAConfig``, ``layer_groups``, ``scale_down`` and the
+registry).  Layer and FFN kinds keep the JAX names.
 """
 from __future__ import annotations
 
@@ -12,11 +11,14 @@ import dataclasses
 import math
 from typing import Optional
 
-ATTN = "attn"          # softmax attention (GQA)
+ATTN = "attn"          # softmax attention (GQA or MLA)
 MAMBA = "mamba"        # Mamba-1 selective SSM
+MLSTM = "mlstm"        # xLSTM matrix-LSTM
+SLSTM = "slstm"        # xLSTM scalar-LSTM
 FFN_DENSE = "dense"
 FFN_MOE = "moe"
 FFN_MOE_DENSE = "moe+dense"   # Arctic-style parallel dense residual + MoE
+FFN_NONE = "none"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +61,13 @@ class MambaConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    proj_factor: float = 2.0   # mLSTM up-projection factor
+    conv_kernel: int = 4
+    slstm_conv_kernel: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                      # dense | moe | ssm | hybrid | vlm | audio
@@ -74,12 +83,17 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     mamba: Optional[MambaConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     qk_norm: bool = False
     ffn_gated: bool = True           # SwiGLU (3 mats) vs plain MLP (2 mats)
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    frontend: str = "none"
+    # modality frontends (stubs): the vision stub's patch-embedding
+    # positions and the audio stub's codebook count
+    frontend: str = "none"           # none | vision | audio
+    num_patch_tokens: int = 0
+    num_codebooks: int = 1
     dtype: str = "bfloat16"
     citation: str = ""
 
@@ -137,17 +151,19 @@ def _load_all() -> None:
     # import each config module for its register() side effect
     from repro_torch.configs import (  # noqa: F401
         arctic_480b, deepseek_v2_236b, jamba_1_5_large_398b, llama2_70b,
-        qwen3_4b, qwen3_8b, tiny)
+        llava_next_34b, minitron_4b, musicgen_medium, qwen3_4b, qwen3_8b,
+        starcoder2_7b, tiny, xlstm_1_3b)
 
 
 def scale_down(cfg: ModelConfig, *, n_layers: int = 0, d_model: int = 128,
                n_heads: int = 4, vocab: int = 512) -> ModelConfig:
     """Reduced same-family config for CPU tests (same rule as the JAX
     package's ``scale_down``, restricted to the fields kept here): the
-    block pattern and the Mamba settings stay, the widths shrink; at most
-    4 experts, top-2, expert and shared widths 2·d_model, dispatch groups
-    of 64 tokens; MLA at latent rank 32, q rank 48, nope and value dims
-    = the head dim, rope dim 8."""
+    block pattern, the Mamba and xLSTM settings and the frontend stay, the
+    widths shrink; at most 4 experts, top-2, expert and shared widths
+    2·d_model, dispatch groups of 64 tokens; MLA at latent rank 32, q rank
+    48, nope and value dims = the head dim, rope dim 8; at most 8 patch
+    tokens."""
     pat_len = min(len(cfg.block_pattern), 8)
     layers = n_layers or (len(cfg.first_layers) + pat_len)
     kv = max(1, min(cfg.n_kv_heads, n_heads))
@@ -167,4 +183,6 @@ def scale_down(cfg: ModelConfig, *, n_layers: int = 0, d_model: int = 128,
         cfg, name=cfg.name + "-smoke", n_layers=layers, d_model=d_model,
         n_heads=n_heads, n_kv_heads=kv, head_dim=hd,
         d_ff=0 if cfg.d_ff == 0 else d_model * 3, vocab_size=vocab, moe=moe,
-        mla=mla)
+        mla=mla,
+        num_patch_tokens=min(cfg.num_patch_tokens, 8)
+        if cfg.num_patch_tokens else 0)

@@ -7,7 +7,10 @@ Repetition r of group gi runs its sub-layers in order, so layer order is
 group by group, repetition by repetition, sub-layer by sub-layer.  Every
 leaf, nested sub-dicts included (an MoE FFN's f32 router, its (E, D, F)
 expert stacks and its ``shared`` and ``dense`` FFNs), loses the leading
-``reps`` axis, which the JAX stacking puts before the expert axis.
+``reps`` axis, which the JAX stacking puts before the expert axis.  The
+leaves outside the groups (the embedding, the head where the embeddings
+are not tied, the vision stub's ``patch_proj`` and the final norm) are
+taken as they are.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ def from_jax_params(cfg: ModelConfig, tree: dict,
                 layers.append(_map(group[f"sub{i}"],
                                    lambda a, r=r: _tensor(np.asarray(a)[r],
                                                           dev)))
-    return {"embed": _tensor(tree["embed"], dev),
-            "head": _tensor(tree["head"], dev),
-            "layers": layers,
-            "final_norm": _tensor(tree["final_norm"], dev)}
+    out = {name: _tensor(leaf, dev) for name, leaf in tree.items()
+           if not name.startswith("group")}
+    out["layers"] = layers
+    return out

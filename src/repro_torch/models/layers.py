@@ -1,5 +1,5 @@
-"""Shared layer primitives: RMSNorm, SiLU, softplus, RoPE and the causal
-depthwise convolution of the Mamba mixer (ports of
+"""Shared layer primitives: RMSNorm, SiLU, GELU, softplus, RoPE and the
+causal depthwise convolution of the Mamba and xLSTM mixers (ports of
 ``repro.models.layers``)."""
 from __future__ import annotations
 
@@ -17,6 +17,14 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation, which ``jax.nn.gelu`` computes by default
+    (the ungated FFN).  Torch evaluates it in f32 and rounds to x's dtype;
+    JAX evaluates it in x's dtype, so bf16 results may differ by an
+    ulp."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -110,3 +118,23 @@ def conv_tail(xs: torch.Tensor, kk: int) -> torch.Tensor:
     if s >= kk:
         return xs[:, s - kk:, :]
     return torch.nn.functional.pad(xs, (0, 0, kk - s, 0))
+
+
+def conv_packed(conv_c: torch.Tensor, xs: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor, slots: torch.Tensor,
+                token_active: torch.Tensor) -> torch.Tensor:
+    """The packed step's conv (Mamba, xLSTM): token by token, the token's
+    slot history is gathered from ``conv_c`` (N, K-1, C), stepped and
+    committed in place (active tokens only; a padding token writes its old
+    history back), so a segment's tokens chain through their slot's
+    history.  xs: (T, C); slots: (T,) int64 on the device.  Returns the
+    conv outputs (T, C)."""
+    out = []
+    for t in range(xs.shape[0]):
+        s_i = slots[t:t + 1]
+        hist = conv_c.index_select(0, s_i)
+        y_t, new_hist = causal_conv1d_step(xs[t][None], hist, w, b)
+        conv_c.index_copy_(0, s_i, torch.where(token_active[t], new_hist,
+                                               hist))
+        out.append(y_t[0])
+    return torch.stack(out)

@@ -1,4 +1,4 @@
-"""Unified LM: embedding -> decoder layers -> head (port of
+"""Unified LM: embedding or frontend stub -> decoder layers -> head (port of
 ``repro.models.model``'s ``init``, ``init_cache``, the packed step's
 ``forward_packed`` and the legacy step's ``forward_full``,
 ``forward_decode``, ``forward_chunk`` and ``prefill``).
@@ -8,7 +8,14 @@ per-layer leaves unstacked into ``params["layers"]`` (a Python loop over
 layers takes the place of ``jax.lax.scan``); the cache is a list of
 per-layer dicts: ``{"k", "v"}`` for GQA attention and the latent
 ``{"c_kv", "k_rope"}`` for MLA (plus ``<name>_s`` scales for int8 KV) and
-the recurrent state ``{"conv", "ssm"}`` for Mamba.
+the recurrent state for Mamba and the xLSTM mixers (``blocks``).
+
+The frontends are JAX's stubs: the vision stub (LLaVA) projects given patch
+embeddings (B, P, D) with ``patch_proj`` and prepends them to the text
+embeddings (``forward_full`` and ``prefill`` only, as in JAX); the audio
+stub (MusicGen) takes (..., K) token streams, sums the K codebooks'
+embeddings and has one head per codebook, so logits are (..., K, vocab).
+With tied embeddings the head is the embedding's transpose.
 """
 from __future__ import annotations
 
@@ -25,14 +32,10 @@ from repro_torch.models.param import ParamDef, init_params
 
 
 def check_config(cfg: ModelConfig) -> None:
-    """The port runs decoders of GQA or absorbed-MLA attention and Mamba
-    layers (hybrids included), each with a dense SwiGLU, MoE or MoE + dense
-    FFN, untied embeddings and no modality frontend; anything else
-    raises."""
-    if cfg.frontend != "none" or cfg.tie_embeddings or not cfg.ffn_gated:
-        raise NotImplementedError(
-            f"{cfg.name}: frontends, tied embeddings and ungated FFNs are "
-            "not in the port yet (ROADMAP A16)")
+    """Every layer kind of the JAX package (``blocks.check_spec``) and one
+    of its frontends; anything else raises."""
+    if cfg.frontend not in ("none", "vision", "audio"):
+        raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r}")
     for spec in cfg.layer_specs():
         blocks.check_spec(spec)
 
@@ -40,12 +43,21 @@ def check_config(cfg: ModelConfig) -> None:
 def model_defs(cfg: ModelConfig) -> dict:
     check_config(cfg)
     d, v, dt = cfg.d_model, cfg.vocab_size, cfg.dtype
-    return {
-        "embed": ParamDef((v, d), dtype=dt),
-        "head": ParamDef((d, v), dtype=dt),
-        "layers": [blocks.block_defs(cfg, spec) for spec in cfg.layer_specs()],
-        "final_norm": ParamDef((d,), init="ones", dtype=dt),
-    }
+    defs: dict = {}
+    if cfg.frontend == "audio":
+        k = cfg.num_codebooks
+        defs["embed"] = ParamDef((k, v, d), dtype=dt, fan_in_axes=(1,))
+        defs["head"] = ParamDef((d, k, v), dtype=dt)
+    else:
+        defs["embed"] = ParamDef((v, d), dtype=dt)
+        if not cfg.tie_embeddings:
+            defs["head"] = ParamDef((d, v), dtype=dt)
+    if cfg.frontend == "vision":
+        defs["patch_proj"] = ParamDef((d, d), dtype=dt)
+    defs["layers"] = [blocks.block_defs(cfg, spec)
+                      for spec in cfg.layer_specs()]
+    defs["final_norm"] = ParamDef((d,), init="ones", dtype=dt)
+    return defs
 
 
 def init(cfg: ModelConfig, seed: int = 0,
@@ -68,13 +80,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for spec in cfg.layer_specs()]
 
 
-def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+           patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, S), or (B, S, K) for audio, whose codebook embeddings
+    are summed in codebook order; the vision stub prepends the projected
+    ``patches`` when they are given."""
+    tok = tokens.long()
+    if cfg.frontend == "audio":
+        x = params["embed"][0][tok[..., 0]]
+        for i in range(1, cfg.num_codebooks):
+            x = x + params["embed"][i][tok[..., i]]
+    else:
+        x = params["embed"][tok]
+    if cfg.frontend == "vision" and patches is not None:
+        pe = torch.matmul(patches.to(x.dtype), params["patch_proj"])
+        x = torch.cat([pe, x], dim=1)
+    return x
 
 
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return torch.matmul(x, params["head"])
+    if cfg.frontend == "audio":
+        w = params["head"]                                  # (D, K, V)
+        return torch.matmul(x, w.reshape(w.shape[0], -1)).reshape(
+            *x.shape[:-1], *w.shape[1:])
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return torch.matmul(x, w)
 
 
 def forward_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -87,12 +118,12 @@ def forward_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                    impl: Optional[str] = None):
     """One iteration's model work on a token-packed stream (DESIGN.md §8).
 
-    tokens: (1, T) packed stream; token_slot: (T,) int32 slot per token;
-    token_pos: (T,) int32 position of the token in its request;
+    tokens: (1, T) packed stream ((1, T, K) for audio); token_slot: (T,)
+    int32 slot per token; token_pos: (T,) int32 position of the token in its request;
     token_wpos: (T,) int32 cache write row — ``token_pos`` for real tokens,
     ``max_len`` for padding (whose K/V are then not written);
     token_active: (T,) bool, False for padding, whose recurrent state is
-    then not committed (required when the model has Mamba layers).  Each
+    then not committed (required when the model has recurrent layers).  Each
     token attends rows [0, pos] of its own slot, so segments never attend
     across each other; ``kv_bucket`` bounds the rows read (DESIGN.md §9).
     ``token_dst`` ((T,) int32 flat physical rows, N·S for padding) and
@@ -101,8 +132,9 @@ def forward_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     row and are read through the per-slot tables.
     ``impl="plain"`` runs the kernels' plain versions on any device.
 
-    Returns (logits (1, T, vocab), cache), the cache updated in place."""
-    x = _embed(params, tokens)
+    Returns (logits (1, T, vocab) or (1, T, K, vocab), cache), the cache
+    updated in place."""
+    x = _embed(cfg, params, tokens)
     positions = token_pos[None]
     for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache):
         x, _ = blocks.block_packed(cfg, spec, p, x, positions, c, token_slot,
@@ -114,20 +146,23 @@ def forward_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+                 patches: Optional[torch.Tensor] = None,
                  positions: Optional[torch.Tensor] = None, q_offset=0,
                  return_states: bool = False, impl: Optional[str] = None):
     """Whole-chunk causal forward (prefill; the recompute path).  tokens:
-    (B, S); ``q_offset`` (an int or a (B,) int32 tensor) is the position of
-    the first token, and sets the positions unless they are given.
+    (B, S) ((B, S, K) for audio); the vision stub's ``patches`` (B, P, D)
+    come first in the sequence, so S counts them too below.  ``q_offset``
+    (an int or a (B,) int32 tensor) is the position of the first token,
+    and sets the positions unless they are given.
 
     Returns (logits (B, S, vocab), aux) or, with ``return_states``,
     (logits, aux, states): ``states[i]`` is layer i's ``{"kv": (k, v)}``,
     each (B, S, KV, hd) (MLA: the latent ``(c_kv, k_rope)``), for an
-    attention layer and its final ``{"conv",
-    "ssm"}`` for a Mamba layer, for handing off to a decode cache.  ``aux``
-    is the MoE balance loss summed over the layers (0 without experts)."""
-    x = _embed(params, tokens)
-    b, s = tokens.shape
+    attention layer and its final recurrent state for the others, for
+    handing off to a decode cache.  ``aux`` is the MoE balance loss summed
+    over the layers (0 without experts)."""
+    x = _embed(cfg, params, tokens, patches)
+    b, s = x.shape[0], x.shape[1]
     if positions is None:
         if isinstance(q_offset, torch.Tensor):
             positions = q_offset.reshape(-1, 1).to(torch.int32) + \
@@ -152,13 +187,14 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 def forward_decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                    cache: list, cache_len: torch.Tensor,
                    impl: Optional[str] = None):
-    """tokens: (B, 1); cache_len: (B,) int32 valid rows before this token.
-    Writes each row's K/V at its ``cache_len`` and attends [0, cache_len].
-    Returns (logits (B, vocab), new cache): attention layers' entries are
-    the given dicts, updated in place; Mamba layers' are new states, every
-    row advanced, with the given ones left as they were (the engine
-    commits only the decoding slots, as JAX's ``_decode_impl`` does)."""
-    x = _embed(params, tokens)
+    """tokens: (B, 1) ((B, 1, K) for audio); cache_len: (B,) int32 valid
+    rows before this token.  Writes each row's K/V at its ``cache_len`` and
+    attends [0, cache_len].  Returns (logits (B, vocab) or (B, K, vocab),
+    new cache): attention layers' entries are the given dicts, updated in
+    place; recurrent layers' are new states, every row advanced, with the
+    given ones left as they were (the engine commits only the decoding
+    slots, as JAX's ``_decode_impl`` does)."""
+    x = _embed(cfg, params, tokens)
     positions = cache_len[:, None]
     new_cache = []
     for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache):
@@ -171,13 +207,14 @@ def forward_decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def forward_chunk(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                   cache: list, cache_len: torch.Tensor,
                   impl: Optional[str] = None):
-    """Incremental chunked prefill (DESIGN.md §7): ``tokens`` (B, L) are
-    the next L positions after the ``cache_len`` (B,) int32 rows already in
-    ``cache``; each prompt token passes through the model once across
-    chunks; Mamba layers resume from their state.  Returns (logits (B, L,
-    vocab), cache), the cache updated in place (each Mamba state copied
-    into its given leaves, which may be views of a slot)."""
-    x = _embed(params, tokens)
+    """Incremental chunked prefill (DESIGN.md §7): ``tokens`` (B, L) ((B,
+    L, K) for audio) are the next L positions after the ``cache_len`` (B,)
+    int32 rows already in ``cache``; each prompt token passes through the
+    model once across chunks; recurrent layers resume from their state.
+    Returns (logits (B, L, vocab) or (B, L, K, vocab), cache), the cache
+    updated in place (each recurrent state copied into its given leaves,
+    which may be views of a slot)."""
+    x = _embed(cfg, params, tokens)
     positions = cache_len[:, None] + torch.arange(
         tokens.shape[1], dtype=torch.int32, device=x.device)
     for spec, p, c in zip(cfg.layer_specs(), params["layers"], cache):
@@ -187,15 +224,18 @@ def forward_chunk(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            patches: Optional[torch.Tensor] = None,
             max_len: Optional[int] = None, impl: Optional[str] = None):
-    """Run ``forward_full`` over the prompts, then place each attention
-    layer's K/V at rows [0, S) of a fresh cache of ``max_len`` rows
-    (default S), made by ``init_cache`` on the tokens' device; a Mamba
-    layer's final state is its cache.  Returns (last logits (B, vocab),
+    """Run ``forward_full`` over the prompts (after the ``patches``, when
+    given), then place each attention layer's K/V at rows [0, S) of a
+    fresh cache of ``max_len`` rows (default S, the patches counted), made
+    by ``init_cache`` on the tokens' device; a recurrent layer's final
+    state is its cache.  Returns (last logits (B, vocab) or (B, K, vocab),
     cache, cache_len (B,) int32)."""
     logits, _aux, states = forward_full(cfg, params, tokens,
-                                        return_states=True, impl=impl)
-    b, s = tokens.shape
+                                        patches=patches, return_states=True,
+                                        impl=impl)
+    b, s = logits.shape[0], logits.shape[1]
     cache = init_cache(cfg, b, max_len or s, device=tokens.device)
     for spec, c, st in zip(cfg.layer_specs(), cache, states):
         if spec.mixer == ATTN:

@@ -1,4 +1,5 @@
-"""FFNs (port of ``repro.models.moe`` at tp=1): the dense SwiGLU FFN and
+"""FFNs (port of ``repro.models.moe`` at tp=1): the dense FFN (SwiGLU, or
+the ungated GELU MLP of StarCoder2, Minitron and MusicGen) and
 the Mixture-of-Experts FFN with GShard top-k routing and capacity,
 DeepSeek-style shared experts and Arctic's parallel dense residual.
 
@@ -24,16 +25,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import silu
+from repro_torch.models.layers import gelu, silu
 from repro_torch.models.param import ParamDef
 
 
-def ffn_defs(d: int, d_ff: int, dt: str) -> dict:
-    return {
+def ffn_defs(d: int, d_ff: int, dt: str, gated: bool = True) -> dict:
+    """``w_up``, ``w_down`` and, for SwiGLU, ``w_gate``."""
+    defs = {
         "w_up": ParamDef((d, d_ff), dtype=dt),
         "w_down": ParamDef((d_ff, d), dtype=dt),
-        "w_gate": ParamDef((d, d_ff), dtype=dt),
     }
+    if gated:
+        defs["w_gate"] = ParamDef((d, d_ff), dtype=dt)
+    return defs
 
 
 def moe_defs(cfg: ModelConfig, *, dense_residual: bool = False) -> dict:
@@ -62,7 +66,11 @@ def moe_defs(cfg: ModelConfig, *, dense_residual: bool = False) -> dict:
 def dense_ffn(p: dict, x: torch.Tensor,
               impl: Optional[str] = None) -> torch.Tensor:
     """``(silu(x @ w_gate) * (x @ w_up)) @ w_down``; x: (..., D).  The gate
-    and up products and the SiLU·mul go through the SwiGLU kernel."""
+    and up products and the SiLU·mul go through the SwiGLU kernel.
+    Without ``w_gate`` it is ``gelu(x @ w_up) @ w_down``, two GEMMs and an
+    elementwise pass, which JAX too computes outside any Pallas kernel."""
+    if "w_gate" not in p:
+        return torch.matmul(gelu(torch.matmul(x, p["w_up"])), p["w_down"])
     lead = x.shape[:-1]
     h = ops.swiglu(x.reshape(-1, x.shape[-1]), p["w_gate"], p["w_up"],
                    impl=impl)

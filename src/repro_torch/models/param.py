@@ -4,10 +4,11 @@ A definition tree is a nested dict of ``ParamDef``s (lists for the
 per-layer stack).  ``init_params`` draws each leaf from its own seeded
 ``torch.Generator`` on the target device, with the JAX init's scales
 (``repro/models/param.py``): truncated normal on [-2, 2] times
-1/sqrt(fan_in) (0.02 for the MoE router, drawn in f32), norms set to
-ones, biases to zeros, and Mamba's ``a_log``
-(log 1..N per channel) and ``dt_bias`` (the inverse softplus of a step
-drawn log-uniform on [1e-3, 1e-1]).  The draws differ from JAX's (another
+1/sqrt(fan_in) (0.02 for the MoE router and the mLSTM's input and forget
+gates, drawn in f32), norms set to ones, biases to zeros (the mLSTM's
+forget bias to ones), and Mamba's ``a_log`` (log 1..N per channel) and
+``dt_bias`` (the inverse softplus of a step drawn log-uniform on [1e-3,
+1e-1]).  The draws differ from JAX's (another
 generator); tests that compare the packages convert the JAX pytree instead
 (``models.convert``).  A leaf marked ``per_slice`` (the experts' stacked
 weights) draws each index of its first axis from a generator of its own,
@@ -26,7 +27,7 @@ import torch
 INIT_NORMAL = "normal"       # truncated-normal, 1/sqrt(fan_in)
 INIT_ONES = "ones"
 INIT_ZEROS = "zeros"
-INIT_SMALL = "small"         # fixed 0.02 std (the MoE router)
+INIT_SMALL = "small"         # fixed 0.02 std (MoE router, mLSTM gates)
 INIT_A_LOG = "a_log"         # mamba: A = -exp(A_log)
 INIT_DT_BIAS = "dt_bias"     # mamba: softplus^-1 of the initial step
 

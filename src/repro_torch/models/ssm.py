@@ -18,7 +18,8 @@ from repro_torch.configs.base import MambaConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssm_scan import ssm_step_ref
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_step,
-                                       conv_tail, silu, softplus)
+                                       conv_packed, conv_tail, silu,
+                                       softplus)
 from repro_torch.models.param import DTYPES, ParamDef
 
 
@@ -123,19 +124,11 @@ def mamba_packed(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     token inside its scan (at Jamba's widths that would re-read 35 MB of
     weights per token and layer).  Indices stay on the device: no sync."""
     xs, z = _pre(p, x)                                  # (1, T, d_in)
-    conv_c, ssm_c = cache["conv"], cache["ssm"]
+    ssm_c = cache["ssm"]
     n_tok = xs.shape[1]
     slots = token_slot.long()
-    xc = []
-    for t in range(n_tok):
-        s_i = slots[t:t + 1]
-        hist = conv_c.index_select(0, s_i)              # (1, K-1, d_in)
-        xc_t, new_hist = causal_conv1d_step(xs[0, t][None], hist,
-                                            p["conv_w"], p["conv_b"])
-        conv_c.index_copy_(0, s_i, torch.where(token_active[t], new_hist,
-                                               hist))
-        xc.append(xc_t[0])
-    xc = silu(torch.stack(xc)[None])                    # (1, T, d_in)
+    xc = silu(conv_packed(cache["conv"], xs[0], p["conv_w"], p["conv_b"],
+                          slots, token_active))[None]   # (1, T, d_in)
     dt, a, b, c = _ssm_params(cfg, p, xc)
     ys = []
     for t in range(n_tok):

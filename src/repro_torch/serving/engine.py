@@ -17,16 +17,27 @@ scatters it back) after zeroing the slot's rows on (re)assignment;
 recompute prefill (``model.forward_full``) reruns the whole prefix and
 writes its K/V into the slot's first rows.
 
-**Recurrent state** (Mamba layers of a hybrid): a slot's ``{"conv",
-"ssm"}`` state is advanced by every token of its request and must not be
-by anything else.  The legacy decode commits it only for the decoding
-slots (a mid-prefill slot's garbage decode token would advance it); a
-chunk writes its new state back into the slot's views; recompute writes
-the whole state of the prefix; a slot taken by a new request starts from
-zeros (the legacy reset, or, on the packed step, a masked select on the
-device before the forward).  Prefix caching and speculative decoding
-refuse models with recurrent layers (ValueError), as in JAX: their state
-can neither be shared by blocks nor rolled back.
+**Recurrent state** (Mamba layers of a hybrid, the xLSTM mixers): a
+slot's state is advanced by every token of its request and must not be by
+anything else.  The legacy decode commits it only for the decoding slots
+(a mid-prefill slot's garbage decode token would advance it); a chunk
+writes its new state back into the slot's views; recompute writes the
+whole state of the prefix; a slot taken by a new request starts from the
+initial state (zeros, and -1e30 for the xLSTM stabiliser ``m``: the legacy
+reset, or, on the packed step, a masked fill on the device before the
+forward).  Prefix caching and speculative decoding refuse models with
+recurrent layers (ValueError), as in JAX: their state can neither be
+shared by blocks nor rolled back.  int8 KV applies to the attention
+layers' leaves only; the recurrent state keeps its own dtypes.  A model
+without attention (xLSTM) caches nothing per token: 0 KV bytes per token,
+so a KV byte budget buys it nothing and the pool falls back to max_slots x
+max_len rows, as in JAX.
+
+**Frontends.**  The audio stub's (MusicGen's) inputs are K codebook
+streams: every fed-back token is repeated across the K codebooks, and of
+each (K,) sample the engine keeps codebook 0, in the token ring and on the
+host, as JAX's engine does.  The vision stub (LLaVA) is served text-only,
+as in JAX: the engine passes no patches.
 
 **Packed step.**  One iteration = one call of the packed step: the decode
 tokens (one per decoding slot, or with ``spec_k > 0`` a ``spec_k + 1``
@@ -43,8 +54,8 @@ with the worst case); its drafts are accepted by prefix match against the
 target's samples, and ``cache_len`` advances by the accepted count only
 (the rollback: rejected rows are overwritten by the next launch before
 anything attends them).  Sampling is greedy at ``temperature == 0``, else
-a Gumbel-max draw keyed on ``(seed, rid, pos, vocab index)``
-(``sampling.py``), taken only at the stream's sample points.
+a Gumbel-max draw keyed on ``(seed, rid, pos)`` and drawn as JAX draws
+it (``sampling.py``), taken only at the stream's sample points.
 
 The host metadata (with, under prefix caching, each token's physical cache
 row, the per-slot block tables and the rows of the iteration's
@@ -76,6 +87,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import blocks
 from repro_torch.models import model as model_lib
 from repro_torch.serving import draft as draft_lib
 from repro_torch.serving import sampling
@@ -233,9 +245,17 @@ class ServeEngine:
             if config.spec_k:
                 raise ValueError("speculative decoding (DESIGN.md §13) "
                                  "needs attention-only models")
-            if config.kv_dtype == "int8":
-                raise NotImplementedError(
-                    "int8 KV on models with recurrent layers is ROADMAP A9")
+        # each recurrent leaf's initial value (0, or the xLSTM
+        # stabiliser's -1e30), to which a reused slot is reset; None for
+        # an attention layer, whose rows need no reset
+        fills: dict = {}
+        for spec in cfg.layer_specs():
+            if spec.mixer != ATTN and spec not in fills:
+                fills[spec] = {
+                    name: float(leaf.reshape(-1)[0])
+                    for name, leaf in blocks.block_init_cache(
+                        cfg, spec, 1, 1, torch.device("cpu")).items()}
+        self._state_fill = [fills.get(spec) for spec in cfg.layer_specs()]
         self.max_slots = config.max_slots
         self.max_len = config.max_len
         self.prefill_mode = config.prefill_mode
@@ -666,14 +686,14 @@ class ServeEngine:
             vdst = block_tables[slot.long(), col] * bs + pos % bs
             token_dst = torch.where(is_verify & active, vdst, token_dst)
         logits, self.cache = model_lib.forward_packed(
-            self.cfg, self.params, toks, self.cache, slot, pos, wpos, active,
-            kv_bucket=kv_bucket, token_dst=token_dst,
-            block_tables=block_tables)
+            self.cfg, self.params, self._model_tokens(toks), self.cache,
+            slot, pos, wpos, active, kv_bucket=kv_bucket,
+            token_dst=token_dst, block_tables=block_tables)
         if self.temperature > 0:
             next_tok = self._sample(logits[0], pos, rid, sample_slot,
                                     verify_idx)
         else:
-            next_tok = sampling.greedy(logits[0])
+            next_tok = self._codebook0(sampling.greedy(logits[0]))
         new_len = torch.where(reset, 0, self.cache_len)
         ring, n_acc = self.last_token, self.accept_len
         grow = active
@@ -721,24 +741,37 @@ class ServeEngine:
         if verify_idx is not None:
             rows = torch.cat([verify_idx.reshape(-1).long(), rows])
         at = rows.clamp(max=t - 1)
-        keys = sampling.packed_keys(self.seed, rid[at], pos[at])
-        drawn = sampling.sample_tokens(logits[at], keys, self.temperature,
-                                       self.top_k)
+        keys = sampling.packed_keys(self.seed, rid[at], pos[at],
+                                    self.max_len + 1)
+        drawn = self._codebook0(sampling.sample_tokens(
+            logits[at], keys, self.temperature, self.top_k))
         out = torch.zeros((t + 1,), dtype=torch.int32, device=self.device)
         out.index_copy_(0, rows, drawn)
         return out[:t]
 
+    def _model_tokens(self, toks: torch.Tensor) -> torch.Tensor:
+        """Token ids as the model takes them: the audio stub's repeated
+        across its K codebooks (a view), as JAX's engine repeats them."""
+        if self.cfg.frontend != "audio":
+            return toks
+        return toks[..., None].expand(*toks.shape, self.cfg.num_codebooks)
+
+    def _codebook0(self, sampled: torch.Tensor) -> torch.Tensor:
+        """Samples as the engine keeps them: codebook 0 of the audio
+        stub's (..., K) samples (the one rule of every step path)."""
+        return sampled[..., 0] if self.cfg.frontend == "audio" else sampled
+
     def _reset_recurrent(self, reset: torch.Tensor) -> None:
-        """Zero the recurrent state of the slots in ``reset`` (a reused slot
-        must not leak the previous request's state; the port of the JAX
-        ``_reset_recurrent``), in place on the device.  Attention leaves
-        need no reset: rows past a request's written extent are never
-        attended."""
-        for spec, layer in zip(self.cfg.layer_specs(), self.cache):
-            if spec.mixer != ATTN:
-                for leaf in layer.values():
+        """Reset the recurrent state of the slots in ``reset`` to its
+        initial value (a reused slot must not leak the previous request's
+        state; the port of the JAX ``_reset_recurrent``), in place on the
+        device.  Attention leaves need no reset: rows past a request's
+        written extent are never attended."""
+        for fill, layer in zip(self._state_fill, self.cache):
+            if fill is not None:
+                for name, leaf in layer.items():
                     m = reset.view(-1, *(1,) * (leaf.dim() - 1))
-                    leaf.masked_fill_(m, 0)
+                    leaf.masked_fill_(m, fill[name])
 
     # ---- legacy iteration: decode dispatch + one dispatch per chunk ----------
     def _step_legacy(self, plan: BatchPlan) -> dict[int, int]:
@@ -755,8 +788,8 @@ class ServeEngine:
             block = torch.from_numpy(host).to(self.device)
             t_disp = time.perf_counter()
             logits, new_cache = model_lib.forward_decode(
-                self.cfg, self.params, block[0][:, None], self.cache,
-                self.cache_len)
+                self.cfg, self.params, self._model_tokens(block[0][:, None]),
+                self.cache, self.cache_len)
             # attention leaves were written in place; recurrent states
             # commit only for the decoding slots
             act = block[1].bool()
@@ -766,7 +799,7 @@ class ServeEngine:
                     for name, leaf in old.items():
                         m = act.view(-1, *(1,) * (leaf.dim() - 1))
                         leaf.copy_(torch.where(m, new[name], leaf))
-            next_tok = sampling.greedy(logits)
+            next_tok = self._codebook0(sampling.greedy(logits))
             staged = self._stage(next_tok)
             self.stats.dispatch_time += time.perf_counter() - t_disp
             self.stats.model_dispatches += 1
@@ -812,10 +845,10 @@ class ServeEngine:
         t_disp = time.perf_counter()
         sub = [{name: leaf[r.slot:r.slot + 1] for name, leaf in layer.items()}
                for layer in self.cache]
-        logits, _ = model_lib.forward_chunk(self.cfg, self.params,
-                                            block[None, :length], sub,
-                                            block[length:])
-        next_tok = sampling.greedy(logits[:, -1])
+        logits, _ = model_lib.forward_chunk(
+            self.cfg, self.params, self._model_tokens(block[None, :length]),
+            sub, block[length:])
+        next_tok = self._codebook0(sampling.greedy(logits[:, -1]))
         staged = self._stage(next_tok)
         self.stats.dispatch_time += time.perf_counter() - t_disp
         self.stats.model_dispatches += 1
@@ -830,8 +863,9 @@ class ServeEngine:
             .to(self.device)[None]
         t_disp = time.perf_counter()
         logits, _aux, states = model_lib.forward_full(
-            self.cfg, self.params, toks, return_states=True)
-        next_tok = sampling.greedy(logits[:, -1])
+            self.cfg, self.params, self._model_tokens(toks),
+            return_states=True)
+        next_tok = self._codebook0(sampling.greedy(logits[:, -1]))
         staged = self._stage(next_tok)
         self.stats.dispatch_time += time.perf_counter() - t_disp
         self.stats.model_dispatches += 1
@@ -855,12 +889,12 @@ class ServeEngine:
                     leaf[slot].copy_(st[name][0])
 
     def _reset_slot(self, slot: int) -> None:
-        """Zero the slot's rows of every leaf in place, recurrent state
-        included (the JAX ``_reset_slot`` scatters a fresh one-slot cache,
-        whose recurrent state is zeros too)."""
-        for layer in self.cache:
-            for leaf in layer.values():
-                leaf[slot].zero_()
+        """Set the slot's rows of every leaf to their initial value in
+        place: zeros, and a recurrent leaf's own initial value (the JAX
+        ``_reset_slot`` scatters a fresh one-slot cache)."""
+        for fill, layer in zip(self._state_fill, self.cache):
+            for name, leaf in layer.items():
+                leaf[slot].fill_(0 if fill is None else fill[name])
 
     def _copy_rows(self, src: torch.Tensor, dst: torch.Tensor) -> None:
         """Copy-on-write block copies (port of the JAX ``_cow_impl``): flat

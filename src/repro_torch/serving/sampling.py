@@ -4,15 +4,20 @@ packed step (ports of ``repro.serving.sampling``: ``greedy``,
 ``scatter_last``, the last two on the per-slot buffer and on the
 speculative-decoding token ring).
 
-Stochastic draws come from Philox4x32-10 (Salmon et al., "Parallel random
-numbers: as easy as 1, 2, 3", SC 2011) written in torch integer ops: the
-bits of a draw depend only on ``(seed, rid, pos, vocab index)``, never on
-the launch, the slot or the device.  Every intermediate stays below 2^63
-(a 32 x 32-bit product is taken in 16-bit halves), so the CPU and the card
-compute the same bits.  JAX's threefry bits are not reproduced; what the
-engine relies on is: the same draw for the same ``(rid, pos)``, hence no
-dependence on async depth, and a re-verified rejected position repeats its
-draw (so speculation stays token-exact under sampling).
+Stochastic draws are JAX's: threefry2x32 (Salmon et al., "Parallel
+random numbers: as easy as 1, 2, 3", SC 2011; JAX's default generator)
+in torch integer ops, keyed as ``repro.serving.sampling.packed_keys``
+keys them, ``fold_in(PRNGKey(seed), rid * stride + pos)``, and drawn in
+JAX's layout (``jax_threefry_partitionable``: word i of a draw of any
+shape hashes the counter (0, i) and xors the two halves), mapped to
+Gumbel noise as ``jax.random.gumbel`` maps it.  The bits equal JAX's
+exactly; the noise within an f32 ulp of its logarithms, so the drawn
+tokens are JAX's.  Every intermediate stays below 2^34, so the CPU and
+the card compute the same bits.  A draw depends only on ``(seed, rid,
+pos)`` and the index in its shape, never on the launch, the slot or an
+earlier sample: the same draw at any async depth, and a re-verified
+rejected position repeats its draw (speculation stays token-exact under
+sampling).
 """
 from __future__ import annotations
 
@@ -21,100 +26,79 @@ from typing import Optional
 import torch
 
 _M32 = 0xFFFFFFFF
-_M16 = 0xFFFF
-# Philox4x32 round multipliers and Weyl key increments (Random123)
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-_PHILOX_ROUNDS = 10
+# threefry2x32's rotations, alternating by group of four rounds, and the
+# key schedule's parity constant (Random123, as JAX's ``threefry_2x32``)
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+_TINY = torch.finfo(torch.float32).tiny
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
-    """logits: (B, V) -> (B,) int32, first index on ties (as jnp.argmax)."""
+    """logits: (B, V) or (B, K, V) -> (B,) / (B, K) int32, first index on
+    ties (as jnp.argmax)."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
 # counter-based random bits
 # ---------------------------------------------------------------------------
-def _mulhilo(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(high, low) 32-bit words of ``a * m`` for int64 ``a`` in [0, 2^32)
-    and a 32-bit constant ``m``, from 16-bit halves: no partial product
-    reaches 2^34."""
-    a_hi, a_lo = a >> 16, a & _M16
-    m_hi, m_lo = m >> 16, m & _M16
-    ll = a_lo * m_lo
-    mid = a_lo * m_hi + a_hi * m_lo + (ll >> 16)
-    lo = ((mid & _M16) << 16) | (ll & _M16)
-    hi = a_hi * m_hi + (mid >> 16)
-    return hi, lo
-
-
-def philox4x32(counter: tuple, key: tuple) -> tuple:
-    """Philox4x32-10 on int64 tensors holding 32-bit words: four counter
-    words and two key words (broadcastable), four output words."""
-    c0, c1, c2, c3 = counter
+def threefry2x32(key: tuple, count: tuple) -> tuple:
+    """threefry2x32 with 20 rounds on int64 tensors holding 32-bit words:
+    two key words and two counter words (broadcastable), two output
+    words."""
     k0, k1 = key
-    for r in range(_PHILOX_ROUNDS):
-        if r:
-            k0 = (k0 + _PHILOX_W[0]) & _M32
-            k1 = (k1 + _PHILOX_W[1]) & _M32
-        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
-        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (count[0] + k0) & _M32
+    x1 = (count[1] + k1) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
 
 
-def packed_keys(seed: int, token_rid: torch.Tensor,
-                token_pos: torch.Tensor) -> torch.Tensor:
-    """Per-row draw identities ``(n, 4)`` int64: the Philox key (the
-    engine seed's two 32-bit words) and the counter's fixed words, the
-    row's position and request id.  Nothing else enters a draw: not the
-    launch, not the slot, not an earlier sample."""
-    rid = token_rid.to(torch.int64) & _M32
-    pos = token_pos.to(torch.int64) & _M32
+def packed_keys(seed: int, token_rid: torch.Tensor, token_pos: torch.Tensor,
+                stride: int) -> torch.Tensor:
+    """Per-row keys ``(n, 2)`` int64 (two 32-bit words): the engine key
+    ``PRNGKey(seed)`` folded with ``rid * stride + pos`` taken mod 2^32, as
+    JAX's ``jax.random.fold_in`` folds it.  ``stride`` must exceed the
+    largest position (the engine passes ``max_len + 1``), so (rid, pos)
+    pairs never collide."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
-    k0 = torch.full_like(rid, seed & _M32)
-    k1 = torch.full_like(rid, seed >> 32)
-    return torch.stack([k0, k1, pos, rid], dim=1)
-
-
-def _philox_words(keys: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
-    """The four words (n, m, 4) of Philox's counter ``(block, pos, rid, 0)``
-    for each row of ``keys`` and each entry of ``block`` (n, m)."""
-    col = lambda j: keys[:, j:j + 1]                       # noqa: E731
-    words = philox4x32((block, col(2).expand_as(block),
-                        col(3).expand_as(block), torch.zeros_like(block)),
-                       (col(0), col(1)))
-    return torch.stack(words, dim=-1)
+    data = (token_rid.to(torch.int64) * stride
+            + token_pos.to(torch.int64)) & _M32
+    k0, k1 = threefry2x32((seed >> 32, seed & _M32),
+                          (torch.zeros_like(data), data))
+    return torch.stack([k0, k1], dim=1)
 
 
 def random_bits(keys: torch.Tensor, index) -> torch.Tensor:
     """32 random bits (int64 in [0, 2^32)) for each row of ``keys`` at each
-    vocab index: of ``index`` ((n, m) int64), or of ``range(index)`` for an
-    int.  Vocab index v is word ``v % 4`` of the counter ``(v // 4, pos,
-    rid, 0)``; the int form computes each counter once."""
-    n = keys.shape[0]
+    flat index of a draw: of ``index`` ((n, m) int64), or of
+    ``range(index)`` for an int.  Word i of a row is JAX's word i of any
+    draw from its key (``jax.random.bits(key, shape)`` flattened)."""
     if isinstance(index, int):
-        nb = -(-index // 4)
-        block = torch.arange(nb, dtype=torch.int64,
-                             device=keys.device)[None].expand(n, nb)
-        return _philox_words(keys, block).reshape(n, 4 * nb)[:, :index]
-    return _philox_words(keys, index >> 2).gather(
-        -1, (index & 3)[..., None])[..., 0]
+        index = torch.arange(index, dtype=torch.int64,
+                             device=keys.device)[None]
+    a, b = threefry2x32((keys[:, 0:1], keys[:, 1:2]),
+                        (torch.zeros_like(index), index))
+    return a ^ b
 
 
 def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Standard Gumbel noise, f32, from 32-bit words (int64 in [0, 2^32)):
-    the top 23 bits give u = (b + 1/2) / 2^23 in [2^-24, 1 - 2^-24], every
-    value exact in f32, so u never rounds to 0 or 1 and the noise is
-    finite (with 24 bits, b + 1/2 rounds up to 2^24 at the top word and
-    u = 1 gives +inf noise)."""
-    u = ((bits >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
+    """Standard Gumbel noise, f32, from 32-bit words (int64 in [0, 2^32)),
+    as ``jax.random.gumbel`` makes it: the top 23 bits give u = b / 2^23,
+    raised to the smallest normal f32 where b = 0, so u lies in [tiny, 1 -
+    2^-23] and the noise in [-4.47, 15.94], finite."""
+    u = (bits >> 9).to(torch.float32) * (1.0 / (1 << 23))
+    u = torch.clamp(u, min=_TINY)
     return -torch.log(-torch.log(u))
 
 
 def gumbel(keys: torch.Tensor, index) -> torch.Tensor:
-    """Standard Gumbel noise, f32, at the vocab indices ``index`` (as in
+    """Standard Gumbel noise, f32, at the flat indices ``index`` (as in
     ``random_bits``)."""
     return gumbel_from_bits(random_bits(keys, index))
 
@@ -124,10 +108,13 @@ def sample_tokens(logits: torch.Tensor, keys: Optional[torch.Tensor],
                   topk: Optional[int] = None) -> torch.Tensor:
     """Next tokens of the sampled rows: greedy when ``temp <= 0``, else
     the Gumbel-max draw from softmax(logits / temp), restricted to the
-    ``topk`` largest logits when given.  A token's noise is keyed by its
-    vocab index, so top-k and the full draw share their bits.
+    ``topk`` largest logits when given, as JAX's ``sample_tokens`` draws
+    it: each row's noise has the shape of what it perturbs, (V,) or (K, V)
+    over the vocab, (topk,) or (K, topk) over the top-k values in
+    descending order, so a codebook's draw is its own slice of the row's.
 
-    logits: (n, V); keys: (n, 4) from ``packed_keys`` -> (n,) int32."""
+    logits: (n, V) or (n, K, V); keys: (n, 2) from ``packed_keys`` -> (n,)
+    or (n, K) int32."""
     if temp <= 0:
         return greedy(logits)
     if keys is None:
@@ -135,10 +122,11 @@ def sample_tokens(logits: torch.Tensor, keys: Optional[torch.Tensor],
     lg = logits.to(torch.float32) / max(temp, 1e-6)
     if topk is not None:
         vals, idx = torch.topk(lg, topk, dim=-1)
-        choice = torch.argmax(vals + gumbel(keys, idx), dim=-1, keepdim=True)
-        return idx.gather(-1, choice)[:, 0].to(torch.int32)
-    return torch.argmax(lg + gumbel(keys, lg.shape[-1]),
-                        dim=-1).to(torch.int32)
+        noise = gumbel(keys, vals[0].numel()).reshape(vals.shape)
+        choice = torch.argmax(vals + noise, dim=-1, keepdim=True)
+        return idx.gather(-1, choice)[..., 0].to(torch.int32)
+    noise = gumbel(keys, lg[0].numel()).reshape(lg.shape)
+    return torch.argmax(lg + noise, dim=-1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

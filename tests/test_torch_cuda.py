@@ -952,12 +952,12 @@ def test_legacy_engine_on_card_matches_cpu(cuda, mode):
 
 
 def test_sampling_bits_on_card_equal_cpu(cuda):
-    """The sampler's Philox bits depend on (seed, rid, pos, vocab index)
+    """The sampler's threefry bits depend on (seed, rid, pos, index)
     only: equal on the card and on the CPU, over a whole vocab and at
     gathered indices."""
     from repro_torch.serving import sampling
     keys = sampling.packed_keys(77, torch.arange(6).repeat_interleave(5),
-                                torch.arange(5).repeat(6) + 1000)
+                                torch.arange(5).repeat(6) + 1000, 2049)
     idx = torch.from_numpy(np.random.default_rng(0).integers(0, 5003,
                                                              (30, 50)))
     for index in (5003, idx):
@@ -1404,4 +1404,97 @@ def test_mla_engine_on_card_matches_cpu(cuda, mode):
                  decode_attention_cuda.launches, mla_attention_cuda.launches]
         assert after[:len(gqa)] == before[:len(gqa)]
         assert (after[3] > before[3]) == (dev == "cuda")
+    assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6
+
+
+# ---- the remaining model families (xLSTM, ungated MLP, tied embeddings,
+# the vision and audio stubs) and int8 KV on the hybrid ---------------------
+# family -> (config, change after scale_down(d_model 256, 4 heads)): each
+# attention family at its own GQA group and a head dim the kernels take
+FAMILIES = {"starcoder2": ("starcoder2-7b",
+                           dict(n_heads=9, n_kv_heads=1, head_dim=128)),
+            "minitron": ("minitron-4b",
+                         dict(n_heads=6, n_kv_heads=2, head_dim=128)),
+            "llava": ("llava-next-34b",
+                      dict(n_heads=14, n_kv_heads=2, head_dim=128)),
+            "musicgen": ("musicgen-medium", {}),
+            "tied": ("tiny-toy", dict(tie_embeddings=True)),
+            "xlstm": ("xlstm-1.3b", {})}
+FAMILY_CASES = [(f, "packed") for f in sorted(FAMILIES)] + \
+    [(f, m) for f in ("musicgen", "xlstm") for m in ("legacy", "recompute")]
+FAMILY_MODES = {"packed": dict(step_mode="packed"),
+                "legacy": dict(step_mode="legacy"),
+                "recompute": dict(prefill_mode="recompute")}
+
+
+def _family_config(family):
+    name, change = FAMILIES[family]
+    cfg = get_config(name)
+    if name != "tiny-toy":
+        cfg = scale_down(cfg, d_model=256, n_heads=4)
+    return dataclasses.replace(cfg, dtype="float32", **change)
+
+
+@pytest.mark.parametrize("family,mode", FAMILY_CASES)
+def test_family_engine_on_card_matches_cpu(cuda, family, mode):
+    """Each family, f32, on the card serves the same greedy tokens as on
+    the CPU, with slot reuse: the attention kernel of the step (packed
+    attention; flash and decode attention on the legacy step and
+    recompute) launches on the card at the family's group (9, 3, 7, 1 at
+    head_dim 64, and tiny-toy's 2), and none on xLSTM."""
+    cfg = _family_config(family)
+    params = model.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                             int(rng.integers(3, 40)))]
+               for _ in range(6)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, _to(params, dev), EngineConfig(
+            max_slots=2, max_len=64, discrete_sizes=(16, 8),
+            avg_decode_len=4, **FAMILY_MODES[mode]), device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=pr, max_new_tokens=6))
+        before = (sum(packed_attention_cuda.launches.values()),
+                  flash_attention_cuda.launches,
+                  decode_attention_cuda.launches)
+        outs[dev] = {r.rid: r.output for r in eng.run()}
+        launched = (sum(packed_attention_cuda.launches.values()) - before[0],
+                    flash_attention_cuda.launches - before[1],
+                    decode_attention_cuda.launches - before[2])
+        on_card = dev == "cuda" and family != "xlstm"
+        packed = eng.step_mode == "packed"
+        assert (launched[0] > 0) == (on_card and packed), launched
+        assert (launched[1] > 0) == (launched[2] > 0) == \
+            (on_card and not packed), launched
+    assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6
+
+
+def test_int8_hybrid_engine_on_card_matches_cpu(cuda):
+    """The Jamba layer pattern of ``test_hybrid_engine_on_card_matches_cpu``
+    with int8 KV on the packed step: the int8 packed-attention build
+    launches on the card, the tokens are the CPU's."""
+    cfg = scale_down(get_config("jamba-1.5-large-398b"), d_model=256,
+                     n_heads=4)
+    cfg = dataclasses.replace(
+        cfg, moe=None, dtype="float32",
+        block_pattern=tuple(dataclasses.replace(sp, ffn=FFN_DENSE)
+                            for sp in cfg.block_pattern))
+    params = model.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(6)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size,
+                                             int(rng.integers(3, 40)))]
+               for _ in range(6)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, _to(params, dev), EngineConfig(
+            max_slots=2, max_len=64, discrete_sizes=(16, 8),
+            avg_decode_len=4, kv_dtype="int8"), device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=pr, max_new_tokens=6))
+        before = packed_attention_cuda.launches["packed_attention_quant"]
+        outs[dev] = {r.rid: r.output for r in eng.run()}
+        quant = packed_attention_cuda.launches["packed_attention_quant"] - \
+            before
+        assert (quant > 0) == (dev == "cuda")
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6

@@ -29,8 +29,7 @@ from repro.serving.config import EngineConfig as JaxEngineConfig
 from repro.serving.engine import ServeEngine as JaxServeEngine
 from repro.serving.engine import kv_bytes_per_token as jax_kv_bytes
 from repro.serving.request import Request as JaxRequest
-from repro_torch.configs import (ATTN, FFN_DENSE, LayerSpec, get_config,
-                                 scale_down)
+from repro_torch.configs import ATTN, FFN_DENSE, get_config, scale_down
 from repro_torch.models import model
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serving.config import EngineConfig
@@ -270,7 +269,8 @@ def test_kv_bytes_per_token_counts_attention_layers_only(models):
 
 def test_engine_refuses_what_jax_refuses(models):
     """Prefix caching and speculative decoding on a model with recurrent
-    layers: both engines refuse; int8 KV is not in the port for hybrids."""
+    layers: both engines refuse; int8 KV both take (its attention leaves
+    go int8, ``tests/test_torch_xlstm_engine.py``)."""
     jcfg, tcfg, jparams, tparams = models
     with pytest.raises(ValueError, match="attention-only"):
         ServeEngine(tcfg, tparams, EngineConfig(prefix_caching=True),
@@ -281,20 +281,5 @@ def test_engine_refuses_what_jax_refuses(models):
         ServeEngine(tcfg, tparams, EngineConfig(spec_k=2), device="cpu")
     with pytest.raises(AssertionError):
         JaxServeEngine(jcfg, jparams, JaxEngineConfig(spec_k=2))
-    with pytest.raises(NotImplementedError, match="A9"):
-        ServeEngine(tcfg, tparams, EngineConfig(kv_dtype="int8"),
-                    device="cpu")
-
-
-def test_xlstm_layers_are_refused():
-    """The xLSTM mixers and FFN-less layers are not in the port: it names
-    the ROADMAP item that brings them, while Jamba as published (MoE FFNs
-    on odd in-group layers) builds."""
-    model.model_defs(scale_down(get_config(JAMBA)))
-    for spec in (LayerSpec(mixer="mlstm", ffn="none"),
-                 LayerSpec(mixer="slstm", ffn=FFN_DENSE),
-                 LayerSpec(mixer=ATTN, ffn="none")):
-        cfg = dataclasses.replace(scale_down(get_config(JAMBA)),
-                                  block_pattern=(spec,))
-        with pytest.raises(NotImplementedError, match="A9"):
-            model.model_defs(cfg)
+    ServeEngine(tcfg, tparams, EngineConfig(kv_dtype="int8"), device="cpu")
+    JaxServeEngine(jcfg, jparams, JaxEngineConfig(kv_dtype="int8"))

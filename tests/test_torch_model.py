@@ -137,14 +137,3 @@ def test_padding_rows_write_nothing():
     model.forward_packed(cfg, params, toks, cache, z, z,
                          torch.full((3,), 16, dtype=torch.int32))
     assert all(not c[k].any() for c in cache for k in ("k", "v"))
-
-
-@pytest.mark.parametrize("change", [dict(frontend="vision"),
-                                    dict(tie_embeddings=True),
-                                    dict(ffn_gated=False)], ids=str)
-def test_unported_model_features_name_their_roadmap_item(change):
-    """A modality frontend, tied embeddings and an ungated FFN raise, and
-    the message names the ROADMAP item that brings them (A16)."""
-    cfg = dataclasses.replace(get_config("tiny-toy"), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        model.model_defs(cfg)

@@ -7,18 +7,21 @@ The cases of ``tests/test_sampling.py`` and the sampling cases of
 arrays; ``temperature == 0`` and ``top_k=1`` are greedy; draws are
 reproducible, confined to the top k, and in an engine do not depend on
 the async depth; stochastic spec decode is token-exact against plain
-stochastic decode.  JAX's threefry bits are not reproduced: the port's
-generator (Philox4x32-10 in torch integer ops) is held to Random123's
-known answers, and its draws to the softmax by a chi-square test over
-20,000 draws.
+stochastic decode.  The generator is JAX's threefry2x32 in torch integer
+ops: its bits are held to Random123's known answer and to
+``jax.random.bits`` under ``packed_keys``' keys, its draws to JAX's
+``sample_tokens`` token for token (one and four codebooks, with and
+without top-k) and to the softmax by a chi-square test over 20,000
+draws, and the stochastic engine to the JAX engine token for token.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.stats
 import torch
 
-from _torch_serving import models
+from _torch_serving import models, run
 from repro.serving import sampling as jax_sampling
 from repro_torch.serving import sampling
 from repro_torch.serving.config import EngineConfig
@@ -83,20 +86,55 @@ def test_scatter_last_matches_jax(width):
 # ---------------------------------------------------------------------------
 # the generator
 # ---------------------------------------------------------------------------
-def test_philox_known_answers():
-    """Random123's kat_vectors for philox4x32 with 10 rounds."""
-    cases = [((0, 0, 0, 0), (0, 0),
-              (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
-             ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
-              (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
-             ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
-              (0xA4093822, 0x299F31D0),
-              (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1))]
-    for ctr, key, want in cases:
-        got = sampling.philox4x32(
-            tuple(torch.tensor([c], dtype=torch.int64) for c in ctr),
-            tuple(torch.tensor([k], dtype=torch.int64) for k in key))
+def test_threefry_known_answers():
+    """Random123's kat_vectors for threefry2x32 with 20 rounds (the
+    answers JAX's tests hold its ``threefry_2x32`` to)."""
+    cases = [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+             ((0xFFFFFFFF,) * 2, (0xFFFFFFFF,) * 2, (0x1CB996FC, 0xBB002BE7)),
+             ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+              (0xC4923A9C, 0x483DF7A0))]
+    for key, ctr, want in cases:
+        got = sampling.threefry2x32(
+            tuple(torch.tensor([k], dtype=torch.int64) for k in key),
+            tuple(torch.tensor([c], dtype=torch.int64) for c in ctr))
         assert [int(g) for g in got] == list(want)
+
+
+@pytest.mark.parametrize("seed", [0, 11, 2**31 - 1])
+def test_keys_and_bits_match_jax(seed):
+    """``packed_keys`` equals JAX's (``fold_in`` of rid x stride + pos,
+    wrapping past 2^32), and each key's words are ``jax.random.bits`` of a
+    (4, 37) draw, flattened."""
+    rng = np.random.default_rng(seed)
+    rid = rng.integers(0, 2**31 - 1, 6).astype(I32)
+    pos = rng.integers(0, 1024, 6).astype(I32)
+    jkeys = jax_sampling.packed_keys(jax.random.PRNGKey(seed),
+                                     jnp.asarray(rid), jnp.asarray(pos), 1025)
+    keys = sampling.packed_keys(seed, _t(rid), _t(pos), 1025)
+    np.testing.assert_array_equal(keys.numpy(),
+                                  np.asarray(jkeys).astype(np.int64))
+    want = jax.vmap(lambda k: jax.random.bits(k, (4, 37)))(jkeys)
+    np.testing.assert_array_equal(
+        sampling.random_bits(keys, 4 * 37).reshape(6, 4, 37).numpy(),
+        np.asarray(want).astype(np.int64))
+
+
+@pytest.mark.parametrize("shape", [(40, 97), (40, 4, 97)], ids=str)
+@pytest.mark.parametrize("topk", [None, 1, 8])
+def test_sample_tokens_match_jax(shape, topk):
+    """The draws of one and of four codebooks, over the whole vocab and
+    over the top k, are JAX's token for token at temperature 0.8."""
+    rng = np.random.default_rng(5)
+    logits = rng.normal(size=shape).astype(np.float32) * 2
+    rid = rng.integers(0, 1000, shape[0]).astype(I32)
+    pos = rng.integers(0, 96, shape[0]).astype(I32)
+    jkeys = jax_sampling.packed_keys(jax.random.PRNGKey(3), jnp.asarray(rid),
+                                     jnp.asarray(pos), 97)
+    want = jax_sampling.sample_tokens(jnp.asarray(logits), jkeys, 0.8, topk)
+    got = sampling.sample_tokens(torch.from_numpy(logits),
+                                 sampling.packed_keys(3, _t(rid), _t(pos),
+                                                      97), 0.8, topk)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_packed_keys_distinct_and_bits_consistent():
@@ -105,7 +143,7 @@ def test_packed_keys_distinct_and_bits_consistent():
     index (top-k and the full draw share them); the seed enters."""
     rid = _t([0, 0, 1, 1])
     pos = _t([0, 1, 0, 1])
-    keys = sampling.packed_keys(5, rid, pos)
+    keys = sampling.packed_keys(5, rid, pos, 97)
     bits = sampling.random_bits(keys, 37)
     assert bits.shape == (4, 37) and int(bits.min()) >= 0 \
         and int(bits.max()) < 2 ** 32
@@ -115,14 +153,15 @@ def test_packed_keys_distinct_and_bits_consistent():
                                bits.gather(1, pick))
     every = torch.arange(37).expand(4, 37)
     torch.testing.assert_close(sampling.random_bits(keys, every), bits)
-    other = sampling.random_bits(sampling.packed_keys(6, rid, pos), 37)
+    other = sampling.random_bits(sampling.packed_keys(6, rid, pos, 97), 37)
     assert not torch.equal(other, bits)
 
 
 def test_gumbel_noise_finite_at_extreme_bits():
     """The words at both ends (and at the edges of the bits the map
     drops) give finite noise, ordered as the words: u stays inside
-    (0, 1), so no index gets -inf or +inf noise whatever its logit."""
+    (0, 1), so no index gets -inf or +inf noise whatever its logit, and
+    equal to ``jax.random.gumbel``'s map of the same words."""
     bits = torch.tensor([0, 1, 0x1FF, 0x200, 1 << 31, 0xFFFFFDFF,
                          0xFFFFFE00, 0xFFFFFF00, 0xFFFFFFFF],
                         dtype=torch.int64)
@@ -130,8 +169,14 @@ def test_gumbel_noise_finite_at_extreme_bits():
     assert noise.dtype == torch.float32
     assert bool(torch.isfinite(noise).all()), noise
     assert bool((noise[1:] >= noise[:-1]).all()), noise
-    # u in [2^-24, 1 - 2^-24]: -log(24 ln 2) <= noise <= -log(2^-24)
-    assert -2.82 < float(noise[0]) and float(noise[-1]) < 16.64, noise
+    # u in [tiny, 1 - 2^-23]: -log(-log(tiny)) <= noise <= 15.94
+    assert -4.48 < float(noise[0]) and float(noise[-1]) < 15.95, noise
+    u = jnp.maximum(jnp.float32(np.finfo(np.float32).tiny),
+                    (jnp.asarray(bits.numpy() >> 9, jnp.float32)
+                     * 2.0 ** -23))
+    np.testing.assert_allclose(noise.numpy(),
+                               np.asarray(-jnp.log(-jnp.log(u))),
+                               rtol=1e-6)
 
 
 @pytest.mark.parametrize("topk", [None, 6])
@@ -140,22 +185,23 @@ def test_top_word_does_not_win_the_draw(monkeypatch, topk):
     with a far lower logit still samples from the softmax: the favoured
     index 0 wins on every row.  Noise that reached +inf at the top word
     would hand that index the draw, a uniform floor of about V / 2^24
-    over a whole vocab."""
+    over a whole vocab.  Over the top k the noise is indexed by rank, and
+    the lower logit ranks second."""
     n, vocab, top = 4, 64, [5, 17, 63, 1]
     real_bits = sampling.random_bits
 
     def bits_with_top_word(keys, index):
         out = real_bits(keys, index).clone()
-        idx = (torch.arange(vocab).expand(n, vocab)
-               if isinstance(index, int) else index)
-        hit = idx == torch.tensor(top)[:, None]
-        return torch.where(hit, torch.full_like(out, 0xFFFFFFFF), out)
+        cols = torch.arange(out.shape[1]).expand(n, out.shape[1])
+        at = torch.tensor(top)[:, None] if out.shape[1] == vocab else 1
+        return torch.where(cols == at, torch.full_like(out, 0xFFFFFFFF),
+                           out)
 
     monkeypatch.setattr(sampling, "random_bits", bits_with_top_word)
     logits = torch.full((n, vocab), -50.0)
     logits[:, 0] = 0.0
     logits[torch.arange(n), torch.tensor(top)] = -40.0   # inside the top k
-    keys = sampling.packed_keys(9, torch.arange(n), torch.zeros(n))
+    keys = sampling.packed_keys(9, torch.arange(n), torch.zeros(n), 97)
     drawn = sampling.sample_tokens(logits, keys, 1.0, topk)
     assert drawn.tolist() == [0] * n
 
@@ -167,7 +213,7 @@ def test_sample_tokens_greedy_cases():
     greedy = sampling.greedy(logits)
     torch.testing.assert_close(sampling.sample_tokens(logits, None, 0.0),
                                greedy)
-    keys = sampling.packed_keys(3, torch.arange(6), torch.zeros(6))
+    keys = sampling.packed_keys(3, torch.arange(6), torch.zeros(6), 97)
     torch.testing.assert_close(
         sampling.sample_tokens(logits, keys, 1.0, topk=1), greedy)
 
@@ -175,7 +221,8 @@ def test_sample_tokens_greedy_cases():
 def test_sample_tokens_deterministic_and_in_top_k():
     logits = torch.from_numpy(
         np.random.default_rng(2).normal(size=(8, 13)).astype(np.float32))
-    keys = sampling.packed_keys(5, torch.arange(8), torch.full((8,), 3))
+    keys = sampling.packed_keys(5, torch.arange(8), torch.full((8,), 3),
+                                97)
     a = sampling.sample_tokens(logits, keys, 0.7, topk=4)
     b = sampling.sample_tokens(logits, keys, 0.7, topk=4)
     torch.testing.assert_close(a, b)
@@ -192,7 +239,7 @@ def test_draw_frequencies_chi_square(topk):
     n, temp = 20_000, 0.8
     logits = np.random.default_rng(11).normal(size=12).astype(np.float32)
     keys = sampling.packed_keys(1234, torch.arange(n) % 97,
-                                torch.arange(n) // 97)
+                                torch.arange(n) // 97, 1025)
     drawn = sampling.sample_tokens(
         torch.from_numpy(np.tile(logits, (n, 1))), keys, temp, topk)
     counts = np.bincount(drawn.numpy(), minlength=12)
@@ -257,3 +304,20 @@ def test_stochastic_spec_decode_token_exact(depth):
     assert st.spec_verify_segments > 0
     assert st.spec_proposed_tokens == st.spec_verify_segments * 2
     assert st.spec_accepted_tokens <= st.spec_proposed_tokens
+
+
+@pytest.mark.parametrize("topk", [None, 8])
+@pytest.mark.parametrize("depth", [0, 1])
+def test_stochastic_engine_token_exact_vs_jax(depth, topk):
+    """The three prompts on the stochastic packed engine, temperature 0.8,
+    at depths 0 and 1: the JAX engine's tokens."""
+    jcfg, tcfg, jparams, tparams = models("tiny-toy")
+    rng = np.random.default_rng(3)
+    prompts = [[5, 9, 3, 7] * 5, ([2, 4] * 8)[:13],
+               list(map(int, rng.integers(0, tcfg.vocab_size, size=7)))]
+    cfg = dict(max_slots=2, max_len=96, discrete_sizes=(16, 8),
+               avg_decode_len=4.0, async_depth=depth, async_harvest=False,
+               temperature=0.8, top_k=topk, seed=5)
+    _, want = run(True, jcfg, jparams, prompts, max_new=12, **cfg)
+    _, got = run(False, tcfg, tparams, prompts, max_new=12, **cfg)
+    assert got == want
