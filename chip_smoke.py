@@ -2800,28 +2800,61 @@ def mla_case(torch, use: str, dtype, seed: int = 29):
             desc)
 
 
+def mla_schedule(args, kw) -> str:
+    """The last MLA launch's schedule (``mla_attention.launch.schedule``,
+    what the wrapper launched) and, for the log only, the host replay of
+    its bf16 grid (``mla_attention.items``) at the case's slots and
+    lengths: CTAs, those with rows, and the f32 partials that split items
+    write and their last CTAs read back in the same launch.  The kernel
+    runs no cluster."""
+    from repro_torch.kernels import mla_attention as mla
+    q, c_kv, _, slot, lens = args
+    s = c_kv.shape[1]
+    bucket = kw.get("kv_bucket")
+    sweep = s if bucket is None else max(0, min(int(bucket), s))
+    chunk, chunks = mla.launch.schedule
+    grid = mla.items((chunk, chunks), q.shape[1], c_kv.shape[0], sweep,
+                     slot.tolist(), lens.tolist())
+    busy = sum(1 for it in grid if it.k1 > it.k0)
+    parts = sum(1 for it in grid if it.live > 1 and it.k1 > it.k0)
+    return (f"schedule {chunks} chunk(s) of {chunk} rows, no cluster; host "
+            f"replay: {len(grid)} CTAs ({q.shape[0]} tokens x "
+            f"{q.shape[1] // mla.HEAD_BLOCK} head blocks x {chunks}), "
+            f"{busy} with rows, {parts} split partials, "
+            f"{parts * mla.PART * 4 / 1e6:.1f} MB f32 written and read back")
+
+
 def phase_mla_kernels(torch, timer, bw, peak) -> dict:
     """The MLA kernel against its plain version at ``mla_case``'s four
-    shapes in f32 and bf16, each timed (bf16) beside its plain version,
-    masked SDPA (``scaled_dot_product_attention`` with ``enable_gqa`` over
-    the concatenated key, checked against the plain version) and its
-    bound.  Returns the kernel's record (the mixed stream's numbers, the
-    other shapes under ``cases``)."""
+    shapes in f32 and bf16, two launches of each bit-equal, each timed
+    (bf16) beside its plain version, masked SDPA
+    (``scaled_dot_product_attention`` with ``enable_gqa`` over the
+    concatenated key, checked against the plain version) and its bound,
+    with its schedule (``mla_schedule``) and TFLOP/s.  Returns the
+    kernel's record (the mixed stream's numbers, the other shapes under
+    ``cases``)."""
     from repro_torch.kernels import mla_attention as mla
     F = torch.nn.functional
     cases = {}
     for use in ("packed", "decode", "chunk", "recompute"):
         args32, kw, _, _, _, _ = mla_case(torch, use, torch.float32)
-        err32 = check_close(f"mla_attention f32 {use}",
-                            mla.mla_attention_cuda(*args32, **kw),
+        got32 = mla.mla_attention_cuda(*args32, **kw)
+        err32 = check_close(f"mla_attention f32 {use}", got32,
                             mla.mla_attention_ref(*args32, **kw), F32_TOL)
-        del args32
+        if not torch.equal(got32, mla.mla_attention_cuda(*args32, **kw)):
+            raise AssertionError(f"mla_attention f32 {use}: two launches "
+                                 "differ")
+        del args32, got32
         args, kw, sdpa, nbytes, flops, desc = mla_case(torch, use,
                                                        torch.bfloat16)
         got = mla.mla_attention_cuda(*args, **kw)
         want = mla.mla_attention_ref(*args, **kw)
         torch.cuda.synchronize()
         err = check_close(f"mla_attention bf16 {use}", got, want)
+        if not torch.equal(got, mla.mla_attention_cuda(*args, **kw)):
+            raise AssertionError(f"mla_attention bf16 {use}: two launches "
+                                 "differ")
+        sched_desc = mla_schedule(args, kw)
         sched = mla.launch.schedule
         sq, sk, sv, mask = sdpa
 
@@ -2835,11 +2868,11 @@ def phase_mla_kernels(torch, timer, bw, peak) -> dict:
         plain_ms = timer(lambda: mla.mla_attention_ref(*args, **kw))
         lib_ms = timer(lib)
         t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
-        log(f"mla_attention {use}: {desc}; schedule {sched[1]} chunk(s) of "
-            f"{sched[0]} rows, {args[0].shape[0] * 2 * sched[1]} CTAs; "
-            f"max_abs_err f32 {err32:.3e} (tol {F32_TOL[0]} + {F32_TOL[1]}"
-            f"·|ref|), bf16 {err:.3e} (tol {BF16_TOL[0]} + {BF16_TOL[1]}"
-            f"·|ref|)  kernel_ms {ms:.4f}  plain_ms {plain_ms:.4f}  sdpa_ms "
+        log(f"mla_attention {use}: {desc}; {sched_desc}; two launches "
+            f"bit-equal; max_abs_err f32 {err32:.3e} (tol {F32_TOL[0]} + "
+            f"{F32_TOL[1]}·|ref|), bf16 {err:.3e} (tol {BF16_TOL[0]} + "
+            f"{BF16_TOL[1]}·|ref|)  kernel_ms {ms:.4f}  plain_ms "
+            f"{plain_ms:.4f}  sdpa_ms "
             f"{lib_ms:.4f}  bound_ms {max(t_bytes, t_ops):.4f} ("
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
             f"{flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s)")

@@ -30,8 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # decode attention, paged decode attention (a second C entry of
 # csrc/decode_attention.cu, in its library) and the fused op share the unit
 # of csrc/attn_decode.cuh, SwiGLU and the fused op the GEMM mainloop of
-# csrc/gemm_sm90.cuh; MLA's latent attention takes the unit's MMA
-# primitives.
+# csrc/gemm_sm90.cuh, as does MLA's latent attention.
 def _pa(quant: int, block_table: int) -> tuple[str, tuple[str, ...]]:
     return ("packed_attention", (f"-DREPRO_PA_QUANT={quant}",
                                  f"-DREPRO_PA_BLOCK_TABLE={block_table}"))
@@ -67,7 +66,7 @@ SIGNATURES = {
                          [_void_p] * 8 + [_int] * 7 + [_ll] * 4
                          + [_float, _void_p, _void_p]),
     "mla_attention": ("repro_mla_attention",
-                      [_void_p] * 8 + [_int] * 7 + [_ll] * 4
+                      [_void_p] * 9 + [_int] * 7 + [_ll] * 4
                       + [_float, _void_p]),
     "fused_overlap": ("repro_fused_overlap",
                       [_void_p] * 11 + [_int] * 10 + [_ll] * 4

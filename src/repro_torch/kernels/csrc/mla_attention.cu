@@ -17,47 +17,74 @@
 // not positive gives zeros.
 //
 // What bounds it on the card: at a decode token, bytes (each attended row
-// is 1152 bytes in bf16 and is read once per 64-head block); at a prefill
-// chunk, operations (2 * H * (576 + 512) flops per attended (token, row)),
-// since every token of a chunk re-reads its slot's rows.
+// is 1152 bytes in bf16); at a prefill chunk, operations (2 * H * (576 +
+// 512) flops per attended (token, row)), since every token of a chunk
+// attends its slot's rows again.
 //
-// Design (simple first; wgmma/TMA, a tile of several tokens and the block
-// table and int8 in the kernel are later work):
+// Design (bf16):
 //   * A CTA is one (token, block of 64 heads, chunk of key rows): the heads
-//     are the M side of the MMA, so group 128 and one KV head fill the
-//     tensor cores' rows without the GQA tile kernel's tq * group <= 64.
-//     The wrapper splits the sweep into chunks only when the (token, head
-//     block) items alone cannot fill the SMs (a decode batch); a split
-//     CTA writes f32 partials (m, l, unnormalized O) and a second kernel
-//     merges each (token, head) over its chunks in chunk order.
-//   * bf16: 8 warps.  q's 64 x 576 tile sits in shared memory (74,752 B
-//     with a 16-byte row pad); keys stream through a two-stage cp.async
-//     ring of 32-row stages (37,376 B each).  S = Q K^T on mma.sync
-//     m16n8k16: warp (r, c) scores rows 16r..16r+15 against keys
-//     16c..16c+15 of the stage and the two halves meet in a 64 x 32 f32
-//     buffer, so each warp then holds its 16 rows x all 32 keys for the
-//     online softmax.  O += P V: warp (r, c) owns output columns
-//     256c..256c+255 of its rows (128 f32 accumulator registers a thread;
-//     4 warps of 512 columns would need 256, past the 255 limit), with P as
-//     bf16 hi + lo (csrc/attn_decode.cuh's primitives) and V^T read from
-//     the key stage by ldmatrix.trans.
+//     are wgmma's 64-row M side, so group 128 and one KV head fill the
+//     tensor cores' rows.  The wrapper's plan splits the sweep into chunks
+//     only where the (token, head block) items leave SMs idle (a decode
+//     batch), from the shapes alone; CTAs run chunk-major.  A split item's
+//     chunks write f32 partials, and the CTA that takes the item's last
+//     ticket (the split-KV counters the other attention kernels share)
+//     merges them in chunk order and sets the ticket back to 0, in the
+//     same launch: the result does not depend on which CTA ran what.
+//   * Loads: a producer warp issues TMA copies into an mbarrier ring, all
+//     with the 128-byte swizzle: the q tile (64 heads x 576 columns, nine
+//     64-column boxes) and the first key stage are put in flight together,
+//     then 64-key stages of two, each filled from two tensor maps over the
+//     strided (slot, row) views, c_kv in 8 boxes and k_rope in 1, under one
+//     expect_tx.  TMA zero-fills past the sweep; rows between a token's
+//     length and the end of its last stage are another request's rows or
+//     uninitialised cache, so their scores are masked with a select and
+//     their V rows zeroed in shared memory before P V: a stale row never
+//     reaches the output, even as NaN * 0.
+//   * Products on wgmma.  Two consumer warpgroups split the 512 value
+//     columns, 256 each (128 f32 sums a thread; 512 columns in one
+//     warpgroup would need 256).  Each scores its half of the stage's keys
+//     (m64n32k16, q and K both K-major in shared memory), the two exchange
+//     row maxima through shared memory, and each passes its half of P, as
+//     wgmma A fragments in bf16 hi + lo (P at near-f32 precision, as flash
+//     keeps it), to the other: warpgroup 0's half in the stage's k_rope box
+//     (read by the scores only, which are done by then), warpgroup 1's in
+//     a buffer of its own.  So S is computed once a stage and both
+//     warpgroups run O += P V on the same P, from registers, V read
+//     MN-major from the stage's first 512 columns through the transpose
+//     bit.  The online softmax runs in log2 units, one FFMA and one ex2 a
+//     score.  setmaxnreg gives the consumers 232 registers and leaves the
+//     producer warpgroup 40.
+//   * Shared memory: q 73,728 B + two 64-key stages 147,456 B + one P half
+//     8,192 B + the row exchange 512 B + barriers, within the 232,448 B a
+//     block may use (a third stage, or P's other half beside it, does not
+//     fit: hence the k_rope box).  One CTA per SM.
+//   * What bounds it now (tools/mla_probe.py, PERF.md): with no row loaded
+//     past the first two stages the kernel takes as long as it does in
+//     full, so the ring is hidden and the consumers' chain (S, the
+//     softmax and its two exchanges, P V, each waited for) is the time.
+//     Tried and slower at every shape (PERF.md): 32-key stages four deep,
+//     a cluster of the token's two head blocks sharing one TMA multicast
+//     a stage, stages owned by alternate warpgroups or all by warpgroup 0
+//     with the next S behind each P V (ptxas serialised the wgmmas,
+//     C7515), and the next S behind P V in this design (a
+//     compiler-inserted wait, spills).
 //   * f32 (for the card's exact checks): 16 heads a CTA, 32-row stages in
-//     shared memory, CUDA-core FMAs; a warp scores two heads, lane = key.
+//     shared memory, CUDA-core FMAs, a warp scoring two heads with lane =
+//     key; split chunks merged by a second kernel.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "attn_decode.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 namespace mla {
 
-using attn_decode::cp_async16;
-using attn_decode::cp_async_commit;
-using attn_decode::cp_async_wait;
-using attn_decode::ldmatrix_x4;
-using attn_decode::ldmatrix_x4_trans;
-using attn_decode::mma_bf16;
+namespace g9 = gemm_sm90;
 using attn_decode::split_bf16;
 using attn_decode::warp_sum;
 
@@ -67,18 +94,41 @@ constexpr int RANK = 512;           // kv_lora_rank: c_kv, and the value
 constexpr int ROPE = 64;            // qk_rope_dim: k_rope
 constexpr int D = RANK + ROPE;      // the latent key
 constexpr int THREADS = 256;
-constexpr int NK = 32;              // key rows per stage
+constexpr int NK = 32;              // key rows per stage (f32)
 
 // bf16 path
-constexpr int HEADS = 64;           // query heads per CTA
-constexpr int STAGES = 2;           // the cp.async ring's depth
-constexpr int LD = D + 8;           // shared row pitch (bf16): 1168 bytes
-constexpr int SLD = NK + 4;         // score buffer pitch (f32)
-constexpr int Q_BYTES = HEADS * LD * 2;
-constexpr int STAGE_BYTES = NK * LD * 2;
-constexpr int SMEM_BF16 = Q_BYTES + STAGES * STAGE_BYTES + HEADS * SLD * 4;
-constexpr int CHUNKS_ROW = D / 8;   // 16-byte pieces of a key row
-constexpr int CKV_CHUNKS = RANK / 8;
+constexpr int BM = 64;              // query heads per CTA: wgmma's M
+constexpr int BN = 64;              // key rows per stage
+constexpr int HALF = BN / 2;        // keys a warpgroup scores
+constexpr int WG = 128;             // threads of a warpgroup
+constexpr int CONSUMERS = 2 * WG;
+constexpr int BF_THREADS = CONSUMERS + WG;   // + the producer warpgroup
+constexpr int ROW = 128;            // bytes of one swizzled row: 64 bf16
+constexpr int BOXES = D / 64;       // 64-column boxes of a key row
+constexpr int V_BOXES = RANK / 64;  // the value's: c_kv
+constexpr int BOX = BN * ROW;       // one box of a stage
+constexpr int Q_BYTES = BOXES * BM * ROW;
+constexpr int STAGE_BYTES = BOXES * BOX;
+constexpr int STAGES = 2;
+constexpr int COLS = RANK / 2;      // value columns of a warpgroup
+constexpr int NO = BM * COLS / WG;  // its f32 sums a thread: 128
+// one warpgroup's half of P: (HALF / 16) A fragments, hi and lo, of 16 B
+// a thread, thread-minor
+constexpr int XP_BYTES = (HALF / 16) * 2 * WG * 16;
+constexpr int XM_BYTES = 2 * BM * 4;   // each warpgroup's row maxima or sums
+constexpr int BARS = 1 + 2 * STAGES;   // q, full, empty
+constexpr int SMEM_BF16 =
+    1024 + Q_BYTES + STAGES * STAGE_BYTES + XP_BYTES + XM_BYTES + BARS * 8;
+// f32 floats of one warpgroup's state, thread-minor: the sums, then m and
+// l of each thread's two rows; a split chunk's partial holds both
+constexpr int WG_PART = (NO + 4) * WG;
+constexpr int PART = 2 * WG_PART;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+static_assert(XP_BYTES == BOX, "warpgroup 0's P half fills the k_rope box");
+static_assert(SMEM_BF16 <= 232448, "shared memory a block may use");
+static_assert(PRODUCER_REGS * WG + CONSUMER_REGS * CONSUMERS <= 65536,
+              "registers of the SM");
 
 // f32 path
 constexpr int F_HEADS = 16;
@@ -123,222 +173,481 @@ __device__ __forceinline__ bool find_work(const Args& a, int heads, Work& w) {
 __device__ __forceinline__ void store2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+
+// ---------------------------------------------------------------------------
+// bf16: TMA ring, wgmma, a producer warp; split chunks merged in the launch
+// ---------------------------------------------------------------------------
+struct Params {
+  const int32_t* slot;
+  const int32_t* len;
+  __nv_bfloat16* out;
+  float* part;          // (T * H / 64, splits, PART) f32 partials
+  int32_t* tickets;     // (T * H / 64,), 0 between launches
+  int t, h, n, sweep, chunk, splits;
+  float sl2;            // scale * log2(e)
+};
+
+// Named barrier `id` over the first n threads (0 is __syncthreads').
+template <int N>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
 }
 
-// ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS, 1) mla_bf16_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem + Q_BYTES);
-  float* ss = reinterpret_cast<float*>(smem + Q_BYTES + STAGES * STAGE_BYTES);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr = warp & 3, wc = warp >> 2;   // rows 16wr.., columns / keys wc
-  Work w;
-  const bool busy = find_work(a, HEADS, w);
-  const int head0 = w.hb * HEADS;
-  const size_t row_t = (size_t)w.t * a.h + head0;   // (token, first head)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  if (!busy) {
-    if (a.splits == 1) {   // zeros: 64 rows x 512 columns of the output
-      __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.out) + row_t * RANK;
-      for (int i = tid; i < HEADS * RANK / 2; i += THREADS)
-        store2(o + 2 * i, 0.f, 0.f);
-    } else if (tid < HEADS) {
-      float* ml = a.part_ml + ((row_t + tid) * a.splits + w.split) * 2;
-      ml[0] = NEG_INF;
-      ml[1] = 0.f;
+__device__ __forceinline__ void st_shared_v4(uint32_t addr,
+                                             const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+               : "memory");
+}
+
+__device__ __forceinline__ void ld_shared_v4(uint32_t addr,
+                                             uint32_t (&v)[4]) {
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// A box of a 3-D `map` at (column c0, row c1, slot c2) into shared memory,
+// completing `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// d (64 x 32) = A (64 x 16, K-major) @ B (16 x 32, K-major) + (d if
+// `accumulate`, else 0): a warpgroup's scores, q as A and its half of a key
+// stage (keys as rows) as B.
+__device__ __forceinline__ void mma_kk_n32(float (&d)[16], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// What a consumer thread keeps: the softmax state of its two rows (m in
+// log2 units of the scaled scores, l its warpgroup's keys' sum until the
+// end), and its warpgroup's output sums, o[64 h + 4 j + e] at row r0 + 8 *
+// (e / 2) and column 128 h + 8 j + 2 (t % 4) + e % 2 of the warpgroup's
+// 256 (two m64n128 accumulators).
+struct State {
+  float m[2], l[2];
+  float o[NO];
+
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = NEG_INF;
+      l[h] = 0.f;
     }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  }
+
+  // Writes the state to x, thread-minor (t = the thread of the warpgroup).
+  __device__ __forceinline__ void save(float* x, int t) const {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) x[i * WG + t] = o[i];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      x[(NO + h) * WG + t] = m[h];
+      x[(NO + 2 + h) * WG + t] = l[h];
+    }
+  }
+
+  // Merges another CTA's state at x (as save writes it, read past L1):
+  // against the rows' common maximum, its own sums first, then x's.
+  __device__ __forceinline__ void merge(const float* x, int t) {
+    float w0[2], w1[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mx = __ldcg(x + (NO + h) * WG + t);
+      const float lx = __ldcg(x + (NO + 2 + h) * WG + t);
+      const float mg = fmaxf(m[h], mx);
+      const float base = mg == NEG_INF ? 0.f : mg;
+      w0[h] = ex2(m[h] - base);
+      w1[h] = ex2(mx - base);
+      l[h] = l[h] * w0[h] + lx * w1[h];
+      m[h] = mg;
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i)
+      o[i] = o[i] * w0[(i >> 1) & 1] +
+             __ldcg(x + i * WG + t) * w1[(i >> 1) & 1];
+  }
+
+  // rows r0 and r0 + 8 of the block, divided by the rows' sums, into the
+  // warpgroup's 256 columns at `dst` (row r0's first column of this thread)
+  __device__ __forceinline__ void store(__nv_bfloat16* dst) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float inv = 1.f / fmaxf(l[h], 1e-30f);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dst + h * 8 * RANK + hh * 128 +
+                                             j * 8) =
+              __floats2bfloat162_rn(o[64 * hh + 4 * j + 2 * h] * inv,
+                                    o[64 * hh + 4 * j + 2 * h + 1] * inv);
+    }
+  }
+};
+
+// The consumers' part of a busy CTA: the stages' products and softmax, then
+// the output or this chunk's partial and, for the item's last chunk, the
+// merge.
+__device__ __forceinline__ void consume(const Params& p, uint32_t sq,
+                                        uint32_t sk, uint32_t sxp,
+                                        float* xm, uint32_t q_bar,
+                                        uint32_t full, uint32_t empty,
+                                        int* last, int item, int split,
+                                        int k0, int k1, int n_st, int n_live,
+                                        __nv_bfloat16* out_row) {
+  const int tid = threadIdx.x;
+  const int wg = tid / WG;
+  const int t = tid % WG;
+  const int lane = tid % 32;
+  const int r0 = (t / 32) * 16 + lane / 4;   // rows r0 and r0 + 8
+  State cs;
+  cs.reset();
+  g9::mbar_wait(q_bar, 0);
+  for (int j = 0; j < n_st; ++j) {
+    const int s = j % STAGES;
+    const uint32_t st = sk + s * STAGE_BYTES;
+    g9::mbar_wait(full + 8 * s, (j / STAGES) & 1);
+
+    // S: the 64 heads against this warpgroup's 32 keys of the stage
+    float sc[HALF / 2];
+    g9::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_kk_n32(sc, g9::kmajor_desc(sq + (kk / 4) * BM * ROW + (kk % 4) * 32),
+                 g9::kmajor_desc(st + (kk / 4) * BOX + wg * HALF * ROW +
+                                 (kk % 4) * 32),
+                 kk > 0);
+    g9::wgmma_commit();
+    g9::wgmma_wait<0>();
+    g9::fence_acc(sc);
+
+    // the rows' maxima over both halves; keys at or past k1 are NEG_INF (a
+    // select, so a stale row's NaN never passes)
+    const int key0 = k0 + j * BN + wg * HALF;
+    const bool masked = key0 + HALF > k1;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) {
+      if (masked && key0 + (i / 4) * 8 + (lane & 3) * 2 + (i & 1) >= k1)
+        sc[i] = NEG_INF;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    if ((lane & 3) == 0) {
+      xm[wg * BM + r0] = mx[0];
+      xm[wg * BM + r0 + 8] = mx[1];
+    }
+    // past it, both warpgroups' scores of the stage are done
+    named_sync<CONSUMERS>(1);
+
+    // the online softmax: p = 2^(s sl2 - m); alpha rescales the earlier
+    // sums.  A row with no key yet exponentiates against 0.
+    float alpha[2], use[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], xm[(1 - wg) * BM + r0 + 8 * h]);
+      const float mn =
+          mx[h] == NEG_INF ? cs.m[h] : fmaxf(cs.m[h], mx[h] * p.sl2);
+      use[h] = mn == NEG_INF ? 0.f : mn;
+      alpha[h] = ex2(cs.m[h] - use[h]);
+      cs.m[h] = mn;
+    }
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) {
+      const float pe = ex2(fmaf(sc[i], p.sl2, -use[(i >> 1) & 1]));
+      sc[i] = pe;
+      rs[(i >> 1) & 1] += pe;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) cs.l[h] = cs.l[h] * alpha[h] + rs[h];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) cs.o[i] *= alpha[(i >> 1) & 1];
+
+    // this warpgroup's half of P as A fragments (keys 16 kk .. 16 kk + 15 of
+    // its half are the score sums 8 kk .. 8 kk + 7), for the other
+    uint32_t ph[HALF / 16][4], pl[HALF / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HALF / 16; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        split_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1], ph[kk][f],
+                   pl[kk][f]);
+    const uint32_t rope_box = st + V_BOXES * BOX;
+    const uint32_t mine = wg == 0 ? rope_box : sxp;
+    const uint32_t theirs = wg == 0 ? sxp : rope_box;
+#pragma unroll
+    for (int kk = 0; kk < HALF / 16; ++kk) {
+      st_shared_v4(mine + ((2 * kk) * WG + t) * 16, ph[kk]);
+      st_shared_v4(mine + ((2 * kk + 1) * WG + t) * 16, pl[kk]);
+    }
+    if (j == n_st - 1) {
+      // the last stage's V rows at or past k1 inside the sweep (TMA zeroed
+      // the rest), in this warpgroup's boxes: whole 128-byte rows, so the
+      // swizzle does not matter
+      const int z0 = k1 - (k0 + j * BN);
+      const int z1 = min(BN, p.sweep - (k0 + j * BN));
+      constexpr int PER_ROW = (V_BOXES / 2) * (ROW / 16);
+      for (int idx = t; idx < (z1 - z0) * PER_ROW; idx += WG) {
+        const int row = z0 + idx / PER_ROW;
+        const int piece = idx % PER_ROW;
+        const uint32_t addr = st +
+                              (wg * V_BOXES / 2 + piece / (ROW / 16)) * BOX +
+                              row * ROW + (piece % (ROW / 16)) * 16;
+        asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr),
+                     "r"(0)
+                     : "memory");
+      }
+      g9::fence_proxy_async();
+    }
+    named_sync<CONSUMERS>(1);
+    uint32_t oh[HALF / 16][4], ol[HALF / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HALF / 16; ++kk) {
+      ld_shared_v4(theirs + ((2 * kk) * WG + t) * 16, oh[kk]);
+      ld_shared_v4(theirs + ((2 * kk + 1) * WG + t) * 16, ol[kk]);
+    }
+
+    // O += P V over this warpgroup's 256 columns: its own keys, then the
+    // other warpgroup's; P as hi + lo, two products a k-step
+    g9::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const int half = kk < HALF / 16 ? wg : 1 - wg;
+      const uint32_t v = st + (half * HALF + (kk % (HALF / 16)) * 16) * ROW;
+      constexpr int H16 = HALF / 16;
+      const int own = kk < H16 ? kk : 0, other = kk < H16 ? 0 : kk - H16;
+      const uint32_t(&ah)[4] = kk < H16 ? ph[own] : oh[other];
+      const uint32_t(&al)[4] = kk < H16 ? pl[own] : ol[other];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float(&acc)[64] = *reinterpret_cast<float(*)[64]>(cs.o + 64 * h);
+        // MN-major: 64 columns a 128-byte row, the next 64 one box on
+        const uint64_t desc = g9::smem_desc(
+            v + (wg * V_BOXES / 2 + 2 * h) * BOX, BOX, 8 * ROW);
+        g9::mma_rs<128>(acc, ah, desc, 1);
+        g9::mma_rs<128>(acc, al, desc, 1);
+      }
+    }
+    g9::wgmma_commit();
+    g9::wgmma_wait<0>();
+    g9::fence_acc(cs.o);
+    // this thread's generic reads and writes of the stage come before the
+    // TMA copies that refill it
+    g9::fence_proxy_async();
+    if (lane == 0) g9::mbar_arrive(empty + 8 * s);
+  }
+
+  // each row's sum over the four lanes that hold it, then over both
+  // warpgroups' keys (the row maxima's last readers are past the last
+  // stage's second barrier)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    cs.l[h] += __shfl_xor_sync(0xffffffffu, cs.l[h], 1);
+    cs.l[h] += __shfl_xor_sync(0xffffffffu, cs.l[h], 2);
+  }
+  if ((lane & 3) == 0) {
+    xm[wg * BM + r0] = cs.l[0];
+    xm[wg * BM + r0 + 8] = cs.l[1];
+  }
+  named_sync<CONSUMERS>(1);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) cs.l[h] += xm[(1 - wg) * BM + r0 + 8 * h];
+
+  __nv_bfloat16* dst = out_row + r0 * RANK + wg * COLS + 2 * (lane & 3);
+  if (n_live <= 1) {
+    cs.store(dst);
     return;
   }
+  // a split item: this chunk's partial, then the merge by its last chunk
+  float* part = p.part + (long long)item * p.splits * PART + wg * WG_PART;
+  cs.save(part + (long long)split * PART, t);
+  __threadfence();
+  named_sync<CONSUMERS>(1);
+  if (tid == 0) *last = atomicAdd(p.tickets + item, 1) == n_live - 1;
+  named_sync<CONSUMERS>(1);
+  if (!*last) return;
+  __threadfence();
+  cs.reset();
+  for (int cc = 0; cc < n_live; ++cc) cs.merge(part + (long long)cc * PART, t);
+  cs.store(dst);
+  if (tid == 0) p.tickets[item] = 0;   // ready for the next launch
+}
 
-  const __nv_bfloat16* ckv = static_cast<const __nv_bfloat16*>(a.ckv) +
-                             (long long)w.slot * a.ck_s0;
-  const __nv_bfloat16* krope = static_cast<const __nv_bfloat16*>(a.krope) +
-                               (long long)w.slot * a.kr_s0;
-  const int n_stages = (w.k1 - w.k0 + NK - 1) / NK;
+// One CTA per (token, 64-head block, key chunk), chunk-major: blockIdx =
+// (chunk * T + token) * (H / 64) + head block.  Threads [0, 256) are the
+// consumer warpgroups, the next warpgroup the producer (its first thread
+// issues every copy).
+__global__ void __launch_bounds__(BF_THREADS, 1)
+mla_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap ckv_map,
+                const __grid_constant__ CUtensorMap kr_map, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int last;
+  const uint32_t raw = g9::smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u;
+  const uint32_t sk = sq + Q_BYTES;                 // the stages
+  const uint32_t sxp = sk + STAGES * STAGE_BYTES;   // warpgroup 1's P half
+  const uint32_t sxm = sxp + XP_BYTES;              // the row exchange
+  const uint32_t q_bar = sxm + XM_BYTES;
+  const uint32_t full = q_bar + 8;
+  const uint32_t empty = full + 8 * STAGES;
+  const int tid = threadIdx.x;
 
-  auto load_stage = [&](int st) {
-    __nv_bfloat16* dst = sk + (st % STAGES) * (NK * LD);
-    const int base = w.k0 + st * NK;
+  const int hblocks = p.h / BM;
+  const int items = p.t * hblocks;
+  const int split = blockIdx.x / items;
+  const int item = blockIdx.x - split * items;
+  const int tok = item / hblocks;
+  const int hb = item - tok * hblocks;
+  const int slot = p.slot[tok];
+  const int lim = slot >= 0 && slot < p.n ? min(p.len[tok], p.sweep) : 0;
+  const int k0 = split * p.chunk;
+  const int k1 = min(lim, k0 + p.chunk);
+  const int n_st = k1 > k0 ? (k1 - k0 + BN - 1) / BN : 0;
+  const int n_live = lim > 0 ? (lim + p.chunk - 1) / p.chunk : 0;
+  __nv_bfloat16* out_row = p.out + ((long long)tok * p.h + hb * BM) * RANK;
+
+  if (tid == CONSUMERS) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&q_map)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&ckv_map)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&kr_map)) : "memory");
+    g9::mbar_init(q_bar, 1);
 #pragma unroll
-    for (int i = tid; i < NK * CHUNKS_ROW; i += THREADS) {
-      const int r = i / CHUNKS_ROW, c = i % CHUNKS_ROW;
-      const int row = base + r;
-      const bool ok = row < w.k1;
-      const __nv_bfloat16* src =
-          c < CKV_CHUNKS ? ckv + (ok ? row * a.ck_s1 : 0) + c * 8
-                         : krope + (ok ? row * a.kr_s1 : 0) + (c - CKV_CHUNKS) * 8;
-      cp_async16(dst + r * LD + c * 8, src, ok);
+    for (int s = 0; s < STAGES; ++s) {
+      g9::mbar_init(full + 8 * s, 1);
+      g9::mbar_init(empty + 8 * s, CONSUMERS / 32);
     }
-  };
-
-  // q's tile, then the first stage, as one group
-  {
-    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) + row_t * D;
-#pragma unroll
-    for (int i = tid; i < HEADS * CHUNKS_ROW; i += THREADS) {
-      const int r = i / CHUNKS_ROW, c = i % CHUNKS_ROW;
-      cp_async16(sq + r * LD + c * 8, q + (size_t)r * D + c * 8, true);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  load_stage(0);
-  cp_async_commit();
+  __syncthreads();
 
-  float o[32][4];
+  if (tid >= CONSUMERS) {
+    // the producer: the q tile and the first stage together, then each
+    // stage as its buffer comes free
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == CONSUMERS && n_st > 0) {
+      g9::mbar_expect_tx(q_bar, Q_BYTES);
 #pragma unroll
-  for (int n = 0; n < 32; ++n)
+      for (int b = 0; b < BOXES; ++b)
+        g9::tma_load(sq + b * BM * ROW, &q_map, q_bar, 64 * b,
+                     tok * p.h + hb * BM);
+      for (int j = 0; j < n_st; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) g9::mbar_wait(empty + 8 * s, ((j / STAGES) + 1) & 1);
+        const uint32_t bar = full + 8 * s;
+        const uint32_t dst = sk + s * STAGE_BYTES;
+        const int key = k0 + j * BN;
+        g9::mbar_expect_tx(bar, STAGE_BYTES);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-
-  for (int st = 0; st < n_stages; ++st) {
-    // stage st has landed, and past the barrier every warp is done with
-    // stage st - 1, whose buffer the next stage's copies then fill
-    cp_async_wait<0>();
-    __syncthreads();
-    if (st + 1 < n_stages) {
-      load_stage(st + 1);
-      cp_async_commit();
-    }
-    const __nv_bfloat16* kt = sk + (st % STAGES) * (NK * LD);
-    const int kbase = w.k0 + st * NK;
-
-    // S half: rows 16wr.., keys 16wc..16wc+15 of the stage
-    {
-      float s[2][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll 4
-      for (int kk = 0; kk < D; kk += 16) {
-        uint32_t af[4], bk[4];
-        ldmatrix_x4(af, sq + (wr * 16 + (lane & 15)) * LD + kk + (lane >> 4) * 8);
-        ldmatrix_x4(bk, kt + (wc * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                            kk + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[0], af, bk[0], bk[1]);
-        mma_bf16(s[1], af, bk[2], bk[3]);
+        for (int b = 0; b < V_BOXES; ++b)
+          tma_load_3d(dst + b * BOX, &ckv_map, bar, 64 * b, key, slot);
+        tma_load_3d(dst + V_BOXES * BOX, &kr_map, bar, 0, key, slot);
       }
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = wr * 16 + (lane >> 2) + hh * 8;
-          const int key = wc * 16 + n * 8 + (lane & 3) * 2;
-          store2(ss + row * SLD + key, s[n][2 * hh] * a.sl2,
-                 s[n][2 * hh + 1] * a.sl2);
-        }
-    }
-    __syncthreads();
-
-    // the warp's 16 rows x 32 keys, in the MMA accumulator layout
-    float p[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = wr * 16 + (lane >> 2) + hh * 8;
-        const float2 x = *reinterpret_cast<const float2*>(
-            ss + row * SLD + n * 8 + (lane & 3) * 2);
-        p[n][2 * hh] = x.x;
-        p[n][2 * hh + 1] = x.y;
-      }
-    // online softmax in log2 units; keys at or past k1 are masked
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kbase + n * 8 + (lane & 3) * 2 + (e & 1);
-        const float x = key < w.k1 ? p[n][e] : NEG_INF;
-        p[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      alpha[hh] = exp2f(m[hh] - mx[hh]);
-      m[hh] = mx[hh];
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kbase + n * 8 + (lane & 3) * 2 + (e & 1);
-        const float pe = key < w.k1 ? exp2f(p[n][e] - mx[e >> 1]) : 0.f;
-        rs[e >> 1] += pe;
-        p[n][e] = pe;
-      }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + rs[hh];
-#pragma unroll
-    for (int n = 0; n < 32; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-    // O += P V over the warp's 256 columns; V^T from the key stage
-#pragma unroll
-    for (int kk = 0; kk < NK / 16; ++kk) {
-      uint32_t ah[4], al[4];
-      split_bf16(p[2 * kk][0], p[2 * kk][1], ah[0], al[0]);
-      split_bf16(p[2 * kk][2], p[2 * kk][3], ah[1], al[1]);
-      split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], ah[2], al[2]);
-      split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], ah[3], al[3]);
-      const int vrow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const __nv_bfloat16* vt = kt + vrow * LD + wc * 256 + (lane >> 4) * 8;
-#pragma unroll
-      for (int dp = 0; dp < 16; ++dp) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vt + dp * 16);
-        mma_bf16(o[2 * dp], ah, bv[0], bv[1]);
-        mma_bf16(o[2 * dp], al, bv[0], bv[1]);
-        mma_bf16(o[2 * dp + 1], ah, bv[2], bv[3]);
-        mma_bf16(o[2 * dp + 1], al, bv[2], bv[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
-    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
-  }
-  const int col0 = wc * 256 + (lane & 3) * 2;
-  if (a.splits == 1) {
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const float inv = 1.f / fmaxf(l[hh], 1e-30f);
-      __nv_bfloat16* orow =
-          out + (row_t + wr * 16 + (lane >> 2) + hh * 8) * RANK + col0;
-#pragma unroll
-      for (int n = 0; n < 32; ++n)
-        store2(orow + n * 8, o[n][2 * hh] * inv, o[n][2 * hh + 1] * inv);
     }
   } else {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const size_t hrow = (row_t + wr * 16 + (lane >> 2) + hh * 8) * a.splits +
-                          w.split;
-      if (wc == 0 && (lane & 3) == 0) {
-        a.part_ml[hrow * 2] = m[hh];
-        a.part_ml[hrow * 2 + 1] = l[hh];
-      }
-      float* arow = a.part_acc + hrow * RANK + col0;
-#pragma unroll
-      for (int n = 0; n < 32; ++n)
-        store2(arow + n * 8, o[n][2 * hh], o[n][2 * hh + 1]);
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    if (n_st > 0) {
+      consume(p, sq, sk, sxp, reinterpret_cast<float*>(smem_raw + (sxm - raw)),
+              q_bar, full, empty, &last, item, split, k0, k1, n_st, n_live,
+              out_row);
+    } else if (split == 0) {
+      // no key at all: zeros
+      for (int i = tid; i < BM * RANK / 8; i += CONSUMERS)
+        *reinterpret_cast<uint4*>(out_row + i * 8) = make_uint4(0, 0, 0, 0);
     }
   }
+}
+
+// A 3-D map over a strided (slot, row) view of a bf16 leaf of `cols`
+// columns (unit stride), read in boxes of 64 columns x BN rows with the
+// 128-byte swizzle; rows past `rows` read as zeros.  False if
+// cuTensorMapEncodeTiled refuses it.
+bool encode_leaf(CUtensorMap* map, const void* base, int cols, int rows,
+                 int slots, long long row_stride, long long slot_stride) {
+  const g9::EncodeTiled fn = g9::encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)slots};
+  // one slot: its stride is never used
+  const long long ss = slots > 1 ? slot_stride : row_stride * rows;
+  const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2,
+                                 (cuuint64_t)ss * 2};
+  const cuuint32_t box[3] = {64, BN, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Sets the bf16 kernel's shared-memory size once per device, encodes its
+// three tensor maps and launches it.  Returns 0, a CUDA error, or -2 when
+// a map is refused.
+int launch_bf16(const void* q, const void* c_kv, const void* k_rope,
+                const Params& p, long long ck_s0, long long ck_s1,
+                long long kr_s0, long long kr_s1, cudaStream_t stream) {
+  static int sized = -1;   // the device whose attribute is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (sized != dev) {
+    err = cudaFuncSetAttribute(mla_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BF16);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = dev;
+  }
+  CUtensorMap q_map, ckv_map, kr_map;
+  if (!g9::encode(&q_map, q, p.t * p.h, D, BM)) return -2;
+  // no row to read: the maps stay unused
+  memset(&ckv_map, 0, sizeof ckv_map);
+  memset(&kr_map, 0, sizeof kr_map);
+  if (p.sweep > 0 && p.n > 0 &&
+      (!encode_leaf(&ckv_map, c_kv, RANK, p.sweep, p.n, ck_s1, ck_s0) ||
+       !encode_leaf(&kr_map, k_rope, ROPE, p.sweep, p.n, kr_s1, kr_s0)))
+    return -2;
+  const long long grid = (long long)p.t * (p.h / BM) * p.splits;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  mla_bf16_kernel<<<static_cast<unsigned>(grid), BF_THREADS, SMEM_BF16,
+                    stream>>>(q_map, ckv_map, kr_map, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -492,53 +801,53 @@ __global__ void __launch_bounds__(128) mla_merge_kernel(const Args a) {
   store2(out + 2, acc[2] * inv, acc[3] * inv);
 }
 
+
 }  // namespace mla
 }  // namespace
 
-// Returns a CUDA error code (0 on success).  dtype: 0 float32, 1 bfloat16
-// (q, c_kv, k_rope and out share it).  c_kv (N, S, 512) and k_rope (N, S,
-// 64) are read through their (slot, row) element strides.  The sweep is cut
-// into `splits` chunks of `chunk` rows (a multiple of 32); with splits > 1,
-// part_ml (T * H * splits * 2) and part_acc (T * H * splits * 512) f32
-// scratch hold the partials the merge reads.
+// Returns a CUDA error code (0 on success), or -2 when cuTensorMapEncodeTiled
+// refuses a map.  dtype: 0 float32, 1 bfloat16 (q, c_kv, k_rope and out
+// share it).  c_kv (N, S, 512) and k_rope (N, S, 64) are read through their
+// (slot, row) element strides, rows [0, sweep) of each slot.  The sweep is
+// cut into `splits` chunks of `chunk` rows (a multiple of 64 in bf16, of
+// 32 in f32).  With splits > 1: bf16 merges in the launch, part_acc
+// holding T * H / 64 * splits * 33,792 f32 and tickets T * H / 64 int32
+// zeros (left zero by the launch), part_ml unused; f32 writes part_ml (T *
+// H * splits * 2) and part_acc (T * H * splits * 512) for a second kernel
+// that merges them.
 extern "C" int repro_mla_attention(
     const void* q, const void* c_kv, const void* k_rope,
     const int32_t* token_slot, const int32_t* lengths, void* out,
-    float* part_ml, float* part_acc, int dtype, int t, int h, int n,
-    int sweep, int chunk, int splits, long long ck_s0, long long ck_s1,
-    long long kr_s0, long long kr_s1, float scale, void* stream) {
+    float* part_ml, float* part_acc, int32_t* tickets, int dtype, int t,
+    int h, int n, int sweep, int chunk, int splits, long long ck_s0,
+    long long ck_s1, long long kr_s0, long long kr_s1, float scale,
+    void* stream) {
   using namespace mla;
   if (t <= 0) return 0;
-  if ((dtype != 0 && dtype != 1) || h <= 0 || splits < 1 || chunk <= 0 ||
-      chunk % NK || (splits > 1 && (!part_ml || !part_acc)))
+  if ((dtype != 0 && dtype != 1) || h <= 0 || splits < 1 || chunk <= 0)
     return cudaErrorInvalidValue;
-  const int heads = dtype == 1 ? HEADS : F_HEADS;
-  if (h % heads) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (h % BM || chunk % BN || (splits > 1 && (!part_acc || !tickets)))
+      return cudaErrorInvalidValue;
+    const Params p{token_slot, lengths, static_cast<__nv_bfloat16*>(out),
+                   part_acc, tickets, t, h, n, sweep, chunk, splits,
+                   scale * LOG2E};
+    return launch_bf16(q, c_kv, k_rope, p, ck_s0, ck_s1, kr_s0, kr_s1, st);
+  }
+  if (h % F_HEADS || chunk % NK || (splits > 1 && (!part_ml || !part_acc)))
+    return cudaErrorInvalidValue;
   Args a{q, c_kv, k_rope, token_slot, lengths, out, part_ml, part_acc,
          t, h, n, sweep, chunk, splits, ck_s0, ck_s1, kr_s0, kr_s1,
          scale * LOG2E};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = (unsigned)t * (unsigned)(h / heads) * (unsigned)splits;
-  cudaError_t err;
-  if (dtype == 1) {
-    err = cudaFuncSetAttribute(mla_bf16_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BF16);
-    if (err != cudaSuccess) return err;
-    mla_bf16_kernel<<<grid, THREADS, SMEM_BF16, st>>>(a);
-  } else {
-    err = cudaFuncSetAttribute(mla_f32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_F32);
-    if (err != cudaSuccess) return err;
-    mla_f32_kernel<<<grid, THREADS, SMEM_F32, st>>>(a);
-  }
+  const unsigned grid =
+      (unsigned)t * (unsigned)(h / F_HEADS) * (unsigned)splits;
+  cudaError_t err = cudaFuncSetAttribute(
+      mla_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_F32);
+  if (err != cudaSuccess) return err;
+  mla_f32_kernel<<<grid, THREADS, SMEM_F32, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const unsigned rows = (unsigned)t * (unsigned)h;
-  if (dtype == 1)
-    mla_merge_kernel<__nv_bfloat16><<<rows, RANK / 4, 0, st>>>(a);
-  else
-    mla_merge_kernel<float><<<rows, RANK / 4, 0, st>>>(a);
+  mla_merge_kernel<float><<<(unsigned)t * (unsigned)h, RANK / 4, 0, st>>>(a);
   return cudaGetLastError();
 }

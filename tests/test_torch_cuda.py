@@ -1298,12 +1298,13 @@ def test_mla_attention_kernel(cuda, use, h, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("bucket", [0, 31, 32, 33, 128, 300])
+@pytest.mark.parametrize("bucket", [0, 31, 32, 33, 63, 64, 65, 128, 300])
 def test_mla_attention_bucket_edges_and_zeros(cuda, bucket, dtype):
-    """``kv_bucket`` at and around a stage's 32 rows (partial last
-    stages), with tokens of out-of-range slots (-1 and N) and of lengths 0
-    and -2, which give zeros, beside ordinary ones; every split schedule
-    (one chunk, 32-row chunks) gives the same."""
+    """``kv_bucket`` at and around the f32 kernel's 32-row stages and the
+    bf16 kernel's 64-row ones (partial last stages), with tokens of
+    out-of-range slots (-1 and N) and of lengths 0 and -2, which give
+    zeros, beside ordinary ones; every split schedule (one chunk, chunks
+    of one stage: 32 rows in f32, 64 in bf16) gives the same."""
     from repro_torch.kernels import mla_attention as mla
     slot = [0, -1, 3, 1, 2, 0, 1, 2]
     lens = [5, 9, 4, 0, -2, 300, 33, 32]
@@ -1312,14 +1313,52 @@ def test_mla_attention_bucket_edges_and_zeros(cuda, bucket, dtype):
     want = mla.mla_attention_ref(q, c_kv, k_rope, slot_t, lens_t,
                                  logit_scale=MLA_SCALE, kv_bucket=bucket)
     sweep = bucket
-    for sched in (None, (max(32, -(-sweep // 32) * 32), 1),
-                  (32, max(1, -(-sweep // 32)))):
+    stage = mla.STAGE if dtype == "bfloat16" else mla.F32_STAGE
+    for sched in (None, (max(stage, -(-sweep // stage) * stage), 1),
+                  (stage, max(1, -(-sweep // stage)))):
         out = mla.launch(q, c_kv, k_rope, slot_t, lens_t,
                          logit_scale=MLA_SCALE, kv_bucket=bucket, sched=sched)
         torch.cuda.synchronize()
         torch.testing.assert_close(out.float(), want.float(), **_tol(dtype))
         zero = torch.tensor([1, 2, 3, 4], device=cuda)   # the undefined ones
         assert not out[zero].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("sched", ["one chunk", "two chunks", "the most"])
+def test_mla_attention_stage_edges(cuda, sched, h, dtype):
+    """Lengths at the stages' edges (1, 31, 32, 33, 63, 64, 65, sweep - 1,
+    sweep and past the sweep), a token each over its own slot of
+    (N·S + 1)-row stores at a ragged bucket, under a forced schedule (one
+    chunk, two, and the most: chunks of one stage, 32 rows in f32 and 64 in
+    bf16, every chunk with rows merged); every cache row past its token's length is NaN.  The
+    output is finite, equal to the plain version's on the cache without
+    the NaN rows, and the same bit for bit from two launches."""
+    from repro_torch.kernels import mla_attention as mla
+    s, bucket = 320, 257
+    lens = [1, 31, 32, 33, 63, 64, 65, bucket - 1, bucket, bucket + 20]
+    n = len(lens)
+    q, c_kv, k_rope = _mla_operands(cuda, dtype, n, h, n, s, seed=3)
+    slot_t, lens_t = _mla_call(cuda, list(range(n)), lens)
+    want = mla.mla_attention_ref(q, c_kv, k_rope, slot_t, lens_t,
+                                 logit_scale=MLA_SCALE, kv_bucket=bucket)
+    for b, length in enumerate(lens):
+        c_kv[b, length:] = float("nan")
+        k_rope[b, length:] = float("nan")
+    stage = mla.STAGE if dtype == "bfloat16" else mla.F32_STAGE
+    chunk = {"one chunk": -(-bucket // stage) * stage,
+             "two chunks": -(-bucket // (2 * stage)) * stage,
+             "the most": stage}[sched]
+    plan = (chunk, -(-bucket // chunk))
+    assert plan[1] == {"one chunk": 1, "two chunks": 2,
+                       "the most": -(-bucket // stage)}[sched]
+    outs = [mla.launch(q, c_kv, k_rope, slot_t, lens_t, logit_scale=MLA_SCALE,
+                       kv_bucket=bucket, sched=plan) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert bool(outs[0].isfinite().all())
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0].float(), want.float(), **_tol(dtype))
 
 
 def test_mla_attention_refuses_unbuilt_shapes(cuda):

@@ -173,12 +173,16 @@ def test_mla_attention_cuda_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("t,h,sweep", [(8, 128, 1024), (1, 64, 100),
                                        (245, 128, 1024), (2, 128, 0),
-                                       (33, 64, 513)])
+                                       (33, 64, 513), (60, 128, 1024),
+                                       (3, 64, 64), (5, 128, 65)])
 def test_split_plan_covers_the_sweep(t, h, sweep):
-    """Chunks are whole 32-row stages that cover the sweep; a stream whose
+    """Chunks are whole 64-row stages that cover the sweep; a stream whose
     (token, 64-head block) items fill the 132 SMs is not split, and a
     split takes chunks of at least MIN_CHUNK rows, no more of them than
-    bring the items up to the SMs."""
+    bring the CTAs up to the SMs.  The plan takes no length, and the host
+    replay of the grid (``items``, as the kernel decodes it) covers every
+    (token, head block, attended row) exactly once, at random lengths,
+    lengths at stage edges, past the sweep and none."""
     chunk, splits = mla_kernel.plan(t, h, sweep, 132)
     assert chunk % mla_kernel.STAGE == 0 and chunk > 0
     assert splits == max(1, -(-sweep // chunk))
@@ -189,6 +193,31 @@ def test_split_plan_covers_the_sweep(t, h, sweep):
     if splits > 1:
         assert chunk >= mla_kernel.MIN_CHUNK
         assert (splits - 1) * items < 132
+    rng = np.random.default_rng(t + h + sweep)
+    edges = [1, 31, 32, 33, 63, 64, 65, sweep - 1, sweep, sweep + 7, 0, -3]
+    n = 4
+    slots = [int(x) for x in rng.integers(-1, n + 1, t)]
+    for lens in ([int(x) for x in rng.integers(0, sweep + 9, t)],
+                 [edges[i % len(edges)] for i in range(t)]):
+        grid = mla_kernel.items((chunk, splits), h, n, sweep, slots, lens)
+        assert len(grid) == items * splits
+        assert [it.cta for it in grid] == list(range(len(grid)))
+        seen = {}
+        for it in grid:
+            if it.k1 > it.k0:
+                assert it.k0 % mla_kernel.STAGE == 0
+                for r in range(it.k0, it.k1):
+                    key = (it.token, it.hb, r)
+                    assert key not in seen
+                    seen[key] = it.chunk
+        want = {(tok, hb, r) for tok in range(t) for hb in range(h // 64)
+                if 0 <= slots[tok] < n
+                for r in range(max(0, min(lens[tok], sweep)))}
+        assert set(seen) == want
+        # the chunks of an item with rows are its first ``live`` ones, the
+        # only ones that write a partial and take a ticket
+        for it in grid:
+            assert (it.k1 > it.k0) == (it.chunk < it.live)
 
 
 # ---- logit_scale on the GQA entries -----------------------------------------
