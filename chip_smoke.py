@@ -108,10 +108,34 @@ Phases (any failure exits non-zero; no phase is caught):
                whole-vocab Gumbel, top-k) at the serve's 16 sampled rows;
                two serves with the same seed give identical tokens at depth
                0, and two at depth 1 (harvesting off).
-               Every run of phases 9-11 sets the kernels' counts to 0
+               Every run of phases 9-12 sets the kernels' counts to 0
                before it and fails unless its attention variant and SwiGLU
                launched and no ops-only kernel did.
- 12. hybrid  — Qwen3-8B's weights freed, Jamba-1.5-Large at full width cut
+ 12. pool    — two Qwen3-8B replicas of the serve phase's engine (async
+               depth 1, harvesting off) on its weights, behind the router
+               of ``ReplicaPool``, serve its 8 prompts (two arriving a
+               tick, virtual clock) unperturbed, under ``kill@3:r1``
+               (replica 1 in prefill) and under ``kill@20:r1`` (decoding):
+               every request finishes 32 tokens, nothing is shed, one fault
+               is injected, requests are re-dispatched, replica 1 is dead
+               and held one iteration in flight when killed, whose payload
+               copy was still pending (the device spins ~1 s just before
+               that copy is enqueued); the kill frees its KV cache; each
+               re-dispatched request replays exactly the tokens it had
+               committed (at tick 20 some), which are the unperturbed
+               run's first tokens; the tokens agree with the unperturbed
+               run's; the snapshots and walls are printed
+               beside the card; the engines' device memory is released
+               with the pools.
+ 13. cli     — Qwen3-8B's weights freed, ``python -m
+               repro_torch.launch.serve --arch qwen3-8b --requests 8
+               --max-len 1024`` in a process of its own (it reuses the
+               built libraries), run through ``runpy`` after every
+               kernel's count is set to 0, the counts printed last: exit
+               code 0, ``finished 8/8``, one dispatch per iteration,
+               packed attention and SwiGLU launched and no kernel off the
+               path; its lines are logged.
+ 14. hybrid  — Qwen3-8B's weights freed, Jamba-1.5-Large at full width cut
                to one 8-layer group (7 Mamba + 1 attention) with dense FFNs
                (its 4 MoE layers would make the group ~45B params, ~90 GB):
                a two-chunk ``forward_chunk`` through the kernels against the
@@ -134,12 +158,12 @@ Phases (any failure exits non-zero; no phase is caught):
                attention's device time and share of the busy time, then
                one line per profiled serve (the legacy runs too) with
                SwiGLU's and the library GEMMs' shares.
- 13. llama   — LLaMA-2-70B (the paper's evaluation model) at full width
+ 15. llama   — LLaMA-2-70B (the paper's evaluation model) at full width
                cut to 8 of its 80 layers: the serve phase's 8 requests on
                the packed step (packed attention and SwiGLU once per layer
                and iteration, tokens agree with a teacher-forced plain
                forward), then profiled as in 6.
- 14. moe     — Snowflake Arctic at full width cut to 2 of its 35 layers
+ 16. moe     — Snowflake Arctic at full width cut to 2 of its 35 layers
                (128 experts top-2 beside a dense residual, GQA group 7):
                ``forward_packed`` through the kernels against the plain
                versions at capacity E / k = 64, where nothing can drop
@@ -159,7 +183,7 @@ Phases (any failure exits non-zero; no phase is caught):
                attention (packed), flash and decode attention (legacy) and
                SwiGLU (the dense residual) launched once per layer and
                forward.
- 15. mla     — DeepSeek-V2 (absorbed MLA) at full width cut to 2 of its
+ 17. mla     — DeepSeek-V2 (absorbed MLA) at full width cut to 2 of its
                60 layers (layer 0's dense FFN, layer 1's 160 experts top-6
                and 2 shared; ~5.4B params): the MLA latent-attention kernel
                (csrc/mla_attention.cu) against its plain version in f32
@@ -179,7 +203,7 @@ Phases (any failure exits non-zero; no phase is caught):
                int8); the contiguous serve profiled (the MLA kernel's
                share of the busy time); the packed serve at the published
                capacity 1.25 with its dropped share.
-  16. families — the JAX package's remaining model families at full
+  18. families — the JAX package's remaining model families at full
                width, cut in depth (``FAMILIES``): xLSTM-1.3B (one 8-layer
                group: 7 mLSTM + 1 sLSTM, no attention, no FFN),
                StarCoder2-7B (8 of 32; GQA group 9, GELU MLP), Minitron-4B
@@ -325,18 +349,37 @@ SPEC_K = 4              # drafts per verify segment in the spec phase
 SPEC_ACCEPT_MIN = 0.6   # the replay drafter's acceptance must exceed it
 SPEC_NGRAM_ACCEPT_MIN = 0.5  # the n-gram drafter's on the motif prompts
 SAMPLING = dict(temperature=0.8, top_k=50)
+KILL_SPIN_CYCLES = 2_000_000_000  # ~1 s: a killed replica's copy pending
+# the pool phase's later kill: replica 1 decoding, committed tokens replay
+LATE_KILL_TICK = 20
+# the cli phase's process: every count set to 0, the CLI run as ``python -m
+# repro_torch.launch.serve`` runs it on the arguments that follow, then one
+# line of the counts
+CLI_COUNTS = "kernel launches "
+CLI_COUNTED = f"""
+import json, runpy, sys
+import chip_smoke
+chip_smoke.zero_counts()
+runpy.run_module("repro_torch.launch.serve", run_name="__main__",
+                 alter_sys=True)
+print({CLI_COUNTS!r} + json.dumps(chip_smoke.read_counts()))
+"""
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_info(torch) -> tuple[str, float, float]:
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    line = smi.stdout.strip().splitlines()[0]
-    log(line)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def card_info(torch) -> tuple[str, float, float]:
+    log(card_line())
     name = torch.cuda.get_device_name(0)
     for key, peaks in PEAKS.items():        # most specific name first
         if key in name:
@@ -2204,6 +2247,198 @@ def phase_sampling(torch, cfg, params, prompts, plain: dict) -> None:
               bound=None)
 
 
+def pool_run(torch, cfg, params, prompts, kill_tick: Optional[int],
+             tag: str):
+    """The 8 prompts (32 new tokens each, two arriving a tick) through a
+    ``ReplicaPool`` of two engines on the shared ``params`` (8 slots x 1024
+    rows each, async depth 1 with harvesting off, so each replica keeps one
+    iteration in flight) on a virtual clock, with replica 1 killed at
+    ``kill_tick`` (None: unperturbed); every kernel's count set to 0 just
+    before and read just after.  In replica 1's last step ahead of the
+    kill the device spins for ``KILL_SPIN_CYCLES`` just before the payload
+    copy is enqueued, so that copy is still pending when the ring is
+    abandoned.  Fails unless every
+    request finished its 32 tokens in range, nothing was shed, and packed
+    attention and SwiGLU launched, and unless each re-dispatched request
+    replays exactly the tokens it had committed at the kill.  Returns
+    (pool, generated tokens by rid, wall seconds, counts, replica 1's ring
+    at its evacuation: (entries, entries whose payload copy had not run),
+    the device bytes the kill freed, the committed tokens by rid at the
+    kill)."""
+    from repro_torch.serving.config import EngineConfig, PoolConfig
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.pool import ReplicaPool
+    from repro_torch.serving.request import Request
+    ecfg = EngineConfig(max_slots=8, max_len=1024, async_harvest=False)
+    engines = [ServeEngine(cfg, params, ecfg) for _ in range(2)]
+    plan = None if kill_tick is None else f"kill@{kill_tick}:r1"
+    pool = ReplicaPool(engines, PoolConfig(replicas=2),
+                       fault_plan=plan and FaultPlan.parse(plan),
+                       virtual_dt=0.01)
+    ring, freed, committed = [], [], {}
+    evacuate, stage = engines[1].evacuate, engines[1]._stage
+    fail = pool.fail_replica
+
+    def spy(*, drain):
+        entries = engines[1]._ring
+        ring.append((len(entries),
+                     sum(not e.done.query() for e in entries)))
+        sched = engines[1].scheduler
+        committed.update({r.rid: list(r.output) for r in
+                          list(sched.active) + list(sched.waiting)})
+        return evacuate(drain=drain)
+
+    def counted_fail(idx):
+        held = torch.cuda.memory_allocated()
+        moved = fail(idx)
+        freed.append(held - torch.cuda.memory_allocated())
+        return moved
+
+    def slow_stage(result):
+        if kill_tick is not None and pool.tick_count == kill_tick - 1:
+            # a pinned block of the payload's size taken and returned
+            # first, so that the stage finds one cached (allocating a new
+            # one may wait for the device, spin included)
+            torch.empty(result.shape, dtype=result.dtype, pin_memory=True)
+            torch.cuda._sleep(KILL_SPIN_CYCLES)
+        return stage(result)
+    engines[1].evacuate, engines[1]._stage = spy, slow_stage
+    pool.fail_replica = counted_fail
+    arrivals = [(i // 2, Request(rid=i, prompt=p, max_new_tokens=32))
+                for i, p in enumerate(prompts)]
+    zero_counts()
+    t0 = time.perf_counter()
+    pool.run_ticked(arrivals, max_ticks=2000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_off_path(tag, counts)
+    done = pool.results
+    log(f"{tag}: {len(done)}/{len(prompts)} finished, {len(pool.shed)} "
+        f"shed, {pool.tick_count} ticks in {wall:.3f} s; launches {counts}")
+    if len(done) != len(prompts) or pool.shed or any(
+            len(r.generated) != 32 for r in done.values()):
+        raise AssertionError(f"{tag}: not every request finished 32 tokens "
+                             f"({[(r.rid, r.reject_reason) for r in pool.shed]})")
+    if counts["packed_attention"] <= 0 or counts["swiglu"] <= 0:
+        raise AssertionError(f"{tag}: packed_attention or swiglu never "
+                             "launched")
+    if any(not 0 <= t < cfg.vocab_size for r in done.values()
+           for t in r.generated):
+        raise AssertionError(f"{tag}: token id out of range")
+    replayed = {rid: done[rid].prompt[done[rid].orig_prompt_len:]
+                for rid in committed}
+    if replayed != committed:
+        raise AssertionError(f"{tag}: a re-dispatched request replays "
+                             f"{replayed}, not its committed {committed}")
+    return pool, {rid: r.generated for rid, r in done.items()}, wall, \
+        counts, ring, freed, committed
+
+
+def phase_pool(torch, cfg, params, prompts) -> None:
+    """Two Qwen3-8B replicas on the serve phase's weights serve its 8
+    prompts unperturbed, then under ``kill@3:r1`` (replica 1's requests
+    still in prefill) and ``kill@LATE_KILL_TICK:r1`` (decoding, so
+    committed tokens replay): one fault, requests re-dispatched, replica 1
+    dead with an iteration in flight at its evacuation, tokens that agree
+    with the unperturbed run's where their contexts agree, the killed
+    engine's KV cache freed by the kill, and the engines' memory released
+    with the pools.  On the virtual clock the placement reads no host
+    time, so up to a kill the runs are the same computation: the tokens
+    committed before it must be the unperturbed run's first tokens."""
+    import gc
+    before = torch.cuda.memory_allocated()
+    _, base, base_wall, _, *_ = pool_run(torch, cfg, params, prompts, None,
+                                         "pool unperturbed")
+    walls = {"unperturbed": base_wall}
+    for tick in (3, LATE_KILL_TICK):
+        tag = f"pool kill@{tick}:r1"
+        pool, chaos, walls[tag], _, ring, freed, committed = pool_run(
+            torch, cfg, params, prompts, tick, tag)
+        cache = pool.router.replicas[1].engine._kv_bytes_native * 8 * 1024
+        replayed = sum(map(len, committed.values()))
+        same = sum(base[rid][:len(out)] == out
+                   for rid, out in committed.items())
+        log(f"{tag}: the kill freed {freed[0] / 2**20:.1f} MiB (the "
+            f"engine's KV cache is {cache / 2**20:.1f} MiB); "
+            f"{len(committed)} requests re-dispatched with {replayed} "
+            f"committed tokens replayed; {same} of them committed the "
+            f"unperturbed run's first tokens")
+        if freed[0] < cache:
+            raise AssertionError(f"{tag}: the killed engine's cache "
+                                 "outlived the kill")
+        if same != len(committed):
+            raise AssertionError(f"{tag}: tokens committed before the kill "
+                                 "differ from the unperturbed run's")
+        snap = pool.snapshot()
+        log(f"{tag}: snapshot {json.dumps(snap)}")
+        log(f"{tag}: replica 1's ring at the kill: {ring} (entries, copies "
+            f"not yet run)")
+        if snap["faults_injected"] != 1 \
+                or snap["redispatched_requests"] <= 0 \
+                or pool.router.replicas[1].alive:
+            raise AssertionError(f"{tag}: the kill did not take replica 1's "
+                                 "work")
+        if tick == LATE_KILL_TICK and (
+                not replayed or snap["redispatched_tokens"] != replayed):
+            raise AssertionError(f"{tag}: {snap['redispatched_tokens']} "
+                                 f"tokens counted as replayed, {replayed} "
+                                 "committed at the kill")
+        if ring != [(1, 1)]:
+            raise AssertionError(f"{tag}: replica 1's ring at the kill "
+                                 f"{ring}, not one iteration whose copy is "
+                                 "pending")
+        agreement(f"pool: tokens unperturbed vs kill@{tick}:r1", base, chaos)
+        del pool
+    log(f"pool: walls {walls} s on {card_line()}")
+    gc.collect()       # each engine's clock points back at its pool
+    torch.cuda.synchronize()
+    left = torch.cuda.memory_allocated() - before
+    log(f"pool: {left / 2**20:.1f} MiB still allocated after the pools")
+    if left > 64 << 20:
+        raise AssertionError("pool: the engines' caches outlived the pools")
+
+
+def phase_cli(torch) -> None:
+    """``python -m repro_torch.launch.serve`` on Qwen3-8B in a process of
+    its own (it draws its own weights and reuses the built kernels, whose
+    libraries are keyed by their sources' hash), run as ``-m`` runs it
+    (``runpy``) after every kernel's count is set to 0; the process prints
+    the counts after the CLI's lines.  Exit code 0, every request
+    finished, one dispatch per iteration, packed attention and SwiGLU
+    launched and no kernel off the path."""
+    import os
+    cmd = [sys.executable, "-c", CLI_COUNTED, "--arch", "qwen3-8b",
+           "--requests", "8", "--max-len", "1024"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + ([os.environ["PYTHONPATH"]]
+                      if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        log(f"cli: {line}")
+    log(f"cli: exit code {run.returncode}, {wall:.1f} s in all (process "
+        f"start, seeded init, serve) on {card_line()}")
+    if run.returncode != 0:
+        raise AssertionError(f"cli: exit code {run.returncode}: "
+                             f"{run.stderr[-4000:]}")
+    if "finished 8/8 requests" not in run.stdout or \
+            " 1.00 dispatches/iter" not in run.stdout:
+        raise AssertionError("cli: not every request finished, or not one "
+                             "dispatch per iteration")
+    last = run.stdout.splitlines()[-1]
+    if not last.startswith(CLI_COUNTS):
+        raise AssertionError("cli: the process printed no launch counts")
+    counts = json.loads(last[len(CLI_COUNTS):])
+    check_off_path("cli", counts)
+    if counts["packed_attention"] <= 0 or counts["swiglu"] <= 0:
+        raise AssertionError("cli: packed_attention or swiglu never "
+                             "launched")
+
+
 def hybrid_config():
     """Jamba-1.5-Large at full width, cut to what one card holds: one
     8-layer pattern group and a dense SwiGLU FFN in every layer
@@ -3297,9 +3532,13 @@ def main() -> int:
     lap("spec")
     phase_sampling(torch, cfg, params, prompts, packed)
     lap("sampling")
+    phase_pool(torch, cfg, params, prompts)
+    lap("pool")
     # the hybrid's legacy run gives the scan's count
     del params
     torch.cuda.empty_cache()
+    phase_cli(torch)
+    lap("cli")
     launches["ssm_scan"] = phase_hybrid(torch, busy)
     lap("hybrid")
     phase_llama(torch, busy)

@@ -13,9 +13,15 @@ raises ``NotImplementedError`` naming the ROADMAP item that brings it, so
 a configuration never silently runs something other than what it says.
 ``async_depth=None`` resolves as in JAX: 1 on the packed step, 0 on the
 legacy step.
+
+``PoolConfig`` holds the replica pool's knobs (DESIGN.md §14).  Both
+configs define their command-line flags once (``add_args``, with the JAX
+package's names and defaults) and rebuild themselves from the parsed
+namespace (``from_args``).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from typing import Optional
 
@@ -143,3 +149,154 @@ class EngineConfig:
             return default_kv_buckets(self.max_len)
         grid = tuple(sorted({min(b, self.max_len) for b in self.kv_buckets}))
         return grid if grid[-1] == self.max_len else grid + (self.max_len,)
+
+    @classmethod
+    def add_args(cls, ap: argparse.ArgumentParser) -> None:
+        """Register the engine's flags (the JAX CLI's names and defaults;
+        what the port refuses raises when the config is built)."""
+        ap.add_argument("--slots", type=int, default=cls.max_slots,
+                        help="slot count (concurrent active requests)")
+        ap.add_argument("--max-len", type=int, default=256,
+                        help="per-slot cache capacity (tokens)")
+        ap.add_argument("--step-mode", default="packed",
+                        choices=["packed", "legacy"],
+                        help="packed = one fused dispatch/iteration "
+                             "(DESIGN.md §8)")
+        ap.add_argument("--async-depth", type=int, default=None,
+                        help="iterations kept in flight before syncing their "
+                             "sampled tokens (DESIGN.md §10); 0 = eager "
+                             "lock-step; default: 1 packed / 0 legacy")
+        ap.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree (DESIGN.md §11); the "
+                             "port serves at 1 (ROADMAP A11)")
+        ap.add_argument("--no-kv-bucketing", action="store_true",
+                        help="sweep max_len every iteration instead of the "
+                             "KV-length bucket (DESIGN.md §9; A/B baseline)")
+        ap.add_argument("--prefix-caching",
+                        action=argparse.BooleanOptionalAction, default=False,
+                        help="cross-request prefix caching over the "
+                             "block-table KV (DESIGN.md §12)")
+        ap.add_argument("--kv-block-size", type=int, default=cls.kv_block_size,
+                        help="KV block size (tokens per block-table block; "
+                             "must divide --max-len when --prefix-caching)")
+        ap.add_argument("--kv-dtype", default=cls.kv_dtype,
+                        choices=["bf16", "int8"],
+                        help="KV-cache storage dtype (DESIGN.md §15): int8 "
+                             "values + per-(token, kv-head) f32 scales")
+        ap.add_argument("--spec-k", type=int, default=cls.spec_k,
+                        help="speculative decoding (DESIGN.md §13): draft "
+                             "tokens verified per decoding slot per packed "
+                             "iteration; 0 = off")
+        ap.add_argument("--drafter", default=None, choices=drafter_names(),
+                        help="draft proposer for --spec-k > 0 (default: "
+                             "ngram)")
+        ap.add_argument("--temperature", type=float, default=cls.temperature,
+                        help="sampling temperature (0 = greedy)")
+        ap.add_argument("--top-k", type=int, default=None,
+                        help="top-k sampling cutoff (needs --temperature > 0)")
+        ap.add_argument("--attn-fast", action=argparse.BooleanOptionalAction,
+                        default=None,
+                        help="a JAX attention variant; the port refuses it")
+        ap.add_argument("--attn-stream", action=argparse.BooleanOptionalAction,
+                        default=None,
+                        help="a JAX attention variant; the port refuses it")
+
+    @classmethod
+    def from_args(cls, ns: argparse.Namespace, **overrides) -> "EngineConfig":
+        """Build a config from an ``add_args`` namespace; ``overrides`` win
+        over flags."""
+        kw = dict(
+            max_slots=ns.slots,
+            max_len=ns.max_len,
+            step_mode=ns.step_mode,
+            async_depth=ns.async_depth,
+            tp=ns.tp,
+            kv_bucketing=not ns.no_kv_bucketing,
+            prefix_caching=ns.prefix_caching,
+            kv_block_size=ns.kv_block_size,
+            kv_dtype=ns.kv_dtype,
+            spec_k=ns.spec_k,
+            drafter=ns.drafter,
+            temperature=ns.temperature,
+            top_k=ns.top_k,
+            attn_fast=ns.attn_fast,
+            attn_stream=ns.attn_stream,
+        )
+        kw.update(overrides)
+        return cls(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolConfig:
+    """Multi-replica pool and SLO admission knobs (DESIGN.md §14).  Every
+    SLO field is optional: ``None`` disables that check, so a bare
+    one-replica pool behaves like the engine it wraps."""
+
+    replicas: int = 1
+    # TTFT admission SLO: a predicted time to first token (cheapest
+    # replica's backlog / measured service rate) above it is shed
+    slo_ttft_ms: Optional[float] = None
+    # per-output-token SLO, checked at completion (counted, not shed)
+    slo_tpot_ms: Optional[float] = None
+    # hard backlog cap per replica in tokens: the deterministic shed
+    # trigger (virtual-clock runs have no wall-time prediction)
+    shed_backlog_tokens: Optional[int] = None
+    # admission headroom: predicted TTFT is compared with
+    # slo_ttft_ms * slo_safety
+    slo_safety: float = 1.0
+    # timeout of a request left WAITING on one replica; after
+    # ``retry_limit`` re-routes it is shed with reason "retry_limit"
+    request_timeout_s: Optional[float] = None
+    retry_limit: int = 3
+    backoff_base_s: float = 0.01
+    # chaos: a FaultPlan spec string ("kill@40:r1,...") or None
+    fault_plan: Optional[str] = None
+    # session affinity (multi-turn requests pinned to their prefix cache)
+    affinity: bool = True
+
+    def __post_init__(self):
+        if self.replicas < 1:
+            raise ValueError("replicas must be >= 1")
+        if self.retry_limit < 0:
+            raise ValueError("retry_limit must be >= 0")
+        for f in ("slo_ttft_ms", "slo_tpot_ms", "request_timeout_s"):
+            v = getattr(self, f)
+            if v is not None and v <= 0:
+                raise ValueError(f"{f} must be positive when set")
+
+    @classmethod
+    def add_args(cls, ap: argparse.ArgumentParser) -> None:
+        """Register the pool's flags (the JAX CLI's names and defaults)."""
+        ap.add_argument("--replicas", type=int, default=cls.replicas,
+                        help="engine replicas behind the router")
+        ap.add_argument("--slo-ttft-ms", type=float, default=None,
+                        help="TTFT SLO; admission sheds requests whose "
+                             "predicted TTFT exceeds it")
+        ap.add_argument("--slo-tpot-ms", type=float, default=None,
+                        help="per-output-token SLO; violations counted "
+                             "at completion")
+        ap.add_argument("--shed-backlog-tokens", type=int, default=None,
+                        help="hard per-replica backlog cap (tokens) "
+                             "before shedding")
+        ap.add_argument("--request-timeout-s", type=float, default=None,
+                        help="queue timeout before retry-with-backoff")
+        ap.add_argument("--retry-limit", type=int, default=cls.retry_limit,
+                        help="re-dispatch attempts before a request is "
+                             "shed")
+        ap.add_argument("--fault-plan", default=None,
+                        help="chaos spec, e.g. 'kill@40:r1,stall@10:r0:20'"
+                             " (tick-indexed, deterministic)")
+
+    @classmethod
+    def from_args(cls, ns: argparse.Namespace, **overrides) -> "PoolConfig":
+        kw = dict(
+            replicas=ns.replicas,
+            slo_ttft_ms=ns.slo_ttft_ms,
+            slo_tpot_ms=ns.slo_tpot_ms,
+            shed_backlog_tokens=ns.shed_backlog_tokens,
+            request_timeout_s=ns.request_timeout_s,
+            retry_limit=ns.retry_limit,
+            fault_plan=ns.fault_plan,
+        )
+        kw.update(overrides)
+        return cls(**kw)

@@ -73,6 +73,11 @@ KV-length bucket (DESIGN.md §9).
 
 Both steps run eagerly; capturing the packed step in a CUDA graph per (T
 bucket, kv bucket) is a speed follow-up (ROADMAP B, item 3).
+
+**Replica pool** (DESIGN.md §14).  ``evacuate`` hands every unfinished
+request back, checkpointed for re-dispatch on another replica, and
+``_clock`` is the source of the commit stamps, which the pool points at
+its virtual clock.
 """
 from __future__ import annotations
 
@@ -142,13 +147,22 @@ class EngineStats:
     kv_bucket_hist: dict[int, int] = dataclasses.field(default_factory=dict)
     # sum of launch_tokens x kv_bucket: the attention score work launched
     packed_attn_kv_rows: int = 0
+    # modeled TP collective bytes (DESIGN.md §11): 0, the port serves at tp=1
+    tp_collective_bytes: int = 0
     # speculative decoding (§13), counted at retire (the device's truth):
     # drafts launched, drafts accepted, verify segments retired
     spec_proposed_tokens: int = 0
     spec_accepted_tokens: int = 0
     spec_verify_segments: int = 0
-    # cache bytes the int8 rows did not write vs the native dtype (§15)
+    # fault-tolerant re-dispatch (DESIGN.md §14): requests checkpointed and
+    # handed back by ``evacuate``, and the committed tokens folded into
+    # their replay prefixes (the re-prefill another replica takes on)
+    evacuated_requests: int = 0
+    evacuated_tokens: int = 0
+    # cache bytes the int8 rows did not write vs the native dtype (§15), and
+    # a measured logit drift, which the engine leaves None as JAX's does
     kv_quant_bytes_saved: int = 0
+    kv_quant_drift: Optional[float] = None
 
     @property
     def total_tokens(self) -> int:
@@ -179,6 +193,11 @@ class EngineStats:
             else 0.0
 
     @property
+    def tp_collective_bytes_per_iter(self) -> float:
+        return self.tp_collective_bytes / self.iterations \
+            if self.iterations else 0.0
+
+    @property
     def spec_acceptance_rate(self) -> float:
         """Share of the launched drafts that the target model accepted."""
         return self.spec_accepted_tokens / self.spec_proposed_tokens \
@@ -193,8 +212,8 @@ class EngineStats:
 
     _DERIVED = ("total_tokens", "throughput", "prefill_expansion",
                 "dispatches_per_iter", "syncs_per_iter",
-                "blocking_syncs_per_iter", "spec_acceptance_rate",
-                "spec_accepted_per_verify")
+                "blocking_syncs_per_iter", "tp_collective_bytes_per_iter",
+                "spec_acceptance_rate", "spec_accepted_per_verify")
 
     def snapshot(self) -> dict:
         out = {f.name: getattr(self, f.name)
@@ -268,6 +287,10 @@ class ServeEngine:
         self.async_depth = config.resolved_async_depth
         self.async_harvest = bool(config.async_harvest)
         self._ring: deque[_InFlight] = deque()
+        # the source of commit stamps (first_token_at, finished_at): the
+        # replica pool points it at its virtual clock (DESIGN.md §14); the
+        # time splits of EngineStats always use perf_counter
+        self._clock = time.perf_counter
         # speculative decoding (§13) and the packed step's sampling
         self.spec_k = int(config.spec_k)
         self.drafter = (draft_lib.make_drafter(config.resolved_drafter)
@@ -380,6 +403,58 @@ class ServeEngine:
             retired += 1
         return done
 
+    def evacuate(self, *, drain: bool = True) \
+            -> tuple[list[Request], list[Request]]:
+        """Checkpoint every unfinished request for re-dispatch on another
+        replica (DESIGN.md §14) and release its slot and KV blocks.
+        Returns ``(finished, moved)``.
+
+        ``drain=True`` is the graceful leave: the in-flight iterations
+        retire first, so their samples commit and the replay prefixes are
+        as long as they can be, and each released slot's ``cache_len`` is
+        cleared in place.  ``drain=False`` is the failure path: the ring is
+        abandoned unfetched, so only committed tokens reach the checkpoint
+        (nothing uncommitted is ever replayed), and the device is not
+        touched.  A request whose committed output already holds EOS, or
+        whose budget is spent, finishes here instead of moving."""
+        finished: list[Request] = []
+        if drain:
+            finished += self.drain()
+        else:
+            # an abandoned entry's pinned buffer stays reserved by the
+            # allocator until the copy into it has run
+            self._ring.clear()
+        moved: list[Request] = []
+        sched = self.scheduler
+        for r in list(sched.active) + list(sched.waiting):
+            if r.state in (State.FINISHED, State.DISCARDED, State.REJECTED):
+                continue
+            if r.slot >= 0:
+                self.slot_free.append(r.slot)
+                self._pos[r.slot] = 0
+                if drain:
+                    self.cache_len[r.slot] = 0
+                r.slot = -1
+            self.kv.free(r.rid)
+            folded = r.checkpoint_redispatch()
+            if r.state == State.FINISHED:
+                r.finished_at = self._clock()
+                finished.append(r)
+                continue
+            self.stats.evacuated_requests += 1
+            self.stats.evacuated_tokens += folded
+            moved.append(r)
+        sched.active = []
+        sched.waiting.clear()
+        return finished, moved
+
+    def release(self) -> None:
+        """Drop the device state (KV cache, slot tensors, in-flight ring) of
+        an engine that will not step again, as a replica the pool has
+        retired; its stats stay readable."""
+        self._ring.clear()
+        self.cache = self.cache_len = self.last_token = self.accept_len = None
+
     def step(self, plan: BatchPlan) -> list[Request]:
         """Run one iteration.  Packed: launch it, retire what has already
         landed (``async_harvest``), then retire the oldest until at most
@@ -399,7 +474,7 @@ class ServeEngine:
         self.scheduler.mark_launched(plan)
         sampled = self._step_legacy(plan)
         now = time.perf_counter()
-        finished = self.scheduler.commit(plan, sampled, now)
+        finished = self.scheduler.commit(plan, sampled, self._clock())
         for r in finished:
             self._finalize(r)
         self.stats.host_time += time.perf_counter() - now
@@ -427,7 +502,7 @@ class ServeEngine:
                 self.stats.decode_tokens += n_acc - 1
             else:
                 sampled[rid] = int(payload[s, 0])
-        finished = self.scheduler.commit(inf.plan, sampled, time.perf_counter())
+        finished = self.scheduler.commit(inf.plan, sampled, self._clock())
         for r in finished:
             self._finalize(r)
         if self.spec_k:

@@ -42,6 +42,8 @@ class KVStats:
     device_pages_used: int = 0
     host_bytes: int = 0
     offload_bytes: int = 0          # cumulative D2H traffic
+    upload_bytes: int = 0           # cumulative H2D traffic (not counted by
+    #                                 any engine path, as in JAX)
     aggregated_copies: int = 0
     discarded_requests: int = 0
     # extend() calls that found no free page: admission overshoot.  Must

@@ -360,3 +360,11 @@ class GlobalBatchScheduler:
                     r.pending_eos = True   # detected next iteration
         self.active = [r for r in self.active if r.state != State.FINISHED]
         return finished
+
+    @property
+    def n_active(self) -> int:
+        return len(self.active)
+
+    @property
+    def n_waiting(self) -> int:
+        return len(self.waiting)

@@ -1,12 +1,15 @@
 """Shared by the port's serving-loop tests (``test_torch_async.py``,
-``test_torch_spec_decode.py``, ``test_torch_sampling.py``): the same f32
-model in both packages, and one engine run in either.
+``test_torch_spec_decode.py``, ``test_torch_sampling.py``,
+``test_torch_pool.py``): the same f32 model in both packages, and one
+engine run in either.
 
 ``models(name)`` gives (jax cfg, torch cfg, jax params, torch params):
 the JAX ``model.init(cfg, PRNGKey(0))`` pytree and its conversion.  The
-names are ``tiny-toy`` and ``hybrid``, the dense-FFN scale-down of
+names are ``tiny-toy``, ``hybrid``, the dense-FFN scale-down of
 Jamba-1.5-Large that ``tests/test_torch_hybrid.py`` uses (7 Mamba layers
-and one attention layer, no experts); each is built once a process."""
+and one attention layer, no experts), and ``deepseek-v2-236b``, its
+scale-down (absorbed MLA) at ``capacity_factor`` 16, where no expert
+drops; each is built once a process."""
 import dataclasses
 import functools
 
@@ -28,6 +31,7 @@ from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.request import Request
 
 JAMBA = "jamba-1.5-large-398b"
+DEEPSEEK = "deepseek-v2-236b"
 
 
 def _dense(cfg):
@@ -40,6 +44,11 @@ def _dense(cfg):
 def models(name: str):
     if name == "tiny-toy":
         jcfg, tcfg = jax_get_config(name), get_config(name)
+    elif name == DEEPSEEK:
+        jcfg, tcfg = [dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0)) for cfg in (
+                jax_scale_down(jax_get_config(name)),
+                scale_down(get_config(name)))]
     else:
         jcfg = _dense(jax_scale_down(jax_get_config(JAMBA)))
         tcfg = _dense(scale_down(get_config(JAMBA)))

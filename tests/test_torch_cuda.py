@@ -951,6 +951,63 @@ def test_legacy_engine_on_card_matches_cpu(cuda, mode):
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6
 
 
+@pytest.mark.parametrize("harvest", [True, False])
+def test_pool_kill_on_card_is_token_exact(cuda, harvest):
+    """tiny-toy in f32: two replicas on the card sharing one weight dict,
+    replica 1 killed at tick 3 at async depth 1, serve the tokens of the
+    unperturbed pool, through packed attention and SwiGLU.  The device
+    spins just before replica 1's payload copy at tick 2 is enqueued, so
+    the kill abandons an in-flight iteration whose copy has not run: its
+    pinned buffer must not be handed to a later copy before it lands."""
+    from repro_torch.serving.pool import ReplicaPool
+    from repro_torch.serving.config import PoolConfig
+    from repro_torch.serving.faults import FaultPlan
+    cfg = dataclasses.replace(get_config("tiny-toy"), dtype="float32")
+    params = model.init(cfg, seed=0, device="cuda")
+    ecfg = EngineConfig(max_slots=4, max_len=64, kv_block_size=8,
+                        discrete_sizes=(16, 8), async_depth=1,
+                        async_harvest=harvest, avg_decode_len=4.0)
+    runs, ring_at_kill = {}, []
+    for plan in (None, "kill@3:r1"):
+        engines = [ServeEngine(cfg, params, ecfg) for _ in range(2)]
+        pool = ReplicaPool(engines, PoolConfig(replicas=2),
+                           fault_plan=plan and FaultPlan.parse(plan),
+                           virtual_dt=0.01)
+        evacuate, stage = engines[1].evacuate, engines[1]._stage
+
+        def spy(*, drain, _eng=engines[1], _evacuate=evacuate):
+            ring_at_kill.append((len(_eng._ring), sum(
+                not e.done.query() for e in _eng._ring)))
+            return _evacuate(drain=drain)
+
+        def slow_stage(result, _pool=pool, _stage=stage):
+            if _pool.tick_count == 2:
+                # a cached pinned block first: a new one may wait for the
+                # device, spin included
+                torch.empty(result.shape, dtype=result.dtype,
+                            pin_memory=True)
+                torch.cuda._sleep(200_000_000)      # ~0.1 s
+            return _stage(result)
+        engines[1].evacuate, engines[1]._stage = spy, slow_stage
+        before = (packed_attention_cuda.launches["packed_attention"],
+                  swiglu_cuda.launches)
+        pool.run_ticked([(i // 2, Request(rid=i,
+                                          prompt=list(range(5 + i, 15 + i)),
+                                          max_new_tokens=8))
+                         for i in range(8)], max_ticks=500)
+        torch.cuda.synchronize()
+        assert packed_attention_cuda.launches["packed_attention"] > before[0]
+        assert swiglu_cuda.launches > before[1]
+        assert not pool.shed and len(pool.results) == 8
+        runs[plan] = {rid: r.generated for rid, r in pool.results.items()}
+    assert pool.stats.faults_injected == 1
+    assert pool.stats.redispatched_requests > 0
+    assert not pool.router.replicas[1].alive
+    assert engines[1].cache is None and engines[0].cache is not None
+    assert ring_at_kill == [(1, 1)]
+    assert runs["kill@3:r1"] == runs[None]
+
+
 def test_sampling_bits_on_card_equal_cpu(cuda):
     """The sampler's threefry bits depend on (seed, rid, pos, index)
     only: equal on the card and on the CPU, over a whole vocab and at

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.launch import serve
 from repro_torch.models import model
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serving.engine import ServeEngine
@@ -37,8 +38,8 @@ def test_no_jax_or_repro_imports(path):
 
 def test_the_scan_sees_the_port():
     names = {p.name for p in FILES}
-    assert {"engine.py", "attention.py", "ops.py", "build.py",
-            "chip_smoke.py"} <= names
+    assert {"engine.py", "attention.py", "ops.py", "build.py", "pool.py",
+            "router.py", "serve.py", "elastic.py", "chip_smoke.py"} <= names
 
 
 def _no_card(monkeypatch):
@@ -59,5 +60,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         from_jax_params(cfg, {})
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError):       # before any weight is drawn
+        serve.main(["--arch", "tiny-toy", "--requests", "1"])
     assert resolve_device("cpu").type == "cpu"
 
