@@ -86,7 +86,10 @@ Phases (any failure exits non-zero; no phase is caught):
                agree with the runs without prefix caching; an int8 request
                agrees with a teacher-forced plain forward through an int8
                cache.  Each mode's run is then profiled as in 6.
-  9. async   — the serve phase's 8 requests at the default async depth
+  9. async   — (phases 9, 11 and 12 serve Qwen3-8B's first 12 of its 36
+               layers, ``MECH_LAYERS``, on the serve phase's weights: what
+               they check does not depend on depth)
+               the serve phase's 8 requests at the default async depth
                (1) and at depth 0, in turns (1, 0, 0, 1): one dispatch and
                one sync per iteration, nothing in flight at exit, tokens
                that agree (the share of token-identical requests printed),
@@ -107,7 +110,8 @@ Phases (any failure exits non-zero; no phase is caught):
                time (greedy,
                whole-vocab Gumbel, top-k) at the serve's 16 sampled rows;
                two serves with the same seed give identical tokens at depth
-               0, and two at depth 1 (harvesting off).
+               0, and two at depth 1 (harvesting off); their agreement with
+               the async phase's greedy depth-0 run is printed unbounded.
                Every run of phases 9-12 sets the kernels' counts to 0
                before it and fails unless its attention variant and SwiGLU
                launched and no ops-only kernel did.
@@ -230,6 +234,34 @@ Phases (any failure exits non-zero; no phase is caught):
                with the legacy engine's at >= 0.65 where contexts agree.
                The JSON gives packed, flash and decode attention their
                launches by group here.
+ 19. tp      — tensor-parallel packed serving (DESIGN.md §11) at tp = 2 on
+               the one card.  First the kernels at the ranks' shard shapes
+               against their plain versions here: MLA's latent attention
+               at 64 heads in the mla phase's four shapes (f32 and bf16,
+               two launches bit-equal) and SwiGLU over 256 rows at
+               4096 -> 6144, 5120 -> 6144 and 5120 -> 1536.  Then two
+               ranks of a gloo group (NCCL takes one rank
+               per card; gloo stages each all-reduce through the host, so
+               the collectives are real and the kernels run at their shard
+               shapes, and no speed is claimed), spawned once through
+               ``repro_torch.launch.mesh.spawn_tp`` with the port's rank
+               function ``serve.serve_rank_cases``.  Qwen3-8B at full
+               width cut to TP_LAYERS of its 36 layers and DeepSeek-V2 cut
+               to 2 of 60 (capacity E / k) serve the serve phase's 8
+               requests at async depth 1 with harvesting on, each rank
+               drawing its shard of the same seeded weights, against a
+               tp = 1 engine on the full weights here: per rank the wall,
+               the blocking syncs per iteration, the peak device memory
+               and the launches of packed attention (16 q / 4 kv heads),
+               MLA's latent attention (64 heads) and SwiGLU (6144 columns)
+               with the shard shapes; the two ranks' tokens and plans must
+               be equal, the tokens agree with tp = 1 and with a
+               teacher-forced plain forward of the full model.  Then a
+               one-rank NCCL group here: ``tp.row_parallel`` in two
+               nano-batch groups against the plain product, and an
+               all-reduce behind a ~0.1 s device spin whose ``wait()``
+               returns before the spin ends (a stream wait, not a host
+               block).
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -325,6 +357,11 @@ LLAMA_LAYERS = 8        # of 80: ~7.4B params, ~14.7 GB in bf16
 MOE_LAYERS = 2          # of 35: ~27.7B params, ~55.4 GB in bf16
 DEEPSEEK = "deepseek-v2-236b"
 MLA_LAYERS = 2          # of 60: layer 0 (dense FFN) and 1 (MoE), ~5.4B
+# the tp phase: ranks, Qwen3-8B's layers kept, and the device spin (cycles,
+# ~0.1 s) that an NCCL all-reduce is issued behind
+TP = 2
+TP_LAYERS = 2           # the phase's share of the 1200 s limit kept small
+NCCL_SPIN_CYCLES = 200_000_000
 # absorbed MLA's latent attention: source, the TPU kernel it replaces (the
 # packed-attention Pallas kernel in its KV = 1, d_v != d_qk form)
 MLA = (f"{_CSRC}/mla_attention.cu", f"{_TPU_PA}:135")
@@ -352,6 +389,13 @@ SAMPLING = dict(temperature=0.8, top_k=50)
 KILL_SPIN_CYCLES = 2_000_000_000  # ~1 s: a killed replica's copy pending
 # the pool phase's later kill: replica 1 decoding, committed tokens replay
 LATE_KILL_TICK = 20
+# the async, sampling and pool phases serve Qwen3-8B's first MECH_LAYERS of
+# its 36 layers: what they check (pipeline depths, the sampler, re-dispatch)
+# does not depend on depth, and the script's host-bound serves must leave
+# room in its 1200 s for the later phases.  The spec phase keeps all 36: its
+# n-gram drafter's acceptance is the model's (0.840 at 36 layers, 0.491-
+# 0.638 at 12 between runs, against a bound of 0.5)
+MECH_LAYERS = 12
 # the cli phase's process: every count set to 0, the CLI run as ``python -m
 # repro_torch.launch.serve`` runs it on the arguments that follow, then one
 # line of the counts
@@ -1459,38 +1503,15 @@ def phase_forward(torch, cfg):
     torch.cuda.empty_cache()
 
 
-def _counted():
-    from repro_torch.kernels.decode_attention import (
-        decode_attention_cuda, paged_decode_attention_cuda)
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.fused_overlap import fused_overlap_cuda
-    from repro_torch.kernels.mla_attention import mla_attention_cuda
-    from repro_torch.kernels.packed_attention import packed_attention_cuda
-    from repro_torch.kernels.ssm_scan import ssm_scan_cuda
-    from repro_torch.kernels.swiglu import swiglu_cuda
-    return (packed_attention_cuda, {"swiglu": swiglu_cuda,
-                                    "flash_attention": flash_attention_cuda,
-                                    "decode_attention": decode_attention_cuda,
-                                    "ssm_scan": ssm_scan_cuda,
-                                    "paged_decode_attention":
-                                        paged_decode_attention_cuda,
-                                    "fused_overlap": fused_overlap_cuda,
-                                    "mla_attention": mla_attention_cuda})
-
-
 def zero_counts() -> None:
     """Set every kernel's launch count to 0 (before a main-path run)."""
-    packed, single = _counted()
-    for kname in packed.launches:
-        packed.launches[kname] = 0
-    for fn in single.values():
-        fn.launches = 0
+    from repro_torch.kernels import ops
+    ops.zero_launch_counts()
 
 
 def read_counts() -> dict:
-    packed, single = _counted()
-    return dict(packed.launches,
-                **{kname: fn.launches for kname, fn in single.items()})
+    from repro_torch.kernels import ops
+    return ops.launch_counts()
 
 
 def check_off_path(tag: str, counts: dict, also=()) -> None:
@@ -2041,12 +2062,19 @@ def agreement(tag: str, a: dict, b: dict,
     return same_ctx
 
 
-def phase_async(torch, cfg, params, prompts, busy: dict) -> None:
+def first_layers(cfg, params: dict, n: int) -> tuple:
+    """A model's first ``n`` layers: the config cut to them and a view of
+    ``params`` (the same tensors) holding only theirs."""
+    cut = dataclasses.replace(cfg, name=f"{cfg.name}-{n}l", n_layers=n)
+    return cut, dict(params, layers=params["layers"][:n])
+
+
+def phase_async(torch, cfg, params, prompts, busy: dict) -> dict:
     """The serve phase's 8 requests at the default async depth (1) and at
     depth 0, in turns (1, 0, 0, 1), each counted from 0 (``serve_run``):
     the tokens agree, the ring is empty at exit, and each run prints its
     blocking syncs per iteration and its wall split.  The depth-1 serve is
-    then profiled."""
+    then profiled.  Returns the first depth-0 run's tokens."""
     runs = []
     for depth in (1, 0, 0, 1):
         eng, out, _ = serve_run(
@@ -2071,6 +2099,7 @@ def phase_async(torch, cfg, params, prompts, busy: dict) -> None:
     busy["async depth 1"] = phase_profile(
         torch, cfg, params, prompts, runs[-1][1].wall_time,
         tag="async depth 1 profile", async_depth=1)
+    return runs[1][2]
 
 
 def motif_prompts(cfg, n: int = 8) -> list:
@@ -2954,9 +2983,10 @@ def phase_moe(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def mla_case(torch, use: str, dtype, seed: int = 29):
-    """One of the MLA kernel's four shapes at DeepSeek-V2's full width (128
-    heads, latent rank 512, rope 64): ``packed`` the kernels phase's mixed
+def mla_case(torch, use: str, dtype, seed: int = 29, h: int = 128):
+    """One of the MLA kernel's four shapes at DeepSeek-V2's full width (``h``
+    heads, 128 or a tensor-parallel rank's share; latent rank 512, rope
+    64): ``packed`` the kernels phase's mixed
     stream (8 decode tokens of slots 0-7, a 200-token chunk of slot 8 at
     positions 300-499 and a 37-token chunk of slot 9, over 10 slots of 1024
     rows, bucket 1024), ``decode`` 8 rows of the serve's prompt lengths
@@ -2971,7 +3001,7 @@ def mla_case(torch, use: str, dtype, seed: int = 29):
     from repro_torch.kernels import mla_attention as mla
     from repro_torch.configs import get_config
     from repro_torch.models import attention as attn
-    h, rank, rope = 128, mla.RANK, mla.ROPE
+    rank, rope = mla.RANK, mla.ROPE
     d = rank + rope
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -3450,6 +3480,195 @@ def phase_families(torch, busy: dict) -> dict:
     return by_group
 
 
+def tp_config():
+    """Qwen3-8B at full width cut to TP_LAYERS of its 36 layers."""
+    from repro_torch.configs import get_config
+    full = get_config("qwen3-8b")
+    return dataclasses.replace(full, name=f"{full.name}-{TP_LAYERS}l",
+                               n_layers=TP_LAYERS)
+
+
+# per model of the tp phase: the kernels its packed step must launch on
+# every rank, and the first layer's shard shapes (leaf -> (axis, full
+# width)) that the rank's leaves must have
+TP_CHECKS = {
+    "qwen3-8b": (("packed_attention", "swiglu"),
+                 {"mixer/wq": (1, 32), "mixer/wk": (1, 8),
+                  "ffn/w_gate": (1, 12288)}),
+    DEEPSEEK: (("mla_attention", "swiglu"),
+               {"mixer/wuq": (1, 128), "mixer/wuk": (1, 128),
+                "ffn/w_gate": (1, 12288)}),
+}
+
+
+def tp_kernel_checks(torch, cfgs: dict) -> None:
+    """The kernels at the shard shapes the tp phase's ranks launch them at,
+    each against its plain version here before the ranks start: MLA's
+    latent attention at DeepSeek-V2's heads / TP in ``mla_case``'s four
+    shapes, f32 and bf16, two launches of each bit-equal; SwiGLU over x
+    (256, d_model) in bf16 at each model's column shards (Qwen3-8B's FFN;
+    DeepSeek-V2's dense FFN and its shared experts)."""
+    from repro_torch.kernels import mla_attention as mla
+    from repro_torch.kernels import swiglu as sw
+    ds = cfgs[DEEPSEEK]
+    heads = ds.n_heads // TP
+    for use in ("packed", "decode", "chunk", "recompute"):
+        errs = []
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            args, kw, _, _, _, desc = mla_case(torch, use, dtype, h=heads)
+            tag = f"tp mla_attention {use} H={heads} {dtype}"
+            got = mla.mla_attention_cuda(*args, **kw)
+            errs.append(check_close(tag, got,
+                                    mla.mla_attention_ref(*args, **kw), tol))
+            if not torch.equal(got, mla.mla_attention_cuda(*args, **kw)):
+                raise AssertionError(f"{tag}: two launches differ")
+            del args, got
+        log(f"tp kernels: mla_attention {use}, {desc}; two launches "
+            f"bit-equal; max_abs_err f32 {errs[0]:.3e} (tol {F32_TOL[0]} + "
+            f"{F32_TOL[1]}·|ref|), bf16 {errs[1]:.3e} (tol {BF16_TOL[0]} + "
+            f"{BF16_TOL[1]}·|ref|) ({card_line()})")
+    widths = [(cfgs["qwen3-8b"].d_model, cfgs["qwen3-8b"].d_ff // TP),
+              (ds.d_model, ds.d_ff // TP),
+              (ds.d_model, ds.moe.shared_d_ff // TP)]
+    for d, ff in widths:
+        gen, wg, wu, _ = swiglu_case(torch, d, ff)
+        x = torch.randn(256, d, generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        err = check_close(f"tp swiglu T=256 ({d}x{ff})",
+                          sw.swiglu_cuda(x, wg, wu), sw.swiglu_ref(x, wg, wu))
+        log(f"tp kernels: swiglu T=256 ({d}x{ff}), bf16: max_abs_err "
+            f"{err:.3e} (tol {BF16_TOL[0]} + {BF16_TOL[1]}·|ref|) "
+            f"({card_line()})")
+        del x, wg, wu
+    torch.cuda.empty_cache()
+
+
+def phase_tp(torch) -> None:
+    """Tensor-parallel packed serving at tp = TP on the one card (module
+    docstring, phase 19)."""
+    from repro_torch.launch import mesh, serve
+    from repro_torch.models import model
+    from repro_torch.serving.config import EngineConfig
+    cfgs = {"qwen3-8b": tp_config()}
+    ds = deepseek_config(1.0)
+    cfgs[DEEPSEEK] = deepseek_config(ds.moe.num_experts / ds.moe.top_k)
+    tp_kernel_checks(torch, cfgs)
+    cases, refs = [], {}
+    for key, cfg in cfgs.items():
+        prompts = serve_prompts(cfg)
+        waves = [[(i, p, 32) for i, p in enumerate(prompts)]]
+        # the tp = 1 engine on the full weights, here
+        params = model.init(cfg, seed=0, device="cuda")
+        one = serve.serve_rank(cfg, EngineConfig(max_slots=8, max_len=1024),
+                               waves, params=params, device="cuda")
+        log(f"tp {cfg.name} tp=1: {one['stats']['iterations']} iterations "
+            f"in {one['wall']:.3f} s, blocking syncs/iter "
+            f"{one['stats']['blocking_syncs_per_iter']:.3f}, peak memory "
+            f"{one['peak_mem'] / 2**30:.2f} GiB")
+        refs[key] = (cfg, params, prompts, one)
+        cases.append(dict(cfg=cfg, config=EngineConfig(
+            max_slots=8, max_len=1024, tp=TP), waves=waves, seed=0))
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = mesh.spawn_tp(TP, serve.serve_rank_cases, cases,
+                            device="cuda", backend="gloo", timeout_s=300)
+    log(f"tp: {TP} gloo ranks on one card, spawn to last result "
+        f"{time.perf_counter() - t0:.1f} s ({card_line()})")
+    for (key, (cfg, params, prompts, one)), res in zip(refs.items(),
+                                                       results):
+        tag = f"tp {cfg.name} tp={TP}"
+        kernels, shapes = TP_CHECKS[key]
+        for r in res["ranks"]:
+            st, c = r["stats"], r["launches"]
+            log(f"{tag} rank {r['rank']}: {st['iterations']} iterations, "
+                f"{st['total_tokens']} tokens in {r['wall']:.3f} s, "
+                f"{st['dispatches_per_iter']} dispatch/iter, "
+                f"{st['syncs_per_iter']} sync/iter, blocking syncs/iter "
+                f"{st['blocking_syncs_per_iter']:.3f}, peak memory "
+                f"{r['peak_mem'] / 2**30:.2f} GiB, modeled collective "
+                f"{st['tp_collective_bytes_per_iter'] / 1e6:.2f} MB/iter; "
+                f"launches {{{', '.join(f'{k}: {c[k]}' for k in kernels)}}} "
+                f"at shard shapes "
+                f"{ {leaf: r['shapes'][leaf] for leaf in shapes} }")
+            check_off_path(tag, c)
+            if any(c[k] <= 0 for k in kernels):
+                raise AssertionError(f"{tag} rank {r['rank']}: a kernel "
+                                     f"never launched: {c}")
+            for leaf, (axis, width) in shapes.items():
+                if r["shapes"][leaf][axis] != width // TP:
+                    raise AssertionError(f"{tag}: {leaf} is not the shard")
+            if st["dispatches_per_iter"] != 1.0 or \
+                    st["syncs_per_iter"] != 1.0:
+                raise AssertionError(f"{tag}: not one dispatch and one "
+                                     "sync per iteration")
+        log(f"{tag}: the ranks' tokens and plans equal: "
+            f"{res['ranks_agree']} ({len(res['plans'])} plans)")
+        if not res["ranks_agree"]:
+            raise AssertionError(f"{tag}: the ranks served apart")
+        out = res["outputs"]
+        if len(out) != 8 or any(len(t) != 32 for t in out.values()):
+            raise AssertionError(f"{tag}: not every request finished")
+        agreement(f"{tag}: tokens vs tp=1", one["outputs"], out)
+        check_teacher_forced(torch, tag, cfg, params,
+                             {rid: list(t) for rid, t in out.items()},
+                             prompts)
+        del params
+    refs.clear()
+    torch.cuda.empty_cache()
+    nccl_check(torch)
+
+
+def nccl_check(torch) -> None:
+    """A one-rank NCCL group in this process: ``tp.row_parallel`` of
+    Qwen3-8B's FFN down projection at tp = 2 (6144 -> 4096) over 256 rows
+    in two nano-batch groups against the plain product, and an all-reduce
+    issued behind a device spin: ``wait()`` returns at once (NCCL's
+    ``wait`` is a stream wait), the sync only when the spin ends."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.distributed import tp
+    from repro_torch.launch import mesh
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            group = mesh.make_tp_group(1, "cuda")
+            g = torch.Generator(device="cuda").manual_seed(5)
+            x = torch.randn(256, 6144, device="cuda", generator=g) \
+                .to(torch.bfloat16)
+            w = (torch.randn(6144, 4096, device="cuda", generator=g)
+                 / 6144 ** 0.5).to(torch.bfloat16)
+            with tp.tp_ctx(group, nano=(128, 128)):
+                got = tp.row_parallel(x, w)
+            err = check_close("nccl row_parallel (2 nano groups)", got,
+                              torch.matmul(x, w))
+            buf = torch.ones(1 << 20, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda._sleep(NCCL_SPIN_CYCLES)
+            work = dist.all_reduce(buf, async_op=True)
+            t1 = time.perf_counter()
+            work.wait()
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            log(f"nccl: one-rank group, row_parallel max |err| {err:.3e}; "
+                f"an all-reduce behind a {NCCL_SPIN_CYCLES:.0e}-cycle spin: "
+                f"issue {1e3 * (t1 - t0):.3f} ms, wait() "
+                f"{1e3 * (t2 - t1):.3f} ms, then synchronize "
+                f"{1e3 * (t3 - t2):.3f} ms ({card_line()})")
+            if t2 - t1 > 0.2 * (t3 - t0):
+                raise AssertionError("nccl: wait() blocked the host")
+            if float(buf[0]) != 1.0:
+                raise AssertionError("nccl: a one-rank sum changed the value")
+        finally:
+            dist.destroy_process_group()
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3526,16 +3745,19 @@ def main() -> int:
     for kname, n in phase_shared_prefix(torch, cfg, params, busy).items():
         launches.setdefault(kname, n)
     lap("shared-prefix")
-    phase_async(torch, cfg, params, prompts, busy)
+    cfg_m, params_m = first_layers(cfg, params, MECH_LAYERS)
+    log(f"async, sampling, pool: {cfg_m.name}, the serve phase's weights' "
+        f"first {MECH_LAYERS} layers")
+    plain_m = phase_async(torch, cfg_m, params_m, prompts, busy)
     lap("async")
     phase_spec(torch, cfg, params, prompts)
     lap("spec")
-    phase_sampling(torch, cfg, params, prompts, packed)
+    phase_sampling(torch, cfg_m, params_m, prompts, plain_m)
     lap("sampling")
-    phase_pool(torch, cfg, params, prompts)
+    phase_pool(torch, cfg_m, params_m, prompts)
     lap("pool")
     # the hybrid's legacy run gives the scan's count
-    del params
+    del params, params_m
     torch.cuda.empty_cache()
     phase_cli(torch)
     lap("cli")
@@ -3550,6 +3772,8 @@ def main() -> int:
     lap("mla")
     families = phase_families(torch, busy)
     lap("families")
+    phase_tp(torch)
+    lap("tp")
     for tag, got in busy.items():
         if got is not None and not any(k in tag for k in LEGACY_MODES):
             log(f"packed attention in the {tag} serve: {got[1]:.1f} ms of "

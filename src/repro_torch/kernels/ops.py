@@ -28,6 +28,31 @@ from repro_torch.kernels.swiglu import swiglu_cuda, swiglu_ref
 
 IMPLS = (None, "plain")
 
+# each kernel's wrapper counts its launches, where it launches and nowhere
+# else: the packed-attention wrapper per variant (a dict), the others as an
+# int attribute
+_COUNTED = {"swiglu": swiglu_cuda, "flash_attention": flash_attention_cuda,
+            "decode_attention": decode_attention_cuda,
+            "ssm_scan": ssm_scan_cuda,
+            "paged_decode_attention": paged_decode_attention_cuda,
+            "fused_overlap": fused_overlap_cuda,
+            "mla_attention": mla_attention_cuda}
+
+
+def zero_launch_counts() -> None:
+    """Set every kernel's launch count in this process to 0."""
+    for kname in packed_attention_cuda.launches:
+        packed_attention_cuda.launches[kname] = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches in this process since the counts were last
+    set to 0, by kernel name (packed attention by variant)."""
+    return dict(packed_attention_cuda.launches,
+                **{kname: fn.launches for kname, fn in _COUNTED.items()})
+
 
 def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
     if impl not in IMPLS:

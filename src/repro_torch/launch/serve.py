@@ -5,28 +5,45 @@ an online run with Poisson arrivals, on one engine or on a replica pool.
   python -m repro_torch.launch.serve --arch tiny-toy --online --rate 4 --duration 10
   python -m repro_torch.launch.serve --arch tiny-toy --replicas 2 --fault-plan kill@3:r1
   python -m repro_torch.launch.serve --arch tiny-toy --device cpu
+  python -m repro_torch.launch.serve --arch tiny-toy --tp 2 --device cpu
 
 Weights are seeded random (``model.init`` with ``--seed``), drawn on the
 device.  It runs on ``cuda`` unless ``--device`` names another and raises
 where there is no card.  ``--replicas > 1`` or a ``--fault-plan`` serves
-through ``ReplicaPool`` (DESIGN.md §14).
+through ``ReplicaPool`` (DESIGN.md §14).  ``--tp N`` (DESIGN.md §11)
+spawns N ranks (``launch.mesh.spawn_tp``: nccl on ``cuda``, one card a
+rank; gloo on the CPU), each drawing its shard of the same seeded weights
+and serving the same requests; rank 0 prints the lines.  The offline batch
+only: an online run's arrivals follow each rank's clock, and the pool
+serves tp = 1 replicas (ROADMAP).
+
+``serve_rank`` is the rank function for callers that want the results
+back (``spawn_tp`` returns rank 0's): tokens, the plan of every
+iteration, the stats, and on the card the kernels' launches and the peak
+device memory.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, scale_down
+from repro_torch.distributed import tp as tp_lib
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh
 from repro_torch.models import model as model_lib
 from repro_torch.serving.config import EngineConfig, PoolConfig
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.pool import ReplicaPool
 from repro_torch.serving.request import Request
+from repro_torch.serving.scheduler import BatchPlan
 
 
 def make_requests(n: int, vocab: int, seed: int = 0, p_mean: int = 24,
@@ -158,6 +175,11 @@ def report(args, eng: ServeEngine, done: list, n_reqs: int) -> None:
           f"dispatch {st['dispatch_time']*1e3:.0f} ms "
           f"(wall {st['wall_time']*1e3:.0f} ms), "
           f"{eng.scheduler.dropped_tokens} overshoot tokens dropped")
+    if eng.tp > 1:
+        print(f"tp={eng.tp}: "
+              f"~{st['tp_collective_bytes_per_iter'] / 1e3:.1f} KB "
+              f"modeled collective traffic/iter "
+              f"({st['tp_collective_bytes'] / 1e6:.2f} MB total)")
     print("dense batch histogram: "
           f"{dict(sorted(st['dense_batch_hist'].items()))}")
     if st["kv_bucket_hist"]:
@@ -200,7 +222,96 @@ def report(args, eng: ServeEngine, done: list, n_reqs: int) -> None:
               f"ms/tok p99 {np.percentile(norm, 99)*1e3:.1f} ms/tok")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def plan_signature(plan: BatchPlan) -> tuple:
+    """What an iteration planned: its decode requests and its prefill
+    chunks (rid, offset, length)."""
+    return (tuple(r.rid for r in plan.decode),
+            tuple((c.req.rid, c.offset, c.length) for c in plan.prefill))
+
+
+def serve_rank(cfg, config: EngineConfig, waves: list, *, seed: int = 0,
+               params: Optional[dict] = None, device=None) -> dict:
+    """Serve ``waves`` (lists of ``(rid, prompt, max_new_tokens)``; each
+    wave is submitted, then run to its end) on one engine: at
+    ``config.tp > 1`` this process's rank of the group.  ``params`` (full
+    or the rank's shard, on ``device``) default to ``model.init(cfg,
+    seed)``, drawn as the rank's shard.  Returns the outputs ``{rid:
+    tokens}``, ``plans`` (``plan_signature`` of every iteration), the
+    engine's and the KV manager's stats snapshots, the wall, the local
+    widths, the kernels' launches (counted from 0 at engine construction;
+    none on the CPU) and on the card the peak device memory; at tp > 1 also
+    ``ranks_agree`` (every rank served the same tokens and plans) and
+    ``ranks``, every rank's result but its tokens and plans."""
+    device = resolve_device(device)
+    world = config.tp
+    rank = dist.get_rank() if world > 1 else 0
+    if params is None:
+        params = model_lib.init(cfg, seed=seed, device=device,
+                                shard=(rank, world) if world > 1 else None)
+    cuda = device.type == "cuda"
+    ops.zero_launch_counts()
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    eng = ServeEngine(cfg, params, config, device=device)
+    plans: list = []
+    plan = eng.scheduler.plan
+
+    def recorded():
+        p = plan()
+        if p is not None:
+            plans.append(plan_signature(p))
+        return p
+    eng.scheduler.plan = recorded
+    outputs: dict = {}
+    t0 = time.perf_counter()
+    for wave in waves:
+        for rid, prompt, max_new in wave:
+            eng.submit(Request(rid=rid, prompt=list(prompt),
+                               max_new_tokens=max_new))
+        for r in eng.run():
+            outputs[r.rid] = tuple(r.output)
+    if cuda:
+        torch.cuda.synchronize(device)
+    layer = eng.params["layers"][0]
+    out = {"rank": rank, "stats": eng.stats.snapshot(),
+           "kv": eng.kv.stats.snapshot(),
+           "wall": time.perf_counter() - t0,
+           "shapes": {f"{part}/{name}": tuple(leaf.shape)
+                      for part in ("mixer", "ffn")
+                      for name, leaf in layer.get(part, {}).items()
+                      if isinstance(leaf, torch.Tensor)},
+           "cache_shapes": {name: tuple(leaf.shape)
+                            for name, leaf in eng.cache[0].items()},
+           "launches": ops.launch_counts(),
+           "peak_mem": torch.cuda.max_memory_allocated(device)
+           if cuda else None}
+    eng.release()
+    if world > 1:
+        seen = [None] * world
+        dist.all_gather_object(seen, (outputs, plans, out),
+                               group=mesh.host_group())
+        out = dict(out, ranks=[s[2] for s in seen], ranks_agree=all(
+            s[:2] == seen[0][:2] for s in seen))
+    return dict(out, outputs=outputs, plans=plans)
+
+
+def serve_rank_cases(cases: list, device=None) -> list:
+    """``serve_rank(**case)`` for each case in turn (a rank function of
+    ``spawn_tp`` for a caller with several models to serve: each case's
+    engine is released before the next)."""
+    out = []
+    for case in cases:
+        out.append(serve_rank(**case, device=device))
+        if resolve_device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
+    """Run the serving CLI; returns the finished requests' tokens ``{rid:
+    tokens}`` of a single-engine run (at tp > 1, rank 0's; None on the pool
+    path)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tiny-toy")
     ap.add_argument("--smoke", action="store_true")
@@ -215,27 +326,42 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="torch device to serve on (cpu: the plain PyTorch "
                          "path, no kernels)")
     args = ap.parse_args(argv)
-
-    device = resolve_device(args.device)
+    pcfg = PoolConfig.from_args(args)
+    ecfg = EngineConfig.from_args(args, seed=args.seed)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = scale_down(cfg)
-    params = model_lib.init(cfg, seed=args.seed, device=device)
-    pcfg = PoolConfig.from_args(args)
+    rank = 0
+    if ecfg.tp > 1:
+        tp_lib.validate_tp(cfg, ecfg.tp)
+        if pcfg.replicas > 1 or pcfg.fault_plan or args.online:
+            raise ValueError("--tp > 1 serves the offline batch on one "
+                             "engine: no --replicas, --fault-plan or "
+                             "--online")
+        if not (dist.is_available() and dist.is_initialized()):
+            argv = list(sys.argv[1:] if argv is None else argv)
+            # each rank runs this function again, inside the group
+            return mesh.spawn_tp(ecfg.tp, main, argv, device=args.device)
+        rank = dist.get_rank()
+
+    device = resolve_device(args.device)
+    params = model_lib.init(cfg, seed=args.seed, device=device,
+                            shard=(rank, ecfg.tp) if ecfg.tp > 1 else None)
     reqs = make_requests(args.requests, cfg.vocab_size, args.seed)
 
     if pcfg.replicas > 1 or pcfg.fault_plan:
         serve_pool(args, cfg, params, pcfg, reqs, device)
-        return
-    eng = ServeEngine(cfg, params, EngineConfig.from_args(args, seed=args.seed),
-                      device=device)
+        return None
+    eng = ServeEngine(cfg, params, ecfg, device=device)
     if args.online:
         done = serve_online(args, eng, reqs)
     else:
         for r in reqs:
             eng.submit(r)
         done = eng.run()
-    report(args, eng, done, len(reqs))
+    if rank == 0:
+        report(args, eng, done, len(reqs))
+    return {r.rid: tuple(r.output) for r in done}
 
 
 if __name__ == "__main__":

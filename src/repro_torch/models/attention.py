@@ -1,8 +1,15 @@
-"""Attention blocks (port of ``repro.models.attention`` at tp=1): GQA with
-qk-norm and DeepSeek-V2's absorbed MLA, each on the token-packed stream
+"""Attention blocks (port of ``repro.models.attention``): GQA with qk-norm
+and DeepSeek-V2's absorbed MLA, each on the token-packed stream
 (``gqa_packed``, ``mla_packed``) and the legacy step's paths — the
 whole-chunk prefill (``*_full``), the batched decode (``*_decode``) and the
 incremental chunk (``*_prefill_chunk``).
+
+Under tensor parallelism (the packed step, ``distributed.tp``) a rank holds
+its heads: GQA's q/k/v/o and K/V cache, MLA's absorbed per-head
+projections (the latent path and cache are replicated).  Head counts come
+from the local weights' shapes, never from the config, and the output
+projection is ``tp.out_project``, row-parallel under TP and one GEMM over
+the flattened heads otherwise.
 
 The slot caches keep the JAX layout: GQA's ``(N_slots, S, KV, hd)`` K and
 V per layer (plus ``(N_slots, S, KV)`` f32 scale leaves ``k_s``/``v_s`` for
@@ -17,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tp
 from repro_torch.kernels import ops
 from repro_torch.kernels.packed_attention import (block_gather_view,
                                                   kv_bucket_view)
@@ -95,14 +103,6 @@ def _flat_scatter(cache: torch.Tensor, new: torch.Tensor,
     _row_store(cache).index_copy_(0, dst, new.to(cache.dtype))
 
 
-def _out_project(cfg: ModelConfig, p: dict,
-                 out: torch.Tensor) -> torch.Tensor:
-    """einsum("...hk,hkd->...d") as one GEMM over the flattened heads."""
-    lead = out.shape[:-2]
-    return torch.matmul(out.reshape(*lead, -1),
-                        p["wo"].reshape(-1, cfg.d_model))
-
-
 def _write_seq_at(cache: torch.Tensor, new: torch.Tensor,
                   idx: torch.Tensor) -> None:
     """cache (B, S, ...); new (B, s, ...); idx (B,): write row b's s new
@@ -141,7 +141,7 @@ def gqa_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                   "engine and is not ported")
     q, k, v = _qkv(cfg, p, x, positions)
     out = ops.flash_attention(q, k, v, q_offset=q_offset, impl=impl)
-    y = _out_project(cfg, p, out)
+    y = tp.out_project(out, p["wo"])
     return (y, (k, v)) if return_kv else y
 
 
@@ -157,7 +157,7 @@ def gqa_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     _write_at(cache["v"], v_new[:, 0], cache_len)
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
                                cache_len + 1, impl=impl)
-    return _out_project(cfg, p, out)[:, None], cache
+    return tp.out_project(out, p["wo"])[:, None], cache
 
 
 def gqa_prefill_chunk(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -173,7 +173,7 @@ def gqa_prefill_chunk(cfg: ModelConfig, p: dict, x: torch.Tensor,
     _write_seq_at(cache["v"], v_new, cache_len)
     out = ops.flash_attention(q, cache["k"], cache["v"], q_offset=cache_len,
                               impl=impl)
-    return _out_project(cfg, p, out), cache
+    return tp.out_project(out, p["wo"]), cache
 
 
 def gqa_packed(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -208,7 +208,7 @@ def gqa_packed(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                block_tables=block_tables,
                                k_scale=cache.get("k_s"),
                                v_scale=cache.get("v_s"), impl=impl)
-    return _out_project(cfg, p, out)[None], cache
+    return tp.out_project(out, p["wo"])[None], cache
 
 
 def _cache_leaves(cfg: ModelConfig, batch: int, max_len: int,
@@ -237,13 +237,13 @@ def _cache_leaves(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int,
-                   device: torch.device,
-                   kv_dtype: Optional[str] = None) -> dict:
+                   device: torch.device, kv_dtype: Optional[str] = None,
+                   world: int = 1) -> dict:
     """Zeroed (batch, max_len, KV, hd) K and V caches in the model's dtype,
     or, for ``kv_dtype="int8"``, int8 K and V with f32 (batch, max_len, KV)
     scale leaves ``k_s``/``v_s``, each with the spare row of
-    ``_cache_leaves``."""
-    row = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    ``_cache_leaves``; KV / ``world`` heads on a tensor-parallel rank."""
+    row = (cfg.n_kv_heads // world, cfg.resolved_head_dim)
     return _cache_leaves(cfg, batch, max_len, device, {"k": row, "v": row},
                          kv_dtype)
 
@@ -356,7 +356,7 @@ def mla_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q_abs = _mla_q_absorbed(cfg, p, x, positions)
     c_kv, k_rope = _mla_latent(cfg, p, x, positions)
     out_lat = _mla_chunk_attention(cfg, q_abs, c_kv, k_rope, q_offset, impl)
-    y = _out_project(cfg, p, _mla_unabsorb(p, out_lat, x.dtype))
+    y = tp.out_project(_mla_unabsorb(p, out_lat, x.dtype), p["wo"])
     return (y, (c_kv, k_rope)) if return_kv else y
 
 
@@ -376,7 +376,7 @@ def mla_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                 slot, cache_len + 1,
                                 logit_scale=_mla_scale(cfg), impl=impl)
     out = _mla_unabsorb(p, out_lat, x.dtype)
-    return _out_project(cfg, p, out)[:, None], cache
+    return tp.out_project(out, p["wo"])[:, None], cache
 
 
 def mla_prefill_chunk(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -392,7 +392,7 @@ def mla_prefill_chunk(cfg: ModelConfig, p: dict, x: torch.Tensor,
     _write_seq_at(cache["k_rope"], r_new, cache_len)
     out_lat = _mla_chunk_attention(cfg, q_abs, cache["c_kv"],
                                    cache["k_rope"], cache_len, impl)
-    y = _out_project(cfg, p, _mla_unabsorb(p, out_lat, x.dtype))
+    y = tp.out_project(_mla_unabsorb(p, out_lat, x.dtype), p["wo"])
     return y, cache
 
 
@@ -439,17 +439,18 @@ def mla_packed(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                 logit_scale=_mla_scale(cfg), kv_bucket=bucket,
                                 impl=impl)
     out = _mla_unabsorb(p, out_lat, x.dtype)
-    return _out_project(cfg, p, out)[None], cache
+    return tp.out_project(out, p["wo"])[None], cache
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int,
-                   device: torch.device,
-                   kv_dtype: Optional[str] = None) -> dict:
+                   device: torch.device, kv_dtype: Optional[str] = None,
+                   world: int = 1) -> dict:
     """Zeroed latent leaves ``c_kv`` (batch, max_len, rank) and ``k_rope``
     (batch, max_len, rope) in the model's dtype, or, for
     ``kv_dtype="int8"``, int8 with f32 (batch, max_len) scale leaves
     ``c_kv_s``/``k_rope_s``, each with the spare row of
-    ``_cache_leaves``."""
+    ``_cache_leaves``.  The latent is replicated: every tensor-parallel
+    rank (any ``world``) holds all of it."""
     m = cfg.mla
     return _cache_leaves(cfg, batch, max_len, device,
                          {"c_kv": (m.kv_lora_rank,),

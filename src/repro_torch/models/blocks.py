@@ -186,11 +186,12 @@ def block_packed(cfg: ModelConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
 
 def block_init_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, device: torch.device,
-                     kv_dtype: Optional[str] = None) -> dict:
+                     kv_dtype: Optional[str] = None, world: int = 1) -> dict:
     """Attention's K/V (MLA's latent) cache (``kv_dtype`` applies to it
-    only), or a recurrent layer's initial state."""
+    only), or a recurrent layer's initial state; ``world > 1``: a
+    tensor-parallel rank's shard of it."""
     check_spec(spec)
     if spec.mixer != ATTN:
-        return _RECURRENT[spec.mixer][4](cfg, batch, device)
+        return _RECURRENT[spec.mixer][4](cfg, batch, device, world)
     fn = attn.mla_init_cache if cfg.mla is not None else attn.gqa_init_cache
-    return fn(cfg, batch, max_len, device, kv_dtype)
+    return fn(cfg, batch, max_len, device, kv_dtype, world)

@@ -19,12 +19,14 @@ With tied embeddings the head is the embedding's transpose.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.distributed import tp
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.layers import rmsnorm
@@ -61,22 +63,33 @@ def model_defs(cfg: ModelConfig) -> dict:
 
 
 def init(cfg: ModelConfig, seed: int = 0,
-         device: Optional[str | torch.device] = None) -> dict:
+         device: Optional[str | torch.device] = None,
+         shard: Optional[tuple[int, int]] = None) -> dict:
     """Seeded random weights in the JAX init's shapes and scales, drawn on
-    ``device`` (``cuda`` unless the caller asks for another)."""
-    return init_params(model_defs(cfg), seed, resolve_device(device))
+    ``device`` (``cuda`` unless the caller asks for another).  ``shard=(rank,
+    world)`` keeps only a tensor-parallel rank's shard of each leaf
+    (``distributed.tp``): the same values as the full init's, cut as each
+    leaf is drawn, so the peak is the shard plus one full leaf."""
+    cut = None
+    if shard is not None:
+        rank, world = shard
+        cut = functools.partial(tp.cut_param, cfg, rank=rank, world=world)
+    return init_params(model_defs(cfg), seed, resolve_device(device), cut)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Optional[str | torch.device] = None,
-               kv_dtype: Optional[str] = None) -> list:
+               kv_dtype: Optional[str] = None, world: int = 1) -> list:
     """Zeroed per-layer slot caches ``{"k", "v"}: (batch, max_len, KV, hd)``
     (MLA: ``{"c_kv": (batch, max_len, rank), "k_rope": (batch, max_len,
     rope)}``); ``kv_dtype="int8"`` stores int8 values with f32 scale leaves
-    ``<name>_s`` of one scale per row (DESIGN.md §15)."""
+    ``<name>_s`` of one scale per row (DESIGN.md §15).  ``world > 1``
+    allocates a tensor-parallel rank's leaves only, each cut on the axis of
+    ``tp.cache_axes``."""
     check_config(cfg)
     dev = resolve_device(device)
-    return [blocks.block_init_cache(cfg, spec, batch, max_len, dev, kv_dtype)
+    return [blocks.block_init_cache(cfg, spec, batch, max_len, dev, kv_dtype,
+                                    world)
             for spec in cfg.layer_specs()]
 
 

@@ -1,4 +1,4 @@
-"""FFNs (port of ``repro.models.moe`` at tp=1): the dense FFN (SwiGLU, or
+"""FFNs (port of ``repro.models.moe``): the dense FFN (SwiGLU, or
 the ungated GELU MLP of StarCoder2, Minitron and MusicGen) and
 the Mixture-of-Experts FFN with GShard top-k routing and capacity,
 DeepSeek-style shared experts and Arctic's parallel dense residual.
@@ -15,6 +15,12 @@ SwiGLU kernel.  The bf16 casts of the JAX function are made explicitly
 (``torch.einsum`` does not promote), in f32 configurations too: the tokens
 enter the dispatch product and the combine weights the combine product as
 bf16.
+
+Under tensor parallelism (``distributed.tp``) the dense FFN is column- then
+row-parallel: SwiGLU runs on the rank's ``d_ff / tp`` columns and the down
+projection is ``tp.row_parallel``.  The MoE FFN routes replicated, keeps
+the dispatch and combine columns of the rank's experts, runs those and
+psums the combine; its shared and dense-residual FFNs are dense FFNs.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.distributed import tp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import gelu, silu
 from repro_torch.models.param import ParamDef
@@ -68,13 +75,14 @@ def dense_ffn(p: dict, x: torch.Tensor,
     """``(silu(x @ w_gate) * (x @ w_up)) @ w_down``; x: (..., D).  The gate
     and up products and the SiLU·mul go through the SwiGLU kernel.
     Without ``w_gate`` it is ``gelu(x @ w_up) @ w_down``, two GEMMs and an
-    elementwise pass, which JAX too computes outside any Pallas kernel."""
+    elementwise pass, which JAX too computes outside any Pallas kernel.
+    The down projection is ``tp.row_parallel``."""
     if "w_gate" not in p:
-        return torch.matmul(gelu(torch.matmul(x, p["w_up"])), p["w_down"])
+        return tp.row_parallel(gelu(torch.matmul(x, p["w_up"])), p["w_down"])
     lead = x.shape[:-1]
     h = ops.swiglu(x.reshape(-1, x.shape[-1]), p["w_gate"], p["w_up"],
                    impl=impl)
-    return torch.matmul(h, p["w_down"]).reshape(*lead, -1)
+    return tp.row_parallel(h, p["w_down"]).reshape(*lead, -1)
 
 
 def capacity(m: MoEConfig, group_size: int) -> int:
@@ -138,6 +146,13 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         combine = combine + pos_oh.float() * gates[..., k][..., None, None]
         prev = prev + mask.sum(dim=1, keepdim=True)
 
+    ctx = tp.active()
+    if ctx is not None:
+        # the rank's experts: routing was replicated, the expert weights
+        # hold E / tp experts, and the combine becomes a partial sum
+        e_loc = e // ctx.size
+        dispatch = dispatch[:, :, ctx.rank * e_loc:(ctx.rank + 1) * e_loc]
+        combine = combine[:, :, ctx.rank * e_loc:(ctx.rank + 1) * e_loc]
     wdt = torch.promote_types(torch.bfloat16, p["w_gate"].dtype)
     # one token per (expert, group, row): the dispatch sums are exact
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch,
@@ -145,9 +160,9 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     h = silu(torch.einsum("egcd,edf->egcf", expert_in, p["w_gate"])) * \
         torch.einsum("egcd,edf->egcf", expert_in, p["w_up"])
     expert_out = torch.einsum("egcf,efd->egcd", h, p["w_down"])
-    y = torch.einsum("gsec,egcd->gsd",
-                     combine.to(torch.bfloat16).to(expert_out.dtype),
-                     expert_out)
+    y = tp.psum(torch.einsum("gsec,egcd->gsd",
+                             combine.to(torch.bfloat16).to(expert_out.dtype),
+                             expert_out))
     y = y.reshape(g * sg, d)[:t].reshape(b, s, d).to(x.dtype)
 
     if m.num_shared_experts:

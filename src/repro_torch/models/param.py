@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import zlib
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -96,17 +96,25 @@ def _materialize(d: ParamDef, gen: torch.Generator,
     return w.to(dt)
 
 
-def init_params(tree, seed: int, device: torch.device) -> dict:
+def init_params(tree, seed: int, device: torch.device,
+                cut: Optional[Callable] = None) -> dict:
     """Materialise every leaf on ``device``; each leaf's generator is seeded
     from (seed, crc32 of its path), so a leaf does not depend on the order
     or number of the others; slice i of a ``per_slice`` leaf from (seed,
-    crc32 of its path + "/i"), written into the leaf in place."""
+    crc32 of its path + "/i"), written into the leaf in place.
+    ``cut(path, leaf)``, when given, replaces each leaf as soon as it is
+    drawn (a tensor-parallel rank keeps its shard: the full leaf is freed
+    before the next one is drawn)."""
     def gen_for(path) -> torch.Generator:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed * 1_000_003 + zlib.crc32("/".join(path).encode()))
         return gen
 
     def leaf(path, d: ParamDef):
+        full = drawn(path, d)
+        return full if cut is None else cut(path, full)
+
+    def drawn(path, d: ParamDef):
         if not d.per_slice:
             return _materialize(d, gen_for(path), device)
         out = torch.empty(d.shape, dtype=DTYPES[d.dtype], device=device)

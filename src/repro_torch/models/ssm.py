@@ -1,5 +1,5 @@
 """Mamba-1 selective-SSM mixer, Jamba's sequence mixer (port of
-``repro.models.ssm`` at tp=1).
+``repro.models.ssm``).
 
 A layer's state is ``{"conv": (B, K-1, d_in) model dtype, "ssm": (B, d_in,
 N) f32}``: the last K-1 conv inputs and the scan state.  ``mamba_full``
@@ -7,6 +7,11 @@ N) f32}``: the last K-1 conv inputs and the scan state.  ``mamba_full``
 ``ops.ssm_scan`` (the CUDA kernel on the card); ``mamba_decode`` and
 ``mamba_packed`` step the state one token at a time with plain ops, as the
 JAX package does with ``ssm_step_ref``.
+
+Under tensor parallelism (``distributed.tp``) a rank holds a contiguous
+block of the inner channels ``d_in``: its halves of ``w_in``'s x and z
+columns, its rows of ``w_x`` (so the dt/B/C projection is psum'd to the
+full width) and ``w_out`` (row-parallel), and its channels of the state.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import MambaConfig, ModelConfig
+from repro_torch.distributed import tp
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssm_scan import ssm_step_ref
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_step,
@@ -55,9 +61,10 @@ def _pre(p: dict, x: torch.Tensor):
 
 def _ssm_params(cfg: ModelConfig, p: dict, xc: torch.Tensor):
     """dt = softplus(f32(dt_low @ w_dt) + dt_bias) in f32; b and c stay in
-    the model's dtype; a = -exp(a_log) in f32."""
+    the model's dtype; a = -exp(a_log) in f32.  The dt/B/C projection sees
+    the full inner width: a psum under tensor parallelism."""
     _, dt_rank, n = _dims(cfg)
-    proj = torch.matmul(xc, p["w_x"])
+    proj = tp.psum(torch.matmul(xc, p["w_x"]))
     dt_low, b, c = proj.split([dt_rank, n, n], dim=-1)
     dt = softplus(torch.matmul(dt_low, p["w_dt"]).float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
@@ -139,13 +146,16 @@ def mamba_packed(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
         ssm_c.index_copy_(0, s_i, torch.where(token_active[t], h1, h0))
         ys.append(y_t[0])
     y = torch.stack(ys)[None] * silu(z)
-    return torch.matmul(y, p["w_out"]), cache
+    return tp.row_parallel(y, p["w_out"]), cache
 
 
-def mamba_init_cache(cfg: ModelConfig, batch: int,
-                     device: torch.device) -> dict:
+def mamba_init_cache(cfg: ModelConfig, batch: int, device: torch.device,
+                     world: int = 1) -> dict:
+    """The zero state; d_in / ``world`` channels on a tensor-parallel
+    rank."""
     mc = cfg.mamba or MambaConfig()
     d_in, _, n = _dims(cfg)
+    d_in //= world
     return {"conv": torch.zeros((batch, mc.d_conv - 1, d_in),
                                 dtype=DTYPES[cfg.dtype], device=device),
             "ssm": torch.zeros((batch, d_in, n), dtype=torch.float32,

@@ -1,5 +1,5 @@
 """xLSTM blocks, the mLSTM (matrix memory) and sLSTM (scalar memory)
-mixers of xLSTM-1.3B (port of ``repro.models.xlstm`` at tp=1; arXiv
+mixers of xLSTM-1.3B (port of ``repro.models.xlstm``; arXiv
 2405.04517).
 
 A layer's state is the conv history ``conv`` (B, K-1, width) in the model
@@ -13,6 +13,16 @@ as JAX's default does; the chunkwise-parallel form (``mlstm_chunkwise``)
 is kept beside it and held to JAX's, but nothing on the serving path calls
 it.  The packed step advances each token's slot state one token at a time
 and commits it only for active tokens, as ``mamba_packed`` does.
+
+Under tensor parallelism (``distributed.tp``, the packed step) the mLSTM
+is sharded along heads (contiguous ``d_in`` blocks): a rank holds its
+heads' q/k/v, conv channels and (c, n, m); the i/f gates contract over
+the full ``d_in``, so their projection is psum'd, then cut back to the
+rank's heads; the out-norm reduces over the full width
+(``tp.rmsnorm_sharded``) and ``w_down`` is row-parallel.  The packed step
+computes the gates once over the stream, so it psums once per layer and
+iteration where JAX psums per token.  The sLSTM's recurrence runs
+replicated; only its GLU FFN is column/row-parallel.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, XLSTMConfig
+from repro_torch.distributed import tp
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_step,
                                        conv_packed, conv_tail, rmsnorm,
                                        silu)
@@ -69,16 +80,16 @@ def _mlstm_qkv(cfg: ModelConfig, p: dict, xc: torch.Tensor,
     """Conv features ``xc`` (after SiLU) and the raw stream ``xs``, each
     (..., d_in) -> q, k, v (..., H, dh) and the gates (..., H) in f32: the
     log input gate and the log-sigmoid forget gate."""
-    _, h, dh = _mlstm_dims(cfg)
+    h, dh = p["w_q"].shape[:2]        # the local heads under TP
     xch = xc.reshape(*xc.shape[:-1], h, dh)
     xsh = xs.reshape(*xs.shape[:-1], h, dh)
     q = torch.einsum("...hk,hkj->...hj", xch, p["w_q"])
     k = torch.einsum("...hk,hkj->...hj", xch, p["w_k"])
     v = torch.einsum("...hk,hkj->...hj", xsh, p["w_v"])
     x32 = xc.float()
-    ig = torch.matmul(x32, p["w_i"]) + p["b_i"]
-    fg = torch.nn.functional.logsigmoid(torch.matmul(x32, p["w_f"])
-                                        + p["b_f"])
+    ig = tp.shard_block(tp.psum(torch.matmul(x32, p["w_i"])) + p["b_i"])
+    fg = torch.nn.functional.logsigmoid(tp.shard_block(
+        tp.psum(torch.matmul(x32, p["w_f"])) + p["b_f"]))
     return q, k, v, ig, fg
 
 
@@ -227,8 +238,9 @@ def _mlstm_out(cfg: ModelConfig, p: dict, y: torch.Tensor,
                z: torch.Tensor) -> torch.Tensor:
     """The output path: out-norm, the SiLU(z) gate and the down
     projection; y and z (..., d_in)."""
-    return torch.matmul(rmsnorm(y, p["out_norm"], cfg.norm_eps) * silu(z),
-                        p["w_down"])
+    return tp.row_parallel(
+        tp.rmsnorm_sharded(y, p["out_norm"], cfg.norm_eps) * silu(z),
+        p["w_down"])
 
 
 def mlstm_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -283,8 +295,8 @@ def mlstm_packed(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     ``mlstm_step_ref``'s f32 casts and query scale) run once over the
     stream, where JAX computes them token by token.  Indices stay on the
     device: no sync."""
-    d_in = _mlstm_dims(cfg)[0]
     xs, z = torch.matmul(x, p["w_up"]).chunk(2, dim=-1)   # (1, T, d_in)
+    d_in = xs.shape[-1]
     slots = token_slot.long()
     xc = conv_packed(cache["conv"], xs[0], p["conv_w"], p["conv_b"],
                      slots, token_active)
@@ -310,9 +322,12 @@ def mlstm_packed(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     return _mlstm_out(cfg, p, y, z), cache
 
 
-def mlstm_init_cache(cfg: ModelConfig, batch: int,
-                     device: torch.device) -> dict:
+def mlstm_init_cache(cfg: ModelConfig, batch: int, device: torch.device,
+                     world: int = 1) -> dict:
+    """The initial state; d_in / ``world`` channels and H / ``world``
+    heads on a tensor-parallel rank."""
     d_in, h, dh = _mlstm_dims(cfg)
+    d_in, h = d_in // world, h // world
     f32 = dict(dtype=torch.float32, device=device)
     return {"conv": torch.zeros((batch, _xc(cfg).conv_kernel - 1, d_in),
                                 dtype=DTYPES[cfg.dtype], device=device),
@@ -383,7 +398,7 @@ def _slstm_out(cfg: ModelConfig, p: dict, ys: torch.Tensor) -> torch.Tensor:
     """The out-norm and the post up/down GLU FFN."""
     up = torch.matmul(rmsnorm(ys, p["out_norm"], cfg.norm_eps), p["w_ffn_up"])
     u, g = up.chunk(2, dim=-1)
-    return torch.matmul(u * silu(g), p["w_ffn_down"])
+    return tp.row_parallel(u * silu(g), p["w_ffn_down"])
 
 
 def slstm_full(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -447,8 +462,10 @@ def slstm_packed(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
     return _slstm_out(cfg, p, torch.stack(ys)[None]), cache
 
 
-def slstm_init_cache(cfg: ModelConfig, batch: int,
-                     device: torch.device) -> dict:
+def slstm_init_cache(cfg: ModelConfig, batch: int, device: torch.device,
+                     world: int = 1) -> dict:
+    """The initial state, replicated on every tensor-parallel rank (any
+    ``world``)."""
     d, dt = cfg.d_model, DTYPES[cfg.dtype]
     f32 = dict(dtype=torch.float32, device=device)
     return {"conv": torch.zeros((batch, _xc(cfg).slstm_conv_kernel - 1, d),

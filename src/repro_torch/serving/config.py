@@ -1,16 +1,16 @@
 """Engine configuration: the port's ``EngineConfig``, with the same fields
 as ``repro.serving.config.EngineConfig``.
 
-The port serves at tp=1 on two steps: the packed step, with native or
-int8 KV (``kv_dtype``), with or without prefix caching, with the async
-pipeline (``async_depth``, DESIGN.md §10), speculative decoding
-(``spec_k``, ``drafter``, §13) and stochastic sampling (``temperature``,
-``top_k``); and the legacy step (``step_mode="legacy"``), with incremental
-or recompute prefill (``prefill_mode``; recompute implies the legacy step,
-as in JAX), greedy and lock-step.  What the JAX config refuses raises
-``ValueError``; tensor parallelism, which the port does not implement yet,
-raises ``NotImplementedError`` naming the ROADMAP item that brings it, so
-a configuration never silently runs something other than what it says.
+The port serves on two steps: the packed step, with native or int8 KV
+(``kv_dtype``), with or without prefix caching, with the async pipeline
+(``async_depth``, DESIGN.md §10), speculative decoding (``spec_k``,
+``drafter``, §13), stochastic sampling (``temperature``, ``top_k``) and
+tensor parallelism (``tp``, §11: one process per rank, see
+``launch.mesh``); and the legacy step (``step_mode="legacy"``), with
+incremental or recompute prefill (``prefill_mode``; recompute implies the
+legacy step, as in JAX), greedy, lock-step and at tp=1.  What the JAX
+config refuses raises ``ValueError``, so a configuration never silently
+runs something other than what it says.
 ``async_depth=None`` resolves as in JAX: 1 on the packed step, 0 on the
 legacy step.
 
@@ -91,8 +91,6 @@ class EngineConfig:
                     (self.spec_k > 0, "speculative decoding")):
                 if refused:
                     raise ValueError(f"{what} requires the packed step")
-        if self.tp != 1:
-            raise NotImplementedError("tensor parallelism is ROADMAP A11")
         if self.kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype {self.kv_dtype!r} (bf16 or int8)")
         if self.spec_k >= self.max_len:
@@ -167,8 +165,8 @@ class EngineConfig:
                              "sampled tokens (DESIGN.md §10); 0 = eager "
                              "lock-step; default: 1 packed / 0 legacy")
         ap.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree (DESIGN.md §11); the "
-                             "port serves at 1 (ROADMAP A11)")
+                        help="tensor-parallel degree (DESIGN.md §11): N "
+                             "ranks, one card each (packed step only)")
         ap.add_argument("--no-kv-bucketing", action="store_true",
                         help="sweep max_len every iteration instead of the "
                              "KV-length bucket (DESIGN.md §9; A/B baseline)")

@@ -1,5 +1,5 @@
-"""Serving engine (port of ``repro.serving.engine.ServeEngine`` at tp=1):
-the token-packed single-dispatch step in all four KV modes — contiguous or
+"""Serving engine (port of ``repro.serving.engine.ServeEngine``): the
+token-packed single-dispatch step in all four KV modes — contiguous or
 block-table caches with prefix caching (DESIGN.md §12), each with native or
 int8 KV (§15) — with the async pipeline (§10), speculative decoding (§13)
 and greedy or stochastic sampling; and the legacy step kept for A/B
@@ -74,6 +74,21 @@ KV-length bucket (DESIGN.md §9).
 Both steps run eagerly; capturing the packed step in a CUDA graph per (T
 bucket, kv bucket) is a speed follow-up (ROADMAP B, item 3).
 
+**Tensor parallelism** (DESIGN.md §11; ``config.tp > 1``, packed step
+only).  The engine is one rank of a ``torch.distributed`` group of tp
+ranks (``launch.mesh``): every rank runs this same host loop on the same
+requests, holds its shard of the weights (``distributed.tp``; full params
+are cut on construction, params drawn sharded pass through) and of the KV
+/ state cache (only its leaves are allocated), and runs the forward inside
+``tp.tp_ctx`` with the launch's nano-batch split, so the row-parallel
+all-reduces go out per nano-batch group.  Logits, samples, the token ring
+and ``cache_len`` are replicated: the feedback loop closes with no
+collective.  The one host decision that depends on timing, which in-flight
+iterations have landed (``async_harvest``), is agreed over a host-side
+gloo group: every rank retires the least count ready on any rank, so the
+ranks plan the same batches (JAX has one controller, and a sharded result
+is ready when every shard is).  tp = 1 creates no group.
+
 **Replica pool** (DESIGN.md §14).  ``evacuate`` hands every unfinished
 request back, checkpointed for re-dispatch on another replica, and
 ``_clock`` is the source of the commit stamps, which the pool points at
@@ -88,12 +103,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.distributed import tp as tp_lib
+from repro_torch.launch import mesh
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models import model as model_lib
+from repro_torch.models.param import DTYPES
 from repro_torch.serving import draft as draft_lib
 from repro_torch.serving import sampling
 from repro_torch.serving.config import EngineConfig
@@ -147,7 +166,8 @@ class EngineStats:
     kv_bucket_hist: dict[int, int] = dataclasses.field(default_factory=dict)
     # sum of launch_tokens x kv_bucket: the attention score work launched
     packed_attn_kv_rows: int = 0
-    # modeled TP collective bytes (DESIGN.md §11): 0, the port serves at tp=1
+    # modeled TP collective wire bytes (DESIGN.md §11,
+    # tp.collective_bytes_per_iter); 0 at tp=1
     tp_collective_bytes: int = 0
     # speculative decoding (§13), counted at retire (the device's truth):
     # drafts launched, drafts accepted, verify segments retired
@@ -243,16 +263,33 @@ class ServeEngine:
                  device: Optional[str | torch.device] = None):
         """``ServeEngine(cfg, params, EngineConfig(...))`` runs on ``cuda``
         unless ``device`` names another; ``params`` must already live
-        there (``model.init(cfg, device=...)``)."""
+        there (``model.init(cfg, device=...)``).  With ``config.tp > 1``
+        the caller is one rank of a tp-rank process group and ``device``
+        its card (or the CPU); ``params`` may be full or this rank's
+        shard."""
+        config = config if config is not None else EngineConfig()
+        self.tp = int(config.tp)
+        if self.tp > 1:
+            # before anything else: a width that cannot shard raises even
+            # without a group
+            tp_lib.validate_tp(cfg, self.tp)
         self.device = resolve_device(device)
         model_lib.check_config(cfg)
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, the "
                              f"engine on {self.device}")
-        config = config if config is not None else EngineConfig()
         self.config = config
         self.cfg = cfg
+        self._group = self._host_group = None
+        if self.tp > 1:
+            self._group = mesh.make_tp_group(self.tp, self.device)
+            self._host_group = mesh.host_group()
+            params = tp_lib.shard_params(cfg, params,
+                                         dist.get_rank(self._group), self.tp)
         self.params = params
+        # modeled collective wire bytes per launched token (linear in T)
+        self._tp_iter_bytes = tp_lib.collective_bytes_per_iter(
+            cfg, 1, self.tp, DTYPES[cfg.dtype].itemsize)
         self.recurrent = any(spec.mixer != ATTN
                              for spec in cfg.layer_specs())
         if self.recurrent:
@@ -335,7 +372,8 @@ class ServeEngine:
         dev = self.device
         self.cache = model_lib.init_cache(cfg, self.max_slots, self.max_len,
                                           device=dev,
-                                          kv_dtype=self._cache_kv_dtype)
+                                          kv_dtype=self._cache_kv_dtype,
+                                          world=self.tp)
         self.cache_len = torch.zeros((self.max_slots,), dtype=torch.int32,
                                      device=dev)
         # device-resident sampled-token feedback, the per-slot token ring:
@@ -465,7 +503,10 @@ class ServeEngine:
         if self.step_mode == "packed":
             self._ring.append(self._launch_packed(plan))
             finished: list[Request] = []
-            if self.async_harvest:
+            if self.async_harvest and self.tp > 1:
+                for _ in range(self._agreed_ready()):
+                    finished += self._retire_oldest()
+            elif self.async_harvest:
                 while self._ring and self._ready(self._ring[0].done):
                     finished += self._retire_oldest()
             while len(self._ring) > self.async_depth:
@@ -534,6 +575,18 @@ class ServeEngine:
     @staticmethod
     def _ready(done: Optional[torch.cuda.Event]) -> bool:
         return done is None or done.query()
+
+    def _agreed_ready(self) -> int:
+        """Under TP: the count of oldest in-flight iterations whose payload
+        has landed on every rank (the least of the ranks' counts, over the
+        host group: no device sync), so every rank retires the same ones
+        and plans the same next batch."""
+        n = 0
+        while n < len(self._ring) and self._ready(self._ring[n].done):
+            n += 1
+        count = torch.tensor([n], dtype=torch.int64)
+        dist.all_reduce(count, op=dist.ReduceOp.MIN, group=self._host_group)
+        return int(count)
 
     def _fetch(self, host: torch.Tensor,
                done: Optional[torch.cuda.Event]) -> np.ndarray:
@@ -676,6 +729,9 @@ class ServeEngine:
         self.stats.prefill_tokens += packed.tokens - n_decode * w
         self.stats.prefill_model_tokens += packed.tokens - n_decode * w
         self.stats.packed_pad_tokens += packed.padding
+        if self.tp > 1:
+            self.stats.tp_collective_bytes += \
+                packed.launch_tokens * self._tp_iter_bytes
         if self._cache_kv_dtype is not None:
             # every real token scatters one quantized row per layer
             self.stats.kv_quant_bytes_saved += packed.tokens * \
@@ -697,15 +753,16 @@ class ServeEngine:
         host_block = np.concatenate(parts)
         t_disp = time.perf_counter()
         self.stats.host_time += t_disp - t_host
-        host, done = self._stage(self._packed_core(host_block, t_total,
-                                                   kv_bucket, n_copy_rows))
+        host, done = self._stage(self._packed_core(
+            host_block, t_total, kv_bucket, n_copy_rows, packed.nano.sizes))
         self.stats.dispatch_time += time.perf_counter() - t_disp
         self.stats.model_dispatches += 1
         return _InFlight(plan=plan, sample_at=sample_at, host=host,
                          done=done)
 
     def _packed_core(self, host_block: np.ndarray, t_total: int,
-                     kv_bucket: int, n_copy_rows: int) -> torch.Tensor:
+                     kv_bucket: int, n_copy_rows: int,
+                     nano: tuple[int, ...]) -> torch.Tensor:
         """The whole iteration on the device: apply the queued block copies
         (prefix mode), reset reused slots' recurrent state, put the verify
         segments at their true positions (``cache_len + j``; under prefix
@@ -713,8 +770,10 @@ class ServeEngine:
         the decode placeholders from the ring, run the packed forward,
         sample, accept each verify segment's longest matching draft prefix,
         advance ``cache_len`` (verify slots by the accepted count only: the
-        rollback) and write the samples into the ring.  Returns a new
-        payload tensor, ring ‖ accept_len ``(max_slots, W + 1)``."""
+        rollback) and write the samples into the ring.  Under TP the
+        forward runs in ``tp.tp_ctx`` with the launch's nano-batch split
+        ``nano``.  Returns a new payload tensor, ring ‖ accept_len
+        ``(max_slots, W + 1)``."""
         block = self._upload(host_block)
         n, w = self.max_slots, self.spec_k + 1
         n_meta = len(_META_ROWS) * t_total
@@ -760,10 +819,11 @@ class ServeEngine:
             col = torch.clamp(pos // bs, max=self._nb_cols - 1).long()
             vdst = block_tables[slot.long(), col] * bs + pos % bs
             token_dst = torch.where(is_verify & active, vdst, token_dst)
-        logits, self.cache = model_lib.forward_packed(
-            self.cfg, self.params, self._model_tokens(toks), self.cache,
-            slot, pos, wpos, active, kv_bucket=kv_bucket,
-            token_dst=token_dst, block_tables=block_tables)
+        with tp_lib.tp_ctx(self._group, nano):
+            logits, self.cache = model_lib.forward_packed(
+                self.cfg, self.params, self._model_tokens(toks), self.cache,
+                slot, pos, wpos, active, kv_bucket=kv_bucket,
+                token_dst=token_dst, block_tables=block_tables)
         if self.temperature > 0:
             next_tok = self._sample(logits[0], pos, rid, sample_slot,
                                     verify_idx)

@@ -855,6 +855,19 @@ def test_swiglu_bf16_at_qwen3_8b_widths(cuda, m):
                                **_tol("bfloat16"))
 
 
+@pytest.mark.parametrize("k,n", [(4096, 6144), (5120, 6144), (5120, 1536)])
+def test_swiglu_bf16_at_tp2_shard_widths(cuda, k, n):
+    """The column shards a rank launches at tp = 2: Qwen3-8B's FFN, and
+    DeepSeek-V2's dense FFN and shared experts, over 256 rows."""
+    x, wg, wu = _swiglu_args(cuda, 256, k, n, seed=n)
+    first = swiglu_cuda(x, wg, wu)
+    again = swiglu_cuda(x, wg, wu)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    torch.testing.assert_close(first.float(), swiglu_ref(x, wg, wu).float(),
+                               **_tol("bfloat16"))
+
+
 def test_swiglu_wrapper_raises_instead_of_falling_back(cuda):
     """bf16 K or N not a multiple of 8, a misaligned base and K = 0 raise,
     and nothing launches."""
@@ -1594,3 +1607,96 @@ def test_int8_hybrid_engine_on_card_matches_cpu(cuda):
             before
         assert (quant > 0) == (dev == "cuda")
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) == 6
+
+
+# ---- tensor-parallel packed serving (DESIGN.md §11) on the one card -------
+def _tp_configs():
+    """f32 configs whose shards the kernels take at tp = 2: GQA at 8 / 2
+    heads of 128 (4 / 1 a rank: group 4, as Qwen3-8B's shard), and MLA at
+    128 heads (64 a rank, what the MLA kernel is built for)."""
+    gqa = dataclasses.replace(
+        scale_down(get_config("qwen3-8b"), d_model=256, n_heads=8),
+        n_kv_heads=2, head_dim=128, dtype="float32")
+    return {"gqa": gqa,
+            "mla": dataclasses.replace(_mla_small_config(), n_heads=128)}
+
+
+@pytest.mark.parametrize("arch", ["gqa", "mla"])
+def test_tp2_gloo_ranks_on_one_card_match_tp1(cuda, arch):
+    """Two gloo ranks on the one card (NCCL takes one rank per card) serve
+    at tp = 2 the tokens the tp = 1 engine serves on the full weights, f32,
+    at async depth 1 with harvesting on: both ranks the same tokens and
+    plans, one dispatch and one sync per iteration, and their attention
+    kernel (at its shard's heads) and SwiGLU (at d_ff / 2) launched."""
+    from repro_torch.launch import mesh, serve
+    cfg = _tp_configs()[arch]
+    rng = np.random.default_rng(6)
+    waves = [[(i, [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                 int(rng.integers(3, 40)))],
+               6) for i in range(6)]]
+    kw = dict(max_slots=2, max_len=64, discrete_sizes=(16, 8),
+              avg_decode_len=4)
+    one = serve.serve_rank(cfg, EngineConfig(**kw), waves, seed=0,
+                           device="cuda")
+    case = dict(cfg=cfg, config=EngineConfig(tp=2, **kw), waves=waves,
+                seed=0)
+    two, = mesh.spawn_tp(2, serve.serve_rank_cases, [case], device="cuda",
+                         backend="gloo", timeout_s=300)
+    assert two["ranks_agree"]
+    assert two["outputs"] == one["outputs"] and len(one["outputs"]) == 6
+    kernel = "mla_attention" if arch == "mla" else "packed_attention"
+    for r in two["ranks"]:
+        assert r["stats"]["dispatches_per_iter"] == 1.0
+        assert r["stats"]["syncs_per_iter"] == 1.0
+        assert r["launches"][kernel] > 0 and r["launches"]["swiglu"] > 0
+    heads = "mixer/wuq" if arch == "mla" else "mixer/wq"
+    assert two["ranks"][0]["shapes"][heads][1] == cfg.n_heads // 2
+
+
+def test_tp_nccl_needs_a_card_per_rank(cuda):
+    """nccl with more ranks than cards raises; nothing turns to gloo."""
+    from repro_torch.launch import mesh, serve
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match="nccl"):
+        mesh.spawn_tp(n + 1, serve.serve_rank_cases, [], device="cuda")
+
+
+def test_tp_one_rank_nccl_row_parallel_and_async_wait(cuda, tmp_path):
+    """A one-rank NCCL group: ``tp.row_parallel`` in two nano-batch groups
+    equals the plain product (bf16, one output rounding), and an
+    all-reduce issued behind a ~0.1 s device spin returns from ``wait()``
+    before the spin ends: NCCL's wait is a stream wait, not a host
+    block."""
+    import os
+    import time
+    import torch.distributed as dist
+    from repro_torch.distributed import tp
+    from repro_torch.launch import mesh
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        group = mesh.make_tp_group(1, cuda)
+        g = torch.Generator(device=cuda).manual_seed(5)
+        x = torch.randn(64, 512, device=cuda, generator=g).to(torch.bfloat16)
+        w = (torch.randn(512, 256, device=cuda, generator=g)
+             / 512 ** 0.5).to(torch.bfloat16)
+        with tp.tp_ctx(group, nano=(32, 32)):
+            got = tp.row_parallel(x, w)
+        want = torch.matmul(x, w)
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-3,
+                                   rtol=1e-2)
+        buf = torch.ones(1024, device=cuda)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(200_000_000)
+        work = dist.all_reduce(buf, async_op=True)
+        t1 = time.perf_counter()
+        work.wait()
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        assert t2 - t1 < 0.2 * (t3 - t0)
+        assert float(buf[0]) == 1.0
+    finally:
+        dist.destroy_process_group()

@@ -20,6 +20,7 @@ from repro.serving.engine import ServeEngine as JaxServeEngine
 from repro.serving import sampling as jax_sampling
 from repro.serving.request import Request as JaxRequest
 from repro_torch.configs import get_config
+from repro_torch.models import model as torch_model
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serving import sampling
 from repro_torch.serving.config import EngineConfig
@@ -93,7 +94,8 @@ def test_kv_bytes_per_token_from_cache_shapes():
 @pytest.mark.parametrize("kw,exc", [
     # the legacy step has no async pipeline and no speculation
     (dict(async_depth=1, step_mode="legacy"), ValueError),
-    (dict(tp=2), NotImplementedError),
+    # tp > 1 needs a process group of tp ranks (none here)
+    (dict(tp=2), RuntimeError),
     (dict(drafter="nope"), ValueError),
     # top-k sampling needs temperature > 0, and top_k >= 1
     (dict(top_k=5), ValueError),
@@ -109,10 +111,13 @@ def test_kv_bytes_per_token_from_cache_shapes():
     (dict(tp=0), ValueError),
 ])
 def test_config_rejects_unported_features(kw, exc):
-    """Unported values (tensor parallelism) raise NotImplementedError;
-    values and combinations the JAX config refuses raise ValueError."""
+    """Values and combinations the JAX config refuses raise ValueError when
+    the config is built; tp > 1 without a process group of tp ranks raises
+    RuntimeError when the engine is built."""
+    cfg = get_config("tiny-toy")
     with pytest.raises(exc):
-        EngineConfig(**kw)
+        ServeEngine(cfg, torch_model.init(cfg, device="cpu"),
+                    EngineConfig(**kw), device="cpu")
 
 
 def test_config_step_modes():

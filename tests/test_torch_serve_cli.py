@@ -68,9 +68,14 @@ def test_cli_count_lines_match_jax(case, capsys, monkeypatch):
 
 
 def test_cli_refuses_what_the_port_refuses():
-    """tp > 1 is ROADMAP A11; the JAX attention variants are refused."""
-    with pytest.raises(NotImplementedError):
-        serve.main(BASE + ["--tp", "2", "--device", "cpu"])
+    """tp > 1 serves the offline batch on one engine (a pool of tp > 1
+    replicas and online arrivals are not ported); the JAX attention
+    variants are refused."""
+    with pytest.raises(ValueError, match="--tp"):
+        serve.main(BASE + ["--tp", "2", "--replicas", "2", "--device",
+                           "cpu"])
+    with pytest.raises(ValueError, match="--tp"):
+        serve.main(BASE + ["--tp", "2", "--online", "--device", "cpu"])
     with pytest.raises(ValueError):
         serve.main(BASE + ["--attn-fast", "--device", "cpu"])
 
