@@ -57,6 +57,31 @@ Phases (any failure exits non-zero; no phase is caught):
                the sweep's minimum falls below the two roles back to back.
                Each of the two is launched once from 0 counts, through its
                ``ops`` entry; no serve phase may launch them.
+     planner — the NanoFlow planner (``repro_torch.core``: cost model,
+               op pipeline, autosearch).  Checked: the paper's numbers
+               through the port (Table 2's GEMM GFLOPs and network row
+               for LLaMA-2-70B on 8 x A100-80G at B_dense 2048, Eq. 9
+               within 5%, compute-bound on splitwise, lmsys and sharegpt);
+               autosearch on the H100 entry for Qwen3-8B on one card and
+               LLaMA-2-70B, Arctic and DeepSeek-V2 on eight, at
+               Workload(512, 1024) and each model's own dense batch and
+               2048 tokens: the unit budget and each kind's bandwidth
+               budget kept at every event, never slower than the
+               sequential schedule, the modelled tok/s per card within
+               Eq. 9's; each ``Schedule.summary()`` on a line.  Printed,
+               not gated: the H100 entry (989 TFLOP/s, 3352 GB/s,
+               data-sheet constants) against the card on one Qwen3-8B
+               layer at the serve phase's 256-token dense batch and its
+               workload (mean prompt, 32 new tokens): the cost model's
+               time per op class beside the port's own ops timed as the
+               kernels are (KQV and O as the layer's ``torch.matmul``s,
+               GEMV as decode attention over the model's resident rows at
+               its mean context, UGD as SwiGLU + the ``w_down`` matmul),
+               their ratio and achieved rates; the measured times fed to
+               ``build_nanoflow_pipeline`` / ``_greedy_units``
+               (``autosearch.schedule_profiles``): nano counts, iteration
+               time and UGD's unit share beside the overlap phase's best
+               ``gemm_fraction``.
   4. forward — ``forward_packed`` at full width, 4 layers, through the
                kernels and through the plain versions: logits must agree.
   5. serve   — Qwen3-8B at full width and all 36 layers (seeded random bf16
@@ -362,6 +387,20 @@ MLA_LAYERS = 2          # of 60: layer 0 (dense FFN) and 1 (MoE), ~5.4B
 TP = 2
 TP_LAYERS = 2           # the phase's share of the 1200 s limit kept small
 NCCL_SPIN_CYCLES = 200_000_000
+# the planner phase: the paper's Table 2 (LLaMA-2-70B on 8 x A100-80G at
+# B_dense 2048, Workload(512, 1024)): GEMM GFLOPs, its network row (GB, ms),
+# each within 1.0, and Eq. 9's tok/s within 5%
+PAPER_GFLOPS = {"GEMM-KQV": 27487.8, "GEMM-O": 21990.2,
+                "GEMM-UG": 153931.6, "GEMM-D": 76965.8}
+PAPER_NET = (75.2, 31.33)
+PAPER_EQ9 = 17828
+# autosearch on the H100 entry: (model, cards), each at the model's own
+# dense batch and at Table 2's 2048 tokens
+PLANNER_CASES = (("qwen3-8b", 1), (LLAMA, 8), (ARCTIC, 8), (DEEPSEEK, 8))
+# the H100 entry against the card: one Qwen3-8B layer at the serve phase's
+# dense batch (the kernel table's SwiGLU shape) and its new tokens
+PLANNER_T = 256
+SERVE_NEW_TOKENS = 32   # each serve phase request's max_new_tokens
 # absorbed MLA's latent attention: source, the TPU kernel it replaces (the
 # packed-attention Pallas kernel in its KV = 1, d_v != d_qk form)
 MLA = (f"{_CSRC}/mla_attention.cu", f"{_TPU_PA}:135")
@@ -1100,7 +1139,7 @@ def phase_overlap(torch, cfg, timer, bw, peak) -> tuple[dict, int]:
                 max_abs_err_f32=max(errs[torch.float32]), ms=ms,
                 plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=lib_ms), launches
+                library_ms=lib_ms, best_gemm_fraction=best[0]), launches
 
 
 def group_configs():
@@ -1450,6 +1489,164 @@ def phase_swiglu(torch, cfg, timer, bw, peak) -> dict:
     return record
 
 
+def worst_load(pipe) -> float:
+    """The largest execution-unit share, or one kind's summed rate, that a
+    schedule has in flight at any event (both budgets are 1.0)."""
+    from repro_torch.core.autosearch import efficiency
+    nodes = list(pipe.nodes.values())
+    worst = 0.0
+    for t0 in sorted({n.start for n in nodes} | {n.end for n in nodes}):
+        live = [n for n in nodes if n.start <= t0 < n.end]
+        worst = max(worst, sum(n.units for n in live), *(
+            sum(efficiency(n.kind, n.units) for n in live if n.kind == kind)
+            for kind in ("compute", "memory", "network")))
+    return worst
+
+
+def planner_checks() -> None:
+    """The paper's published numbers through the port's cost model, then
+    autosearch on the H100 entry (``PLANNER_CASES``): budgets, no slower
+    than sequential, modelled throughput within Eq. 9."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import autosearch as asrch
+    from repro_torch.core import costmodel as cm
+    llama = get_config(LLAMA)
+    w = cm.Workload(512, 1024)
+    rows = cm.table2(llama, w, cm.A100_80G, 8, bdense=2048)
+    by_op = {r["op"]: r for r in rows}
+    net = (sum(r["net_gb"] for r in rows), sum(r["t_net_ms"] for r in rows))
+    ms = cm.model_stats(llama)
+    eq9 = cm.optimal_throughput(cm.A100_80G, ms, 8)
+    kinds = {name: cm.classify(cm.A100_80G, ms, cm.WORKLOADS[name], 8)
+             for name in ("splitwise", "lmsys", "sharegpt")}
+    log("planner paper (LLaMA-2-70B, 8 x A100-80G, B_dense 2048, "
+        "Workload(512, 1024)): GFLOPs " + ", ".join(
+            f"{op} {by_op[op]['gflops']:.1f} (paper {g})"
+            for op, g in PAPER_GFLOPS.items())
+        + f"; network {net[0]:.2f} GB, {net[1]:.2f} ms (paper {PAPER_NET[0]}"
+        f" GB, {PAPER_NET[1]} ms); Eq. 9 {eq9:.0f} tok/s (paper "
+        f"{PAPER_EQ9}); {kinds}")
+    bad = [op for op, g in PAPER_GFLOPS.items()
+           if abs(by_op[op]["gflops"] - g) >= 1.0]
+    if bad or any(abs(a - b) >= 1.0 for a, b in zip(net, PAPER_NET)) \
+            or abs(eq9 - PAPER_EQ9) / PAPER_EQ9 >= 0.05 \
+            or set(kinds.values()) != {"compute-bound"}:
+        raise AssertionError(f"planner: the paper's numbers not reproduced "
+                             f"({bad or 'network row, Eq. 9 or class'})")
+    for name, n in PLANNER_CASES:
+        cfg = get_config(name)
+        opt = cm.optimal_throughput(cm.H100, cm.model_stats(cfg), n) / n
+        for bdense in (None, 2048.0):
+            sched = asrch.autosearch(cfg, w, cm.H100, n, bdense=bdense)
+            seq = asrch.sequential_schedule(cfg, w, cm.H100, n,
+                                            bdense=bdense)
+            tput = asrch.throughput_estimate(cfg, sched, w, cm.H100, n,
+                                             bdense)
+            load = worst_load(sched.pipeline)
+            tag = f"planner {name} {n}xH100 bdense {bdense}"
+            log(f"{tag}: " + json.dumps(sched.summary()))
+            log(f"{tag}: sequential {seq.iter_time * 1e3:.4f} ms/layer "
+                f"({seq.iter_time / sched.iter_time:.3f}x), modelled "
+                f"{tput:.1f} tok/s/card of Eq. 9's {opt:.1f}, most in "
+                f"flight {load:.3f} of the budgets")
+            if load > 1.0 + 1e-9:
+                raise AssertionError(f"{tag}: {load:.3f} of a budget in "
+                                     "flight at once")
+            if sched.iter_time > seq.iter_time or not 0 <= tput <= opt:
+                raise AssertionError(f"{tag}: slower than sequential or "
+                                     "modelled throughput beyond Eq. 9")
+
+
+def phase_planner(torch, cfg, timer, gemm_fraction: float) -> None:
+    """``planner_checks``, then the H100 entry of the cost model against
+    the card on one Qwen3-8B layer (printed, not gated): the modelled time
+    of each op class at the serve phase's dense batch and workload beside
+    the port's own ops on the same work, and the schedule the measured
+    times give."""
+    from functools import partial
+    from repro_torch.core import autosearch as asrch
+    from repro_torch.core import costmodel as cm
+    from repro_torch.kernels import swiglu as sw
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    planner_checks()
+    lens = [len(p) for p in serve_prompts(cfg)]
+    w = cm.Workload(float(np.mean(lens)), float(SERVE_NEW_TOKENS))
+    prof = asrch._profiles_from_costs(cfg, w, cm.H100, 1, bdense=PLANNER_T)
+    ms = cm.model_stats(cfg)
+    # the model streams every resident request's cache once an iteration:
+    # b_req requests at the mean context p + d / 2
+    rows = round(cm.b_req(cm.H100, ms, w, 1))
+    ctx = round(w.p + w.d / 2)
+    t, d, ff = PLANNER_T, cfg.d_model, cfg.d_ff
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen, wg, wu, _ = swiglu_case(torch, d, ff)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+    x, wq, wk, wv = randn(t, d), randn(d, h * hd), randn(d, kv * hd), \
+        randn(d, kv * hd)
+    wo, wd, attn = randn(h * hd, d), randn(ff, d), randn(t, h * hd)
+    q = randn(rows, h, hd)
+    kc, vc = randn(rows, ctx, kv, hd), randn(rows, ctx, kv, hd)
+    clen = torch.full((rows,), ctx, dtype=torch.int32, device="cuda")
+
+    def kqv():
+        return torch.matmul(x, wq), torch.matmul(x, wk), torch.matmul(x, wv)
+
+    def ugd():
+        return torch.matmul(sw.swiglu_cuda(x, wg, wu), wd)
+    work = {   # class -> (call, flops, bytes) of the measured work
+        "KQV": (kqv, 2 * t * d * (h + 2 * kv) * hd,
+                (t * d + d * (h + 2 * kv) * hd + t * (h + 2 * kv) * hd) * 2),
+        "O": (partial(torch.matmul, attn, wo), 2 * t * h * hd * d,
+              (t * h * hd + h * hd * d + t * d) * 2),
+        "GEMV": (partial(decode_attention_cuda, q, kc, vc, clen),
+                 4 * rows * ctx * h * hd,
+                 (2 * rows * ctx * kv * hd + 2 * rows * h * hd) * 2),
+        # SwiGLU, then w_down: both ops' inputs read and outputs written
+        "UGD": (ugd, 6 * t * d * ff,
+                (t * d + 2 * d * ff + t * ff + t * ff + ff * d + t * d) * 2)}
+    meas = dict(prof)       # PF stays modelled: no flash at this shape
+    log(f"planner H100 entry vs the card ({card_line()}): Qwen3-8B, one "
+        f"layer, dense batch {t} tokens, Workload(p={w.p}, d={w.d}) from "
+        f"the serve phase's prompts; the entry's {cm.H100.compute / 1e12:g}"
+        f" TFLOP/s and {cm.H100.mem_bw / 1e9:g} GB/s are data-sheet "
+        f"constants; GEMV over the model's {rows} resident rows at "
+        f"context {ctx}")
+    for key, (call, flops, nbytes) in work.items():
+        got = timer(call)
+        kind, model_s = prof[key]
+        meas[key] = (kind, got / 1e3)
+        rate = (f"{flops / got / 1e9:.1f} TFLOP/s of "
+                f"{cm.H100.compute / 1e12:g}" if kind == "compute" else
+                f"{nbytes / got / 1e6:.1f} GB/s of {cm.H100.mem_bw / 1e9:g}")
+        log(f"planner {key} ({kind}): modelled {model_s * 1e3:.4f} ms, "
+            f"measured {got:.4f} ms, measured/modelled "
+            f"{got / (model_s * 1e3):.3f}; achieved {rate} "
+            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    del q, kc, vc
+    torch.cuda.empty_cache()
+    log(f"planner PF stays modelled ({prof['PF'][1] * 1e3:.4f} ms): not "
+        f"timed; no network on one card")
+    for tag, p in (("modelled", prof), ("measured", meas)):
+        best = asrch.schedule_profiles(p, has_network=False)
+        seq = asrch.sequential_profiles(p, has_network=False)
+        pick = best if best.iter_time <= seq.iter_time else seq
+        ugd_units = {k: round(u, 3) for k, u in pick.unit_assignment.items()
+                     if k.startswith("UGD")}
+        log(f"planner schedule from {tag} times: nano_kqv {pick.nano_kqv}, "
+            f"nano_dense {pick.nano_dense}, iteration "
+            f"{pick.iter_time * 1e3:.4f} ms/layer (overlapped "
+            f"{best.iter_time * 1e3:.4f}, sequential "
+            f"{seq.iter_time * 1e3:.4f}), UGD units {ugd_units}, critical "
+            f"path {'->'.join(pick.critical_path)}; the fused op's best "
+            f"measured gemm_fraction {gemm_fraction}")
+        if worst_load(pick.pipeline) > 1.0 + 1e-9:
+            raise AssertionError(f"planner: the {tag} schedule breaks a "
+                                 "budget")
+
+
 def forward_streams(cfg) -> tuple[list, np.ndarray, np.ndarray]:
     """The forward checks' two packed streams, (tokens, slot, position,
     write row) each: a prefill stream of 8 x 25 tokens padded to 256 (its
@@ -1541,7 +1738,7 @@ def phase_serve(torch, cfg):
     # the main path's run: counts from 0
     zero_counts()
     for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=32))
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS))
     done = eng.run()
     torch.cuda.synchronize()
     counts = read_counts()
@@ -3725,9 +3922,12 @@ def main() -> int:
     lap("paged")
     record["fused_overlap"], ops_only["fused_overlap"] = \
         phase_overlap(torch, cfg, timer, bw, peak)
+    lap("overlap")
+    phase_planner(torch, cfg, timer,
+                  record["fused_overlap"]["best_gemm_fraction"])
     del timer
     torch.cuda.empty_cache()
-    lap("overlap")
+    lap("planner")
     phase_forward(torch, cfg)
     lap("forward")
     launches, params, prompts, serve_wall, packed = phase_serve(torch, cfg)

@@ -3,7 +3,7 @@
 Only the fields and helpers the port's serving paths read are kept
 (``ModelConfig``, ``LayerSpec``, ``MambaConfig``, ``XLSTMConfig``,
 ``MoEConfig``, ``MLAConfig``, ``layer_groups``, ``scale_down`` and the
-registry).  Layer and FFN kinds keep the JAX names.
+registry with ``list_configs``).  Layer and FFN kinds keep the JAX names.
 """
 from __future__ import annotations
 
@@ -145,6 +145,12 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_configs() -> list[str]:
+    if not _REGISTRY:
+        _load_all()
+    return sorted(_REGISTRY)
 
 
 def _load_all() -> None:

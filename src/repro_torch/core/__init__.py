@@ -1,0 +1,1 @@
+from repro_torch.core import costmodel, nanobatch, pipeline  # noqa: F401

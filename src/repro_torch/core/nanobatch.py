@@ -1,19 +1,32 @@
-"""NanoFlow §4.3 nano-batching: the pure-Python planning parts of
-``repro.core.nanobatch`` (``NanoBatchPlan``, ``packed_segment_order``,
-``nano_batch_sizes_for``), which the scheduler uses to lay out the packed
-stream.  The tensor split/merge helpers wait for the slices that launch per
-nano-batch.
+"""NanoFlow §4.3 nano-batching (port of ``repro.core.nanobatch``):
+
+  * ``NanoBatchPlan``          — sizes along the token axis (``even``, or
+                                 ``nano_batch_sizes_for``'s multiples)
+  * ``split``/``merge``        — slice a dense token batch into nano-batches
+  * ``interleaved_apply``      — run a two-stage op pair over nano-batches in
+                                 the paper's Figure-6 interleave order
+  * ``packed_segment_order``   — the scheduler's layout of the packed stream
+
+Correctness invariant (tested): for any plan, outputs equal the unsplit op.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Callable, Sequence
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
 class NanoBatchPlan:
     """Nano-batch sizes along the token axis.  sum(sizes) == batch tokens."""
     sizes: tuple[int, ...]
+
+    @staticmethod
+    def even(total: int, n: int) -> "NanoBatchPlan":
+        base, rem = divmod(total, n)
+        sizes = tuple(base + (1 if i < rem else 0) for i in range(n))
+        return NanoBatchPlan(sizes=tuple(s for s in sizes if s > 0))
 
     @property
     def offsets(self) -> tuple[int, ...]:
@@ -35,6 +48,30 @@ class NanoBatchPlan:
             out.append(nb)
             pos += ln
         return tuple(out)
+
+
+def split(x: torch.Tensor, plan: NanoBatchPlan,
+          axis: int = 0) -> list[torch.Tensor]:
+    assert x.shape[axis] == sum(plan.sizes), (x.shape, plan)
+    return list(torch.split(x, list(plan.sizes), dim=axis))
+
+
+def merge(parts: Sequence[torch.Tensor], axis: int = 0) -> torch.Tensor:
+    return torch.cat(list(parts), dim=axis)
+
+
+def interleaved_apply(stage_compute: Callable[[torch.Tensor], torch.Tensor],
+                      stage_network: Callable[[torch.Tensor], torch.Tensor],
+                      x: torch.Tensor, plan: NanoBatchPlan,
+                      axis: int = 0) -> torch.Tensor:
+    """Figure-6 interleave: Com(1) ; [Net(1) ∥ Com(2)] ; Net(2) ; ...
+
+    Net(i) depends only on Com(i); semantics are those of the unsplit
+    composition (tested)."""
+    chunks = split(x, plan, axis)
+    computed = [stage_compute(c) for c in chunks]
+    netted = [stage_network(c) for c in computed]
+    return merge(netted, axis)
 
 
 def packed_segment_order(kinds: Sequence[str],

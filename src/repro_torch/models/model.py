@@ -20,6 +20,7 @@ With tied embeddings the head is the embedding's transpose.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -30,7 +31,8 @@ from repro_torch.distributed import tp
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
 from repro_torch.models.layers import rmsnorm
-from repro_torch.models.param import ParamDef, init_params
+from repro_torch.models.param import (ParamDef, count_params, init_params,
+                                      map_defs)
 
 
 def check_config(cfg: ModelConfig) -> None:
@@ -75,6 +77,33 @@ def init(cfg: ModelConfig, seed: int = 0,
         rank, world = shard
         cut = functools.partial(tp.cut_param, cfg, rank=rank, world=world)
     return init_params(model_defs(cfg), seed, resolve_device(device), cut)
+
+
+# the cost model asks for both counts in every call (``model_stats``); a
+# config is frozen, so each is counted once
+@functools.lru_cache(maxsize=64)
+def num_params(cfg: ModelConfig) -> int:
+    return count_params(model_defs(cfg))
+
+
+@functools.lru_cache(maxsize=64)
+def active_params(cfg: ModelConfig) -> int:
+    """6·N_active·D — total minus the inactive routed-expert fraction (the
+    routed experts' stacked leaves are the ``per_slice`` ones)."""
+    tree = model_defs(cfg)
+    total = count_params(tree)
+    if cfg.moe is None:
+        return total
+    expert_total = 0
+
+    def leaf(path, d: ParamDef):
+        nonlocal expert_total
+        if d.per_slice and path[-1] in ("w_gate", "w_up", "w_down"):
+            expert_total += math.prod(d.shape)
+
+    map_defs(leaf, tree)
+    frac = cfg.moe.top_k / cfg.moe.num_experts
+    return total - expert_total + int(expert_total * frac)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -10,6 +10,8 @@ Jamba-1.5-Large that ``tests/test_torch_hybrid.py`` uses (7 Mamba layers
 and one attention layer, no experts), and ``deepseek-v2-236b``, its
 scale-down (absorbed MLA) at ``capacity_factor`` 16, where no expert
 drops; each is built once a process."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import functools
 

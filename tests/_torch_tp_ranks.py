@@ -4,6 +4,8 @@ a spawned gloo group by ``repro_torch.launch.mesh.spawn_tp``.  A spawned
 rank imports this module by name, so it imports only torch and the port
 (never JAX): the tests compute the JAX side in their own process and hand
 the ranks numpy weights."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import torch
 import torch.distributed as dist

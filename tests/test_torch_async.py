@@ -12,6 +12,8 @@ bucket) shapes, within (|T buckets| + 1) x |kv buckets|.  On the CPU every
 payload is ready when it is retired, so harvesting retires at once: the
 deferred cases turn it off.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 

@@ -8,6 +8,8 @@ Tolerances: rtol 1e-5 / atol 2e-5 in f32 and 2e-2 in bf16, as
 ``tests/test_kernels.py:_tol`` states for the JAX kernels (the two packages
 sum in different orders; bf16 outputs round at 2^-8).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -1,6 +1,8 @@
 """The kernel build's cache key: a library is reused only if its source,
 the headers of ``csrc`` and the flags are unchanged.  Needs no ``nvcc``:
 only the key is computed."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import shutil
 
 import pytest

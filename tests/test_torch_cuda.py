@@ -14,6 +14,8 @@ bf16, its outputs bitwise equal across ``gemm_fraction``; packed attention
 on the engine-shaped streams in bf16 at one output rounding (1e-3 +
 1e-2·|ref|, as ``chip_smoke.py`` holds it).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import numpy as np

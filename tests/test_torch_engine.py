@@ -5,6 +5,8 @@ configuration with ``async_depth=0``: the token streams must be identical,
 and each iteration must be one packed-step call and one device-to-host
 copy.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

@@ -4,6 +4,8 @@ the items the kernel decodes from its grid (``items``), replayed here
 against the causal ranges they must cover.  Needs no card: the schedule is
 integer arithmetic on the shapes and offsets.  The card tests at ragged
 shapes (``tests/test_torch_cuda.py``) check the kernel's own coverage."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import pytest
 
 from repro_torch.kernels import flash_attention as fa

@@ -14,6 +14,8 @@ without at depth 1: one (4, V) Gumbel draw per key, as JAX draws it).  The
 draws of the 4 codebooks differ from each other and each follows its
 codebook's softmax.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import functools
 

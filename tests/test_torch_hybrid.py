@@ -14,6 +14,8 @@ the legacy-incremental, recompute and packed engines must be token-exact
 against the JAX engine in the same mode, stepped in lock-step through slot
 reuse, with equal dispatch, sync and prefill-work counts.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

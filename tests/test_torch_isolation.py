@@ -2,6 +2,8 @@
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and an
 entry point asked for the card without one raises instead of running on
 the CPU."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import ast
 import pathlib
 
@@ -10,7 +12,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.launch import serve
+from repro_torch.launch import plan, serve
 from repro_torch.models import model
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serving.engine import ServeEngine
@@ -39,7 +41,8 @@ def test_no_jax_or_repro_imports(path):
 def test_the_scan_sees_the_port():
     names = {p.name for p in FILES}
     assert {"engine.py", "attention.py", "ops.py", "build.py", "pool.py",
-            "router.py", "serve.py", "elastic.py", "chip_smoke.py"} <= names
+            "router.py", "serve.py", "elastic.py", "chip_smoke.py",
+            "costmodel.py", "pipeline.py", "autosearch.py", "plan.py"} <= names
 
 
 def _no_card(monkeypatch):
@@ -64,3 +67,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         serve.main(["--arch", "tiny-toy", "--requests", "1"])
     assert resolve_device("cpu").type == "cpu"
 
+
+
+def test_plan_runs_without_a_card(monkeypatch, capsys):
+    """The planner is host arithmetic: it prints its schedule with no card."""
+    _no_card(monkeypatch)
+    plan.main(["--arch", "qwen3-8b", "--hw", "H100", "--devices", "1"])
+    out = capsys.readouterr().out
+    assert "=== qwen3-8b @ 1xH100" in out
+    assert "not measured" in out
+    for line in ("classification:", "optimal (Eq.9):", "autosearch: nano_kqv=",
+                 "iter time:", "modeled throughput:", "critical path: KQV",
+                 "unit assignment", " UGD", "units="):
+        assert line in out, line

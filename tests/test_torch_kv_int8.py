@@ -11,6 +11,8 @@ the JAX package, f32 tiny-toy on the CPU.
   (int8 against bf16 is *not* a gate: ROADMAP fault C1.)
 * At a fixed ``kv_budget_bytes`` the int8 engine gets >= 1.9x the pages.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

@@ -4,6 +4,8 @@ ops in the same order, round half to even in both), the scales equal to
 rtol 1e-6, on seeded numpy rows, including rows whose codes land exactly on
 rounding ties.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

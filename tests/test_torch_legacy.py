@@ -10,6 +10,8 @@ clamped writes at the end of a slot; the legacy and the recompute engines
 must be token-exact against the JAX engine in the same mode, stepped in
 lock-step, with equal dispatch, sync and prefill-work counts.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

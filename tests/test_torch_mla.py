@@ -25,6 +25,8 @@ CPU.
   may be one off JAX's; see ``test_forward_packed_matches_jax``).
 * ``kv_bytes_per_token`` against the JAX engine's at full width.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import functools
 

@@ -12,6 +12,8 @@ test's prompts.  Outputs must be identical, with equal iteration,
 dispatch, sync and prefill-work counts (and prefix-hit, copy-on-write and
 speculation counters where they apply).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import functools
 

@@ -7,6 +7,8 @@ that mixes decode tokens, two further prefill chunks and padding rows
 (``wpos == max_len``).  Logits and the scattered caches must agree to atol
 1e-4 (f32; the packages sum in different orders).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

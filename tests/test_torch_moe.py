@@ -20,6 +20,8 @@ relative), which moves the logits by up to 3.5e-3 in these cases, while
 the same input gives the same MoE output to 1e-6
 (``test_moe_ffn_matches_jax``).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import functools
 

@@ -12,6 +12,8 @@ expert) pairs.  Same weights (the JAX pytree converted), same requests
 (slots reused): the outputs must be identical, with equal iteration,
 dispatch, sync and prefill-work counts.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

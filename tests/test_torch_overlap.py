@@ -11,6 +11,8 @@ different orders; bf16 outputs round at 2^-8); the GEMM at rtol 1e-4 /
 atol 1e-3, as ``tests/test_kernels.py:test_fused_overlap`` holds it (sums
 over K of unit normals, taken in another order).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

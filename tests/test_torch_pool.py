@@ -21,6 +21,8 @@ ready, which on the CPU is at once for the port and whenever XLA's thread
 is done for JAX, so the depth-1 engines run with harvesting off and both
 keep exactly one iteration in flight.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import time
 import types

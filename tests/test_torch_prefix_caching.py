@@ -12,6 +12,8 @@ JAX package.
   hit and copy-on-write counts (30 and 3), for native and int8 KV, and
   still one dispatch and one sync per iteration.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

@@ -5,6 +5,8 @@ and ``StragglerMitigator`` shares over random event sequences, and
 ``Router`` placements over random sequences of submits, failures, joins
 and step-time observations, with engine-less replica handles.  Each
 outcome must equal the JAX package's, exceptions included."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import pytest
 
 from _hyp import given, settings, st

@@ -14,6 +14,8 @@ ops: its bits are held to Random123's known answer and to
 without top-k) and to the softmax by a chi-square test over 20,000
 draws, and the stochastic engine to the JAX engine token for token.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,8 @@ tokens a killed replica had committed depends on when an iteration's
 result is ready, at once on the port's CPU path and whenever XLA's CPU
 thread is done in JAX.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import re
 import sys
 

@@ -10,6 +10,8 @@ iterations; spec decode composes with prefix caching and with int8 KV
 (each held to the JAX engine in the same mode); the hybrid is refused; the
 config and the n-gram drafter behave as JAX's.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import functools
 
 import numpy as np

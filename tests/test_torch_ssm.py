@@ -14,6 +14,8 @@ rounding (|a - b| <= 1e-3 + 1e-2·|ref|: a bf16 step is at most 2^-7 of
 the value) and h_final, which stays f32, at 1e-5; the mixers in f32 at
 atol 1e-4, as the other model-level tests of the port.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

@@ -5,6 +5,8 @@ the checks that make the wrapper raise instead of falling back.  Needs no
 card: the schedule is integer arithmetic on the shapes, and the checks run
 on CPU tensors.  The card tests at ragged shapes check the kernel's own
 coverage."""
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import pytest
 import torch
 

@@ -11,6 +11,8 @@ sharded ``model.init`` is the full init's cut.  Over one spawned pair of
 gloo ranks: every helper and collective matmul against the plain product,
 f32 at 1e-5 relative.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

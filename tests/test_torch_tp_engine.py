@@ -14,6 +14,9 @@ and both ranks serve the same tokens through the same plans.  The JAX
 side runs here; every port case runs inside one spawned pair of ranks,
 which is started once for the file.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
+import concurrent.futures
 import dataclasses
 
 import jax
@@ -94,8 +97,9 @@ def _jax_run(cfg, params, waves, **kw):
 
 @pytest.fixture(scope="module")
 def runs():
-    """JAX at tp = 1 here, every port case at tp = 2 in one spawned pair."""
-    jax_out, cases = {}, []
+    """JAX at tp = 1 here, every port case at tp = 2 in one spawned pair,
+    which serves while the JAX engines run here."""
+    cases, jax_jobs = [], {}
     models = {}
     for name in FAMILIES:
         jcfg, tcfg = _cfgs(name)
@@ -104,7 +108,7 @@ def runs():
     for name in FAMILIES:
         jcfg, tcfg, jp, npp = models[name]
         waves = _mixed(jcfg.vocab_size, 7)
-        jax_out[name] = _jax_run(jcfg, jp, waves, async_depth=0, **BASE)
+        jax_jobs[name] = (jcfg, jp, waves, dict(async_depth=0, **BASE))
         for depth in (0, 1):
             cases.append((f"{name}/{depth}", tcfg, npp,
                           dict(BASE, tp=TP, async_depth=depth), waves))
@@ -113,33 +117,37 @@ def runs():
                   dict(BASE, tp=TP, async_depth=1, async_harvest=True,
                        late_rank=1), _mixed(jcfg.vocab_size, 7)))
     prefix = dict(BASE, kv_block_size=8)
-    jax_out["prefix"] = _jax_run(jcfg, jp, _prefix_waves(),
-                                 prefix_caching=True, **prefix)
+    jax_jobs["prefix"] = (jcfg, jp, _prefix_waves(),
+                          dict(prefix_caching=True, **prefix))
     for on in (False, True):
         cases.append((f"prefix/{on}", tcfg, npp,
                       dict(prefix, tp=TP, prefix_caching=on),
                       _prefix_waves()))
     spec = dict(BASE, max_len=64, async_harvest=False)
-    jax_out["spec/base"] = _jax_run(jcfg, jp, _spec_waves(), async_depth=0,
-                                    **spec)
+    jax_jobs["spec/base"] = (jcfg, jp, _spec_waves(),
+                             dict(async_depth=0, **spec))
     for depth in (0, 1):
-        jax_out[f"spec/{depth}"] = _jax_run(jcfg, jp, _spec_waves(),
-                                            async_depth=depth, spec_k=3,
-                                            **spec)
+        jax_jobs[f"spec/{depth}"] = (jcfg, jp, _spec_waves(),
+                                     dict(async_depth=depth, spec_k=3,
+                                          **spec))
         cases.append((f"spec/{depth}", tcfg, npp,
                       dict(spec, tp=TP, async_depth=depth, spec_k=3),
                       _spec_waves()))
     for name in ("tiny-toy", "deepseek-v2-236b"):
         jcfg, tcfg, jp, npp = models[name]
         waves = _mixed(jcfg.vocab_size, 1)
-        jax_out[f"int8/{name}"] = _jax_run(jcfg, jp, waves, kv_dtype="int8",
-                                           **BASE)
+        jax_jobs[f"int8/{name}"] = (jcfg, jp, waves,
+                                    dict(kv_dtype="int8", **BASE))
         cases.append((f"int8/{name}", tcfg, npp,
                       dict(BASE, tp=TP, kv_dtype="int8"), waves))
     wrong = dataclasses.replace(scale_down(get_config("qwen3-8b")),
                                 dtype="float32")
-    port = mesh.spawn_tp(TP, _torch_tp_ranks.serve_cases, cases, wrong,
-                         device="cpu", timeout_s=300)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(mesh.spawn_tp, TP, _torch_tp_ranks.serve_cases,
+                            cases, wrong, device="cpu", timeout_s=300)
+        jax_out = {key: _jax_run(cfg, params, waves, **kw)
+                   for key, (cfg, params, waves, kw) in jax_jobs.items()}
+        port = ranks.result()
     return models, jax_out, port
 
 

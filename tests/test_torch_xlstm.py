@@ -12,6 +12,8 @@ converted: ``forward_full(return_states=True)``, ``prefill``,
 ``forward_chunk``, ``forward_decode`` and ``forward_packed``, logits and
 every state leaf at atol 1e-4 (the packages sum in different orders).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

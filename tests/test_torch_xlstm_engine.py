@@ -13,6 +13,8 @@ attention layer, 7 Mamba layers, dense FFNs) with int8 KV on the packed
 step, held to the JAX int8 hybrid engine (never to bf16: ROADMAP C1): the
 attention leaves go int8 with their scales, the Mamba state keeps f32.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax
