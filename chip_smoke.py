@@ -287,6 +287,30 @@ Phases (any failure exits non-zero; no phase is caught):
                all-reduce behind a ~0.1 s device spin whose ``wait()``
                returns before the spin ends (a stream wait, not a host
                block).
+ 20. train   — training on the card: Qwen3-8B at full width cut to
+               TRAIN_LAYERS of its 36 layers, bf16, batch 2 x 2048 tokens
+               from ``synthetic_stream``, AdamW.  (1) flash attention's
+               backward kernels (dQ, then dK/dV) and SwiGLU's against their
+               plain versions at the phase's shapes and, for flash, over
+               groups 1/4/8 x head_dim 64/128 and group 7 at 128 x Sq
+               1000/2048 in bf16 and f32 (with the forward's row
+               log-sum-exp), two calls bitwise equal, each timed beside
+               its bound, its plain version and the library call (SDPA's
+               backward; two matmuls and the elementwise dg/du pass).  (2)
+               one step's gradients through the kernels against the same
+               step through ``impl="plain"`` on every leaf (cosine and
+               rel-norm; the worst leaf printed).  (3) the loss on one
+               repeated batch falls over 8 steps, finite at each; one
+               step's wall and profiled device busy time.  (4) the train
+               step for TRAIN_STEPS (4) steps uninterrupted, then the
+               ``Trainer`` on the same stream crashed at step 3 by
+               ``inject_failure_at`` and restarted from its step-2
+               checkpoint (every 2 steps, JAX's on-disk layout, ~16 GB
+               each): the final params and optimizer state bitwise equal
+               (the main path: the Trainer's counts give the kernels'
+               launches per step).  (5)
+               ``ops.ssm_scan`` and ``ops.mla_attention`` (no backward
+               kernel yet) raise under grad.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -294,6 +318,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -386,6 +411,43 @@ MLA_LAYERS = 2          # of 60: layer 0 (dense FFN) and 1 (MoE), ~5.4B
 # ~0.1 s) that an NCCL all-reduce is issued behind
 TP = 2
 TP_LAYERS = 2           # the phase's share of the 1200 s limit kept small
+# the train phase: Qwen3-8B's layers kept, the batch, the backward kernels'
+# check grid ((group, head_dim) x Sq, batch 1 over 2 KV heads) and its
+# rel-norm bounds against the plain backward (bf16 rounds P and dS to bf16
+# as the products' inputs, 2^-9, and each output once; f32 sums in another
+# order), the forward's log-sum-exp bound, the train step's gradient
+# bounds (kernels vs plain, every leaf), and the Trainer's run: steps, the
+# injected failure and the checkpoint period
+TRAIN_LAYERS = 2
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_BWD_GRID = [(1, 64), (4, 64), (8, 64), (1, 128), (4, 128), (8, 128),
+                  (7, 128)]
+TRAIN_BWD_SQ = (1000, 2048)
+TRAIN_BWD_REL = {"bfloat16": 2e-2, "float32": 1e-4}
+LSE_ATOL = 1e-4
+TRAIN_GRAD_COS_MIN = 0.995
+TRAIN_GRAD_REL_MAX = 5e-2
+TRAIN_REPEAT_STEPS = 8
+TRAIN_LR = 1e-5         # AdamW's first steps move every weight by ~lr
+# the Trainer's run, cut from 6 steps to 4: a checkpoint of the 2-layer
+# model's bf16 weights and f32 moments is 16.3 GB, and each save or
+# restore takes 10-16 s on an H100 host (the phase prints them); 4 steps
+# keep the crash at step 3 after the step-2 checkpoint and a save after
+# the restart, with two saves and one restore
+TRAIN_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 4, 3, 2
+# the kernels a train step launches, and the two backward kernels: source
+# and the TPU kernel whose gradient each computes (JAX differentiates
+# through XLA: no backward Pallas kernel)
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "swiglu",
+                 "swiglu_bwd")
+TRAIN_BWD = {
+    "flash_attention_bwd": (f"{_CSRC}/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:73 "
+                            "(its gradient; XLA autodiff in JAX)"),
+    "swiglu_bwd": (f"{_CSRC}/swiglu_bwd.cu",
+                   "src/repro/kernels/swiglu.py:45 (its gradient; XLA "
+                   "autodiff in JAX)"),
+}
 NCCL_SPIN_CYCLES = 200_000_000
 # the planner phase: the paper's Table 2 (LLaMA-2-70B on 8 x A100-80G at
 # B_dense 2048, Workload(512, 1024)): GEMM GFLOPs, its network row (GB, ms),
@@ -3677,12 +3739,13 @@ def phase_families(torch, busy: dict) -> dict:
     return by_group
 
 
-def tp_config():
-    """Qwen3-8B at full width cut to TP_LAYERS of its 36 layers."""
+def qwen3_8b_cut(layers: int):
+    """Qwen3-8B at full width cut to its first ``layers`` of 36 (the tp
+    and train phases)."""
     from repro_torch.configs import get_config
     full = get_config("qwen3-8b")
-    return dataclasses.replace(full, name=f"{full.name}-{TP_LAYERS}l",
-                               n_layers=TP_LAYERS)
+    return dataclasses.replace(full, name=f"{full.name}-{layers}l",
+                               n_layers=layers)
 
 
 # per model of the tp phase: the kernels its packed step must launch on
@@ -3747,7 +3810,7 @@ def phase_tp(torch) -> None:
     from repro_torch.launch import mesh, serve
     from repro_torch.models import model
     from repro_torch.serving.config import EngineConfig
-    cfgs = {"qwen3-8b": tp_config()}
+    cfgs = {"qwen3-8b": qwen3_8b_cut(TP_LAYERS)}
     ds = deepseek_config(1.0)
     cfgs[DEEPSEEK] = deepseek_config(ds.moe.num_experts / ds.moe.top_k)
     tp_kernel_checks(torch, cfgs)
@@ -3866,6 +3929,405 @@ def nccl_check(torch) -> None:
             dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# train: Qwen3-8B at full width, TRAIN_LAYERS layers, on the backward kernels
+# ---------------------------------------------------------------------------
+def bwd_rel(dtype) -> float:
+    """TRAIN_BWD_REL's bound for a torch dtype."""
+    return TRAIN_BWD_REL[str(dtype).rsplit(".", 1)[-1]]
+
+
+def relnorm(got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp(min=1e-30))
+
+
+def bwd_inputs(torch, dtype, b, s, h, kv, d, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = ((b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d))
+    return [torch.randn(*sh, generator=gen, device="cuda").to(dtype)
+            for sh in shapes]
+
+
+def check_flash_bwd(torch, tag, dtype, q, k, v, do):
+    """The forward's row log-sum-exp and the backward kernels against the
+    plain versions; returns (out, lse, dq/dk/dv rel-norm errors, max abs
+    error)."""
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, _ = q.shape
+    lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+    out = fa.flash_attention_cuda(q, k, v, lse=lse)
+    lse_err = float((lse - fa.flash_attention_lse_ref(q, k)).abs().max())
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do)
+    errs = [relnorm(g, w) for g, w in zip(got, want)]
+    max_abs = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+    finite = all(bool(g.isfinite().all()) for g in got)
+    if max(errs) > bwd_rel(dtype) or lse_err > LSE_ATOL or not finite:
+        raise AssertionError(f"{tag}: dq/dk/dv rel-norm {errs} (bound "
+                             f"{bwd_rel(dtype)}), lse max |err| "
+                             f"{lse_err:.2e} (bound {LSE_ATOL}), finite "
+                             f"{finite}")
+    return out, lse, errs, max_abs
+
+
+def phase_train_kernels(torch, timer, bw, peak) -> dict:
+    """Check 1: the dK/dV + dQ kernels over the shape grid in bf16 and f32
+    and at the train phase's shape, SwiGLU's backward at the phase's shape
+    (and f32), each against its plain version; the timings beside the
+    bounds, the plain versions and the library calls."""
+    from repro_torch.kernels import swiglu as sw
+    F = torch.nn.functional
+    cfg = qwen3_8b_cut(TRAIN_LAYERS)
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for (g, d), s in itertools.product(TRAIN_BWD_GRID, TRAIN_BWD_SQ):
+            args = bwd_inputs(torch, dtype, 1, s, 2 * g, 2, d, seed=g + s)
+            _, _, errs, _ = check_flash_bwd(
+                torch, f"train flash bwd G{g} D{d} S{s} {dtype}", dtype,
+                *args)
+            worst[dtype] = max(worst.get(dtype, 0.0), max(errs))
+            del args
+        log(f"train: flash backward grid (G 1/4/8 x head_dim 64/128, G 7 "
+            f"at 128, x Sq {TRAIN_BWD_SQ}, 2 KV heads) in {dtype}: worst "
+            f"dq/dk/dv rel-norm {worst[dtype]:.3e} (bound "
+            f"{bwd_rel(dtype)}); each forward's log-sum-exp within "
+            f"{LSE_ATOL}")
+    # the phase's shape: the train step's attention
+    b, s, h, kv, d = (TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.resolved_head_dim)
+    q, k, v, do = bwd_inputs(torch, torch.bfloat16, b, s, h, kv, d, seed=3)
+    out, lse, errs, max_abs = check_flash_bwd(
+        torch, "train flash bwd (phase shape)", torch.bfloat16, q, k, v, do)
+    from repro_torch.kernels import flash_attention as fa
+    first = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    second = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    if not all(torch.equal(a, c) for a, c in zip(first, second)):
+        raise AssertionError("train: two flash backward calls differ")
+    del first, second
+    ms = timer(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, do))
+    plain_ms = timer(lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse,
+                                                        do))
+    # the library: SDPA's backward alone, its forward kept for the graph
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                             enable_gqa=True)
+    dos = do.transpose(1, 2).contiguous()
+    lib_ms = timer(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dos,
+                                               retain_graph=True))
+    lib_err = max(relnorm(g.transpose(1, 2), w) for g, w in zip(
+        torch.autograd.grad(lib_out, (qs, ks, vs), dos, retain_graph=True),
+        fa.flash_attention_bwd_ref(q, k, v, out, lse, do)))
+    del lib_out, qs, ks, vs, dos
+    # the least time: the five causal products the function needs (S
+    # recomputed from L, dP, dV, dQ, dK; 2 d flops per visible pair each)
+    # at the bf16 peak, or q, O, dO, dQ (the query heads' width), k, v, dK,
+    # dV (the KV heads') and L moved once at the memory rate
+    flops = 5 * 2 * b * h * (s * (s + 1) // 2) * d
+    nbytes = (4 * b * s * h * d + 4 * b * s * kv * d) * 2 + b * h * s * 4
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
+    records = {"flash_attention_bwd": dict(
+        shape=f"q/O/dO ({b},{s},{h},{d}), k/v ({b},{s},{kv},{d}), causal, "
+              "bf16",
+        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=lib_ms,
+        library="scaled_dot_product_attention(is_causal, enable_gqa) "
+                "backward")}
+    log(f"train: flash backward ({b},{s},{h}/{kv},{d}) bf16: dq/dk/dv "
+        f"rel-norm {[f'{e:.3e}' for e in errs]} max_abs_err {max_abs:.3e}, "
+        f"two calls bitwise equal; kernel_ms {ms:.3f}  plain_ms "
+        f"{plain_ms:.3f}  library_ms {lib_ms:.3f} (SDPA backward; its "
+        f"rel-norm vs plain {lib_err:.2e})  bound_ms "
+        f"{max(t_ops, t_bytes):.3f} ({flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB; {flops / ms / 1e9:.1f} TFLOP/s) "
+        f"({card_line()})")
+    del q, k, v, do, out, lse
+    # SwiGLU's backward at the train step's FFN: x (B·S, d_model)
+    m, dm, ff = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.d_ff
+    gen, wg, wu, _ = swiglu_case(torch, dm, ff)
+    x = torch.randn(m, dm, generator=gen, device="cuda").to(torch.bfloat16)
+    dh = torch.randn(m, ff, generator=gen, device="cuda").to(torch.bfloat16)
+    got = sw.swiglu_bwd_cuda(x, wg, wu, dh)
+    again = sw.swiglu_bwd_cuda(x, wg, wu, dh)
+    want = sw.swiglu_bwd_ref(x, wg, wu, dh)
+    errs = [relnorm(g, w) for g, w in zip(got, want)]
+    max_abs = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+    if max(errs) > bwd_rel(torch.bfloat16) or not all(
+            torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"train: swiglu backward rel-norm {errs} or "
+                             "two calls differ")
+
+    def library():
+        g_ = torch.matmul(x, wg)
+        u_ = torch.matmul(x, wu)
+        sig = torch.sigmoid(g_)
+        return dh * u_ * (sig * (1 + g_ * (1 - sig))), dh * (g_ * sig)
+    lib_err = max(relnorm(a, w) for a, w in zip(library(), want))
+    ms = timer(lambda: sw.swiglu_bwd_cuda(x, wg, wu, dh))
+    plain_ms = timer(lambda: sw.swiglu_bwd_ref(x, wg, wu, dh))
+    lib_ms = timer(library)
+    flops = 4 * m * dm * ff
+    nbytes = (m * dm + 2 * dm * ff + 3 * m * ff) * 2
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / bw * 1e3
+    bm, bn, groups = sw.plan(m, ff, torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
+    records["swiglu_bwd"] = dict(
+        shape=f"x ({m},{dm}), w_gate/w_up ({dm},{ff}), dh ({m},{ff}), bf16",
+        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=lib_ms,
+        library="2 torch.matmul + the elementwise dg/du pass")
+    log(f"train: swiglu backward x ({m},{dm}) w ({dm},{ff}) bf16: dg/du "
+        f"rel-norm {[f'{e:.3e}' for e in errs]} max_abs_err {max_abs:.3e}, "
+        f"two calls bitwise equal; kernel_ms {ms:.3f}  plain_ms "
+        f"{plain_ms:.3f}  library_ms {lib_ms:.3f} (2 matmul + elementwise; "
+        f"rel-norm vs plain {lib_err:.2e})  bound_ms {max(t_ops, t_bytes):.3f}"
+        f" ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s); {bm}x{bn} tiles, {groups} groups "
+        f"({card_line()})")
+    del got, again, want, x, dh, wg, wu
+    xf = torch.randn(300, 256, generator=gen, device="cuda")
+    wgf, wuf = (torch.randn(256, 520, generator=gen, device="cuda") / 16
+                for _ in range(2))
+    dhf = torch.randn(300, 520, generator=gen, device="cuda")
+    errs = [relnorm(g, w) for g, w in zip(sw.swiglu_bwd_cuda(xf, wgf, wuf, dhf),
+                                          sw.swiglu_bwd_ref(xf, wgf, wuf, dhf))]
+    if max(errs) > bwd_rel(torch.float32):
+        raise AssertionError(f"train: f32 swiglu backward rel-norm {errs}")
+    log(f"train: swiglu backward f32 x (300,256) w (256,520): rel-norm "
+        f"{[f'{e:.3e}' for e in errs]} (bound {bwd_rel(torch.float32)})")
+    torch.cuda.empty_cache()
+    return records
+
+
+def step_profile(torch, step_fn, params, state, batch) -> tuple:
+    """One train step timed on the host (ending in a synchronize) and once
+    more under torch.profiler: (wall ms, device busy ms, new params, new
+    state)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, _ = step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, state, _ = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+    return wall, busy, params, state
+
+
+def phase_train(torch, timer, bw, peak) -> tuple[dict, dict]:
+    """Training on the card (module docstring, phase 20): returns the two
+    backward kernels' records and their launches on the main path."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import DataConfig, synthetic_stream
+    from repro_torch.training.trainer import (DriverConfig, TrainConfig,
+                                              Trainer, batch_to_device,
+                                              make_train_step)
+    t_part = time.perf_counter()
+    records = phase_train_kernels(torch, timer, bw, peak)
+    log(f"train: the backward kernels' checks and timings "
+        f"{time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+    cfg = qwen3_8b_cut(TRAIN_LAYERS)
+    data = DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                      vocab_size=cfg.vocab_size, seed=0)
+    params = model.init(cfg, seed=0, device="cuda")
+    log(f"train: {cfg.name}: {model.num_params(cfg) / 1e9:.3f}B params, "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, bf16")
+    batch = batch_to_device(next(synthetic_stream(data)), "cuda")
+
+    # 2: one step's gradients through the kernels and through the plain
+    # versions, on every leaf
+    def grads(impl):
+        leaves = {path: p.detach().requires_grad_(True)
+                  for path, p in opt.tree_leaves(params)}
+        loss, _ = model.loss_fn(cfg, opt.rebuild(params, leaves), batch,
+                                impl=impl)
+        return float(loss.detach()), dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+    ops.zero_launch_counts()
+    loss_k, g_k = grads(None)
+    c = ops.launch_counts()
+    if any(c[kname] <= 0 for kname in TRAIN_KERNELS):
+        raise AssertionError(f"train: a kernel of the step never launched "
+                             f"{c}")
+    loss_p, g_p = grads("plain")
+    rows = []
+    for path, want in g_p.items():
+        got = g_k[path]
+        cos = float(torch.nn.functional.cosine_similarity(
+            got.float().flatten(), want.float().flatten(), dim=0))
+        rows.append((cos, relnorm(got, want), float(got.float().norm()),
+                     path))
+    worst_cos = min(rows)
+    worst_rel = max(rows, key=lambda r: r[1])
+    log(f"train: one step's gradients, kernels vs plain, {len(rows)} leaves:"
+        f" loss {loss_k:.5f} vs {loss_p:.5f}; worst cosine "
+        f"{worst_cos[0]:.6f} at {worst_cos[3]}, worst rel-norm "
+        f"{worst_rel[1]:.3e} at {worst_rel[3]} (bounds >= "
+        f"{TRAIN_GRAD_COS_MIN}, <= {TRAIN_GRAD_REL_MAX}); smallest gradient "
+        f"norm {min(r[2] for r in rows):.3e} ({time.perf_counter() - t_part:.1f}"
+        f" s with the weights' init)")
+    if worst_cos[0] < TRAIN_GRAD_COS_MIN or \
+            worst_rel[1] > TRAIN_GRAD_REL_MAX or \
+            any(r[2] == 0 or r[2] != r[2] for r in rows):
+        raise AssertionError("train: the kernels' gradients disagree with "
+                             "the plain versions' or miss a leaf")
+    del g_k, g_p
+    torch.cuda.empty_cache()
+
+    # 3: the loss on one repeated batch over TRAIN_REPEAT_STEPS steps
+    t_part = time.perf_counter()
+    tc = TrainConfig(opt=opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                         total_steps=TRAIN_REPEAT_STEPS))
+    step_fn = make_train_step(cfg, tc)
+    p, st = params, opt.adamw_init(params)
+    losses = []
+    for _ in range(TRAIN_REPEAT_STEPS):
+        p, st, m = step_fn(p, st, batch)
+        losses.append(float(m["loss"]))
+    log(f"train: loss on one repeated batch over {TRAIN_REPEAT_STEPS} "
+        f"steps at lr {TRAIN_LR}: {[round(x, 4) for x in losses]} "
+        f"({time.perf_counter() - t_part:.1f} s)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError("train: the loss did not fall on a repeated "
+                             "batch, or was not finite")
+    wall, busy, p, st = step_profile(torch, step_fn, p, st, batch)
+    log(f"train: one step wall {wall:.1f} ms, device busy {busy:.1f} ms "
+        f"(profiled step), idle share {max(0.0, 1 - busy / wall):.3f}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+        f"({card_line()})")
+    del p, st, m
+    torch.cuda.empty_cache()
+
+    # 4 (and the main path's counts): the train step uninterrupted for
+    # TRAIN_STEPS steps, then the Trainer crashed at TRAIN_FAIL_AT by
+    # ``inject_failure_at`` and restarted from its checkpoint; the final
+    # params and optimizer state must be bitwise equal
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_", dir=str(ROOT / "build"))
+    log(f"train: checkpoints under build/, "
+        f"{shutil.disk_usage(tmp).free / 2**30:.0f} GiB free")
+    tc = TrainConfig(opt=opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                         total_steps=TRAIN_STEPS))
+    try:
+        def stream(skip=0):
+            s = synthetic_stream(data)
+            for _ in range(skip):
+                next(s)
+            return s
+
+        def trainer(inject=None):
+            dc = DriverConfig(steps=TRAIN_STEPS, ckpt_dir=f"{tmp}/ft",
+                              ckpt_every=TRAIN_CKPT_EVERY, keep=1,
+                              log_every=1, inject_failure_at=inject)
+            return Trainer(cfg, tc, dc, params=params, device="cuda")
+        # the uninterrupted run: the Trainer's step on the same stream
+        step_fn = make_train_step(cfg, tc)
+        p, st, ref = params, opt.adamw_init(params), stream()
+        for _ in range(TRAIN_STEPS):
+            p, st, m = step_fn(p, st, batch_to_device(next(ref), "cuda"))
+        want = [(path, x.cpu()) for path, x in
+                opt.tree_leaves({"params": p, "opt": st})]
+        del p, st, m
+        torch.cuda.empty_cache()
+        ops.zero_launch_counts()
+        t0 = time.perf_counter()
+        crash = trainer(inject=TRAIN_FAIL_AT)
+        try:
+            crash.fit(stream())
+            raise AssertionError("train: the injected failure did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        del crash
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        again = trainer()
+        restored = again.start_step
+        t2 = time.perf_counter()
+        out = again.fit(stream(skip=restored))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = ops.launch_counts()
+        ran = TRAIN_FAIL_AT + TRAIN_STEPS - restored
+        per_step = {k: launches[k] / ran for k in TRAIN_KERNELS}
+        got = opt.tree_leaves(again._state())
+        same = all(torch.equal(w, g.cpu()) for (_, w), (_, g)
+                   in zip(want, got))
+        log(f"train: Trainer crashed at step {TRAIN_FAIL_AT} of "
+            f"{TRAIN_STEPS} ({t1 - t0:.1f} s, a checkpoint every "
+            f"{TRAIN_CKPT_EVERY}), restored from step {restored} "
+            f"({t2 - t1:.1f} s), finished ({t3 - t2:.1f} s; steps "
+            f"{sum(r['sec'] for r in out['history']):.2f} s, the rest "
+            f"checkpoint saves); final params and optimizer state bitwise "
+            f"equal to the uninterrupted run: {same} ({len(want)} leaves); "
+            f"launches per step over the {ran} steps run {per_step}")
+        if any(launches[k] <= 0 for k in TRAIN_KERNELS):
+            raise AssertionError(f"train: a kernel of the Trainer's steps "
+                                 f"never launched: {launches}")
+        if restored != TRAIN_CKPT_EVERY * (TRAIN_FAIL_AT // TRAIN_CKPT_EVERY) \
+                or not same:
+            raise AssertionError("train: crash/restart is not bitwise equal "
+                                 "to the uninterrupted run")
+        del again, want, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 5: kernels without a backward raise under grad
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(1, 8, 64, generator=gen, device="cuda",
+                    requires_grad=True)
+    dt = torch.rand(1, 8, 64, generator=gen, device="cuda")
+    scan_args = (x, dt, -torch.rand(64, 16, device="cuda"),
+                 torch.randn(1, 8, 16, device="cuda"),
+                 torch.randn(1, 8, 16, device="cuda"),
+                 torch.ones(64, device="cuda"))
+    from repro_torch.kernels import mla_attention as mla
+    qm = torch.randn(2, 64, mla.RANK + mla.ROPE, device="cuda",
+                     dtype=torch.bfloat16, requires_grad=True)
+    # the latent leaves as the cache builds them: views of (N·S + 1)-row
+    # stores
+    c_kv, k_rope = (torch.randn(2 * 16 + 1, w, device="cuda",
+                                dtype=torch.bfloat16)[:32].view(2, 16, w)
+                    for w in (mla.RANK, mla.ROPE))
+    idx = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([5, 16], dtype=torch.int32, device="cuda")
+    for name, call in (("ssm_scan", lambda: ops.ssm_scan(*scan_args)),
+                       ("mla_attention", lambda: ops.mla_attention(
+                           qm, c_kv, k_rope, idx, lens, logit_scale=0.1))):
+        try:
+            call()
+            raise AssertionError(f"train: {name} launched under grad")
+        except RuntimeError as e:
+            if name not in str(e) or "no backward" not in str(e):
+                raise
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+    log("train: ssm_scan and mla_attention raise under grad (no backward "
+        "kernel yet) and launch under torch.no_grad()")
+    for kname in TRAIN_BWD:
+        records[kname]["launches_per_step"] = per_step[kname]
+    del params, batch
+    torch.cuda.empty_cache()
+    return records, {k: launches[k] for k in TRAIN_BWD}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
@@ -3974,6 +4436,11 @@ def main() -> int:
     lap("families")
     phase_tp(torch)
     lap("tp")
+    train_records, train_launches = phase_train(torch, Timer(torch), bw,
+                                                peak)
+    record.update(train_records)
+    launches.update(train_launches)
+    lap("train")
     for tag, got in busy.items():
         if got is not None and not any(k in tag for k in LEGACY_MODES):
             log(f"packed attention in the {tag} serve: {got[1]:.1f} ms of "
@@ -3993,6 +4460,7 @@ def main() -> int:
     sources["ssm_scan"] = SSM_SCAN
     sources.update(OPS_ONLY)
     sources["mla_attention"] = MLA
+    sources.update(TRAIN_BWD)
     kernels = []
     for kname, (src, replaces) in sources.items():
         rec = record[kname]
@@ -4006,7 +4474,8 @@ def main() -> int:
                                else {}),
                             **({"family_launches": families[kname]}
                                if kname in families else {}),
-                            **{k: rec[k] for k in ("library", "cases")
+                            **{k: rec[k] for k in ("library", "cases",
+                                                   "launches_per_step")
                                if k in rec}))
     log(f"total {time.perf_counter() - t_start:.1f} s; by phase (s) {phases}")
     print(json.dumps({"kernels": kernels}))

@@ -29,8 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # variants are one source built with two switches (csrc/packed_attention.cu);
 # decode attention, paged decode attention (a second C entry of
 # csrc/decode_attention.cu, in its library) and the fused op share the unit
-# of csrc/attn_decode.cuh, SwiGLU and the fused op the GEMM mainloop of
-# csrc/gemm_sm90.cuh, as does MLA's latent attention.
+# of csrc/attn_decode.cuh, SwiGLU, its backward (training) and the fused op
+# the GEMM mainloop of csrc/gemm_sm90.cuh, as does MLA's latent attention;
+# flash attention's backward is a source of its own.
 def _pa(quant: int, block_table: int) -> tuple[str, tuple[str, ...]]:
     return ("packed_attention", (f"-DREPRO_PA_QUANT={quant}",
                                  f"-DREPRO_PA_BLOCK_TABLE={block_table}"))
@@ -44,7 +45,9 @@ TARGETS = {
     "decode_attention": ("decode_attention", ()),
     "fused_overlap": ("fused_overlap", ()),
     "flash_attention": ("flash_attention", ()),
+    "flash_attention_bwd": ("flash_attention_bwd", ()),
     "swiglu": ("swiglu", ()),
+    "swiglu_bwd": ("swiglu_bwd", ()),
     "ssm_scan": ("ssm_scan", ()),
     "mla_attention": ("mla_attention", ()),
 }
@@ -57,9 +60,12 @@ SIGNATURES = {
                          [_void_p] * 12 + [_int] * 13 + [_ll] * 6
                          + [_float, _void_p]),
     "flash_attention": ("repro_flash_attention",
-                        [_void_p] * 7 + [_int] * 10 + [_ll] * 4
+                        [_void_p] * 8 + [_int] * 10 + [_ll] * 4
                         + [_float, _void_p]),
+    "flash_attention_bwd": ("repro_flash_attention_bwd",
+                            [_void_p] * 10 + [_int] * 7 + [_float, _void_p]),
     "swiglu": ("repro_swiglu", [_void_p] * 4 + [_int] * 7 + [_void_p]),
+    "swiglu_bwd": ("repro_swiglu_bwd", [_void_p] * 6 + [_int] * 7 + [_void_p]),
     "ssm_scan": ("repro_ssm_scan",
                  [_void_p] * 9 + [_int] * 5 + [_ll] * 4 + [_void_p]),
     "decode_attention": ("repro_decode_attention",

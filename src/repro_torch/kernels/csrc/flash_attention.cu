@@ -74,6 +74,10 @@
 //     position, KV head, batch row), each warp owning a strided share of the
 //     keys with its own online softmax state for the group's heads, merged
 //     once at the end in a fixed order, as in csrc/packed_attention.cu.
+//   * Training: given an lse pointer, both builds also store each row's
+//     f32 log-sum-exp of its scaled scores, (B, H, Sq), the input the
+//     backward (csrc/flash_attention_bwd.cu) recomputes P from; a split
+//     tile stores it after the merge, so it is the whole row's.
 // Left for a later change: d_v != d_qk (absorbed MLA, ROADMAP A5).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,6 +91,7 @@ namespace g9 = gemm_sm90;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -94,6 +99,7 @@ struct Params {
   const void* v;
   const int32_t* q_offset;   // (B,) or null: q_offset_scalar for every row
   void* out;
+  float* lse;   // (B, H, Sq) f32 row log-sum-exp of the scaled scores, or null
   int sq, skv, n_heads, n_kv, q_offset_scalar;
   long long k_sb, k_ss, v_sb, v_ss;   // element strides over batch and row
   float scale;
@@ -315,6 +321,11 @@ struct Consumer {
       const int pos = pos0 + r / G;
       if (pos >= p.sq) continue;
       const float inv = 1.f / fmaxf(l[h], 1e-30f);
+      // the row's log-sum-exp (m is in log2 units): a split tile stores
+      // here only after its chunks are merged, so it is the whole row's
+      if (p.lse != nullptr && (lane & 3) == 0)
+        p.lse[((long long)b * p.n_heads + kvh * G + r % G) * p.sq + pos] =
+            (m[h] + log2f(fmaxf(l[h], 1e-30f))) * LN2;
       __nv_bfloat16* dst =
           out + (((long long)b * p.sq + pos) * p.n_heads + kvh * G + r % G) * D;
 #pragma unroll
@@ -703,6 +714,9 @@ flash_f32_kernel(const Params p) {
     float lg = 0.f;
     for (int w = 0; w < NUM_WARPS; ++w) lg += sm_l[w][g] * expf(sm_m[w][g] - mg);
     out[(qrow + g) * D + d] = sm_acc[g][d] / fmaxf(lg, 1e-30f);
+    if (p.lse != nullptr && d == 0)
+      p.lse[((long long)b * p.n_heads + kvh * G + g) * p.sq + pos] =
+          mg + logf(fmaxf(lg, 1e-30f));
   }
 }
 
@@ -777,7 +791,10 @@ int launch(int dtype, int group, int head_dim, int batch, const Params& p,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  q (B, Sq, H, D) and
 // out (B, Sq, H, D) are contiguous; k and v are (B, Skv, KV, D) with unit
-// stride over (KV, D) and the given element strides over B and rows.
+// stride over (KV, D) and the given element strides over B and rows.  lse,
+// when not null, receives each row's f32 log-sum-exp of its scaled scores,
+// (B, H, Sq) (the backward's input, csrc/flash_attention_bwd.cu); serving
+// passes null.
 // q_offset is a (B,) int32 device array, or null for q_offset_scalar on
 // every row.  bf16 only: the plan's key chunk (a multiple of 64) and
 // n_chunks = ceil(Skv / chunk) (1 for Skv = 0); when n_chunks > 1, part
@@ -788,7 +805,7 @@ int launch(int dtype, int group, int head_dim, int batch, const Params& p,
 // bases not 16-byte multiples), else the launch's CUDA error code.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, const void* q_offset,
-    void* out, void* part, void* tickets, int dtype, int batch, int sq,
+    void* out, void* lse, void* part, void* tickets, int dtype, int batch, int sq,
     int skv, int n_heads, int n_kv, int head_dim, int q_offset_scalar,
     int chunk, int n_chunks, long long k_stride_b, long long k_stride_s,
     long long v_stride_b, long long v_stride_s, float scale, void* stream) {
@@ -800,6 +817,7 @@ extern "C" int repro_flash_attention(
   p.v = v;
   p.q_offset = static_cast<const int32_t*>(q_offset);
   p.out = out;
+  p.lse = static_cast<float*>(lse);
   p.sq = sq;
   p.skv = skv;
   p.n_heads = n_heads;

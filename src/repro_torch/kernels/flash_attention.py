@@ -11,6 +11,13 @@ count, never from the offset, and ``items`` replays how the kernel decodes
 them.  ``flash_attention_ref`` ports ``src/repro/kernels/ref.py:
 causal_qmask`` and ``flash_attention_ref`` and is what the CPU runs and
 what the card's kernel is held against.
+
+Training differentiates through ``FlashAttentionFn``: on the card its
+forward launches the kernel with the rows' log-sum-exp as a second output
+and its backward the two kernels of ``csrc/flash_attention_bwd.cu`` (dQ,
+then dK/dV); on the CPU it runs ``flash_attention_ref``,
+``flash_attention_lse_ref`` and ``flash_attention_bwd_ref``, the plain
+versions the card's kernels are held against.
 """
 from __future__ import annotations
 
@@ -62,6 +69,18 @@ def causal_qmask(sq: int, skv: int, q_offset: Offset,
     return (qpos[:, :, None] >= kpos[None, None, :])[:, None, None]
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, q_offset: Offset,
+            logit_scale: Optional[float]) -> torch.Tensor:
+    """(B, KV, G, Sq, Skv) f32 scaled scores, NEG_INF where masked."""
+    b, sq, h, d = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if logit_scale is None else logit_scale
+    qg = q.reshape(b, sq, kv, h // kv, d).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    return scores.masked_fill(~causal_qmask(sq, skv, q_offset, q.device),
+                              NEG_INF)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, q_offset: Offset = 0,
                         logit_scale: Optional[float] = None) -> torch.Tensor:
@@ -69,17 +88,51 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H = KV · group.  Scores are scaled by ``logit_scale`` (default
     ``D ** -0.5``) and taken in f32; returns (B, Sq, H, Dv) in q's dtype.
     ``d_v != d_qk`` is taken, as in the JAX ref."""
+    b, sq, h, _ = q.shape
+    probs = torch.softmax(_scores(q, k, q_offset, logit_scale), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                            q_offset: Offset = 0,
+                            logit_scale: Optional[float] = None
+                            ) -> torch.Tensor:
+    """The forward's second output on the card: each row's f32
+    log-sum-exp of its scaled, masked scores, (B, H, Sq)."""
+    b, sq, h, _ = q.shape
+    lse = torch.logsumexp(_scores(q, k, q_offset, logit_scale), dim=-1)
+    return lse.reshape(b, h, sq)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            q_offset: Offset = 0,
+                            logit_scale: Optional[float] = None):
+    """Plain backward: (dq, dk, dv) in the inputs' dtypes, from the
+    forward's ``out`` and row log-sum-exp ``lse`` (B, H, Sq), all in f32:
+    P = exp(s - lse), dV = P^T dO, dS = P (dO V^T - rowsum(dO O)),
+    dQ = scale dS K and dK = scale dS^T Q, dK and dV summed over each KV
+    head's group of query heads."""
     b, sq, h, d = q.shape
     skv, kv = k.shape[1], k.shape[2]
-    dv = v.shape[-1]
+    g = h // kv
     scale = d ** -0.5 if logit_scale is None else logit_scale
-    qg = q.reshape(b, sq, kv, h // kv, d).float()
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    scores = scores.masked_fill(~causal_qmask(sq, skv, q_offset, q.device),
-                                NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
-    return out.reshape(b, sq, h, dv).to(q.dtype)
+    qg = q.reshape(b, sq, kv, g, d).float()
+    dog = dout.reshape(b, sq, kv, g, -1).float()
+    mask = causal_qmask(sq, skv, q_offset, q.device)
+    s = _scores(q, k, q_offset, logit_scale)
+    p = torch.exp(s - lse.reshape(b, kv, g, sq, 1)).masked_fill(~mask, 0.0)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    delta = (dout.float() * out.float()).sum(-1)            # (B, Sq, H)
+    delta = delta.reshape(b, sq, kv, g).permute(0, 2, 3, 1)[..., None]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def plan(b: int, sq: int, skv: int, n_kv: int, group: int,
@@ -132,15 +185,17 @@ def _check(cond: bool, what: str) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, q_offset: Offset = 0,
-                         logit_scale: Optional[float] = None) -> torch.Tensor:
+                         logit_scale: Optional[float] = None,
+                         lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the CUDA kernel (same contract as ``flash_attention_ref``,
     with ``d_v == d_qk``).  K and V are read in place through their (batch,
     row) strides — a slot's view of the serving cache — and each row's
     (KV, D) block must be contiguous; a tensor ``q_offset`` is read on the
-    device (no host sync).  Raises on any input the kernel does not take
-    and on a failed launch; counts launches in
-    ``flash_attention_cuda.launches``."""
-    out = launch(q, k, v, q_offset, logit_scale=logit_scale)
+    device (no host sync).  ``lse``, a contiguous (B, H, Sq) f32 tensor,
+    receives each row's log-sum-exp (``flash_attention_lse_ref``).  Raises
+    on any input the kernel does not take and on a failed launch; counts
+    launches in ``flash_attention_cuda.launches``."""
+    out = launch(q, k, v, q_offset, logit_scale=logit_scale, lse=lse)
     flash_attention_cuda.launches += 1
     return out
 
@@ -150,7 +205,8 @@ flash_attention_cuda.launches = 0
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offset: Offset = 0, sched=None,
-           logit_scale: Optional[float] = None) -> torch.Tensor:
+           logit_scale: Optional[float] = None,
+           lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``flash_attention_cuda`` without the count: checks, then one launch
     of the C entry.  bf16 runs ``sched`` (query tiles, chunk, chunks), by
     default ``plan``'s, and records (query tiles, chunk, chunks, CTAs) in
@@ -186,6 +242,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check(x.data_ptr() % (vec * x.element_size()) == 0,
                f"{name} is not aligned for vector loads")
+    if lse is not None:
+        _check(lse.device == dev and lse.dtype == torch.float32
+               and tuple(lse.shape) == (b, h, sq) and lse.is_contiguous(),
+               f"lse must be a contiguous f32 ({b}, {h}, {sq}) tensor")
     offsets, scalar = None, 0
     if isinstance(q_offset, torch.Tensor):
         _check(q_offset.device == dev and q_offset.dtype == torch.int32
@@ -215,7 +275,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = build.build().fn("flash_attention")
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets,
-                out.data_ptr(), None if part is None else part.data_ptr(),
+                out.data_ptr(), None if lse is None else lse.data_ptr(),
+                None if part is None else part.data_ptr(),
                 tickets, _DTYPES[q.dtype], b, sq, skv,
                 h, kvh, d, scalar, chunk, n_chunks, k.stride(0), k.stride(1),
                 v.stride(0), v.stride(1),
@@ -227,3 +288,109 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 launch.schedule = None
+
+
+# the backward kernels' head dims (csrc/flash_attention_bwd.cu)
+BWD_HEAD_DIMS = (64, 128)
+
+
+def check_backward(q: torch.Tensor, k: torch.Tensor,
+                   q_offset: Offset) -> None:
+    """What the backward kernels take beyond the forward's contract:
+    Sq == Skv, an int q_offset >= 0, head_dim 64 or 128.  Raises
+    ValueError."""
+    _check(q.shape[1] == k.shape[1],
+           f"backward: Sq {q.shape[1]} != Skv {k.shape[1]}")
+    _check(not isinstance(q_offset, torch.Tensor) and int(q_offset) >= 0,
+           "backward: q_offset must be an int >= 0")
+    _check(q.shape[-1] in BWD_HEAD_DIMS,
+           f"backward: head_dim {q.shape[-1]} not in {BWD_HEAD_DIMS}")
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             q_offset: Offset = 0,
+                             logit_scale: Optional[float] = None):
+    """Launch the backward kernels (same contract as
+    ``flash_attention_bwd_ref``): dQ, which also stores rowsum(dO O), then
+    dK/dV, on the current stream.  Every tensor contiguous on one card:
+    q, out, dout (B, S, H, D), k, v (B, S, KV, D), lse (B, H, S) f32.
+    Deterministic: two calls are bitwise equal.  Raises on any input the
+    kernels do not take and on a failed launch; counts launches in
+    ``flash_attention_bwd_cuda.launches``."""
+    dev = q.device
+    _check(dev.type == "cuda", "q is not a CUDA tensor")
+    _check(q.dtype in _DTYPES, f"dtype {q.dtype} (float32 or bfloat16)")
+    _check(q.dim() == 4 and k.dim() == 4, "q (B, S, H, D), k (B, S, KV, D)")
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    check_heads(_check, h, kvh, d)
+    check_backward(q, k, q_offset)
+    for name, x, shape in (("k", k, (b, s, kvh, d)), ("v", v, (b, s, kvh, d)),
+                           ("out", out, (b, s, h, d)),
+                           ("dout", dout, (b, s, h, d))):
+        _check(x.device == dev and x.dtype == q.dtype
+               and tuple(x.shape) == shape,
+               f"{name} must be a {q.dtype} {shape} tensor on {dev}")
+    _check(lse.device == dev and lse.dtype == torch.float32
+           and tuple(lse.shape) == (b, h, s),
+           f"lse must be f32 ({b}, {h}, {s})")
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout), ("lse", lse)):
+        _check(x.is_contiguous(), f"{name} must be contiguous")
+        _check(x.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    fn = build.build().fn("flash_attention_bwd")
+    with torch.cuda.device(dev):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype],
+                b, s, h, kvh, d, int(q_offset),
+                float(d ** -0.5 if logit_scale is None else logit_scale),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: {rc}")
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable causal GQA attention: ``apply(q, k, v, q_offset,
+    logit_scale)``.  On the card the forward kernel also stores the rows'
+    log-sum-exp and the backward runs the two backward kernels; on the CPU
+    the plain versions.  q, k and v are made contiguous here (they may come
+    from RoPE or a transposed view), as is the incoming dO."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, logit_scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if q.device.type == "cuda":
+            check_backward(q, k, q_offset)
+            lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                              dtype=torch.float32, device=q.device)
+            out = flash_attention_cuda(q, k, v, q_offset=q_offset,
+                                       logit_scale=logit_scale, lse=lse)
+        else:
+            out = flash_attention_ref(q, k, v, q_offset=q_offset,
+                                      logit_scale=logit_scale)
+            lse = flash_attention_lse_ref(q, k, q_offset=q_offset,
+                                          logit_scale=logit_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.q_offset, ctx.logit_scale = q_offset, logit_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        fn = flash_attention_bwd_cuda if q.device.type == "cuda" \
+            else flash_attention_bwd_ref
+        dq, dk, dv = fn(q, k, v, out, lse, dout.contiguous(),
+                        q_offset=ctx.q_offset, logit_scale=ctx.logit_scale)
+        return dq, dk, dv, None, None

@@ -3,8 +3,16 @@
 A CUDA tensor always goes to the hand-written kernel (which raises on what
 it does not take); a CPU tensor goes to the kernel's plain PyTorch version.
 There is no environment override and no fallback.  ``impl="plain"`` asks
-for the plain version on any device; it exists for one caller, the
-whole-forward comparison in ``chip_smoke.py``.
+for the plain version on any device (autograd then differentiates its
+PyTorch ops); it exists for the whole-forward and train-step comparisons
+in ``chip_smoke.py``.
+
+Training: where grad mode is on and an input requires grad, SwiGLU and
+flash attention go through their ``torch.autograd.Function`` (the kernels
+and their backward kernels on the card, the plain forward and backward on
+the CPU).  The other kernels have no backward yet: on the card they raise
+a RuntimeError under grad instead of dropping the gradient (``_guard``);
+their plain versions on the CPU stay differentiable.
 """
 from __future__ import annotations
 
@@ -15,7 +23,9 @@ import torch
 from repro_torch.kernels.decode_attention import (
     decode_attention_cuda, decode_attention_ref, paged_decode_attention_cuda,
     paged_decode_attention_ref)
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention_bwd_cuda,
+                                                 flash_attention_cuda,
                                                  flash_attention_ref)
 from repro_torch.kernels.fused_overlap import (fused_overlap_cuda,
                                                fused_overlap_ref)
@@ -24,7 +34,8 @@ from repro_torch.kernels.mla_attention import (mla_attention_cuda,
 from repro_torch.kernels.packed_attention import (packed_attention_cuda,
                                                   packed_attention_ref)
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda, ssm_scan_ref
-from repro_torch.kernels.swiglu import swiglu_cuda, swiglu_ref
+from repro_torch.kernels.swiglu import (SwiGLUFn, swiglu_bwd_cuda,
+                                        swiglu_cuda, swiglu_ref)
 
 IMPLS = (None, "plain")
 
@@ -36,7 +47,9 @@ _COUNTED = {"swiglu": swiglu_cuda, "flash_attention": flash_attention_cuda,
             "ssm_scan": ssm_scan_cuda,
             "paged_decode_attention": paged_decode_attention_cuda,
             "fused_overlap": fused_overlap_cuda,
-            "mla_attention": mla_attention_cuda}
+            "mla_attention": mla_attention_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda,
+            "swiglu_bwd": swiglu_bwd_cuda}
 
 
 def zero_launch_counts() -> None:
@@ -64,6 +77,20 @@ def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:
     raise ValueError(f"no kernel for device {x.device}")
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _guard(name: str, *tensors) -> None:
+    """A kernel without a backward, about to launch: raise rather than
+    return an output that autograd cannot see through."""
+    if _needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; an input requires "
+            "grad (run under torch.no_grad(), or on the CPU's plain path)")
+
+
 def packed_attention(q, k_cache, v_cache, token_slot, lengths, *,
                      kv_bucket: Optional[int] = None,
                      block_tables: Optional[torch.Tensor] = None,
@@ -78,7 +105,10 @@ def packed_attention(q, k_cache, v_cache, token_slot, lengths, *,
     ``k_scale``/``v_scale`` mark int8 caches with per-row scales (§15).
     Scores are scaled by ``logit_scale`` (default D ** -0.5).  The kernel
     takes ``d_v == d_qk`` only: absorbed MLA is ``mla_attention``."""
-    fn = packed_attention_cuda if _use_kernel(q, impl) else packed_attention_ref
+    fn = packed_attention_ref
+    if _use_kernel(q, impl):
+        _guard("packed_attention", q, k_cache, v_cache, k_scale, v_scale)
+        fn = packed_attention_cuda
     return fn(q, k_cache, v_cache, token_slot, lengths, kv_bucket=kv_bucket,
               block_tables=block_tables, k_scale=k_scale, v_scale=v_scale,
               logit_scale=logit_scale)
@@ -93,14 +123,20 @@ def mla_attention(q, c_kv, k_rope, token_slot, lengths, *,
     one KV head for all H; ``c_kv`` (N, S, rank) and ``k_rope`` (N, S,
     rope) are the cache leaves, read in place; ``kv_bucket`` bounds the
     swept rows.  Returns (T, H, rank)."""
-    fn = mla_attention_cuda if _use_kernel(q, impl) else mla_attention_ref
+    fn = mla_attention_ref
+    if _use_kernel(q, impl):
+        _guard("mla_attention", q, c_kv, k_rope)
+        fn = mla_attention_cuda
     return fn(q, c_kv, k_rope, token_slot, lengths, logit_scale=logit_scale,
               kv_bucket=kv_bucket)
 
 
 def swiglu(x, w_gate, w_up, *, impl: Optional[str] = None) -> torch.Tensor:
     """``silu(x @ w_gate) * (x @ w_up)``; x (M, K), weights (K, N)."""
-    fn = swiglu_cuda if _use_kernel(x, impl) else swiglu_ref
+    kernel = _use_kernel(x, impl)
+    if impl != "plain" and _needs_grad(x, w_gate, w_up):
+        return SwiGLUFn.apply(x, w_gate, w_up)
+    fn = swiglu_cuda if kernel else swiglu_ref
     return fn(x, w_gate, w_up)
 
 
@@ -111,7 +147,10 @@ def flash_attention(q, k, v, *, q_offset=0,
     [0, q_offset[b] + i]; q (B, Sq, H, D), k/v (B, Skv, KV, D);
     ``q_offset`` an int or a (B,) int32 tensor; scores scaled by
     ``logit_scale`` (default D ** -0.5)."""
-    fn = flash_attention_cuda if _use_kernel(q, impl) else flash_attention_ref
+    kernel = _use_kernel(q, impl)
+    if impl != "plain" and _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, q_offset, logit_scale)
+    fn = flash_attention_cuda if kernel else flash_attention_ref
     return fn(q, k, v, q_offset=q_offset, logit_scale=logit_scale)
 
 
@@ -121,8 +160,10 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     """One query per row over its length-masked cache row: q (B, H, D),
     caches (B, S, KV, D), rows [0, cache_len[b]) attended; scores scaled
     by ``logit_scale`` (default D ** -0.5)."""
-    fn = decode_attention_cuda if _use_kernel(q, impl) \
-        else decode_attention_ref
+    fn = decode_attention_ref
+    if _use_kernel(q, impl):
+        _guard("decode_attention", q, k_cache, v_cache)
+        fn = decode_attention_cuda
     return fn(q, k_cache, v_cache, cache_len, logit_scale=logit_scale)
 
 
@@ -133,8 +174,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, cache_len, *,
     D), ``page_table`` (B, MAXP) int32 page ids (-1 unused), rows
     [0, cache_len[b]) of row b's pages attended; scores scaled by
     ``logit_scale`` (default D ** -0.5)."""
-    fn = paged_decode_attention_cuda if _use_kernel(q, impl) \
-        else paged_decode_attention_ref
+    fn = paged_decode_attention_ref
+    if _use_kernel(q, impl):
+        _guard("paged_decode_attention", q, k_pages, v_pages)
+        fn = paged_decode_attention_cuda
     return fn(q, k_pages, v_pages, page_table, cache_len,
               logit_scale=logit_scale)
 
@@ -147,6 +190,7 @@ def fused_overlap(x, w, q, k_cache, v_cache, cache_len, *,
     SM-partition ratio); the plain version computes the pair one after the
     other.  Returns (gemm_out, attn_out)."""
     if _use_kernel(x, impl):
+        _guard("fused_overlap", x, w, q, k_cache, v_cache)
         return fused_overlap_cuda(x, w, q, k_cache, v_cache, cache_len,
                                   gemm_fraction=gemm_fraction)
     return fused_overlap_ref(x, w, q, k_cache, v_cache, cache_len)
@@ -156,5 +200,8 @@ def ssm_scan(x, dt, a, b, c, d, h0=None, *, impl: Optional[str] = None):
     """Mamba-1 selective scan: x, dt (B, S, C); a (C, N); b, c (B, S, N);
     d (C,); h0 (B, C, N) f32 or None.  Returns (y (B, S, C) in x's dtype,
     h_final (B, C, N) f32)."""
-    fn = ssm_scan_cuda if _use_kernel(x, impl) else ssm_scan_ref
+    fn = ssm_scan_ref
+    if _use_kernel(x, impl):
+        _guard("ssm_scan", x, dt, a, b, c, d, h0)
+        fn = ssm_scan_cuda
     return fn(x, dt, a, b, c, d, h0)

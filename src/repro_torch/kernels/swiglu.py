@@ -6,6 +6,11 @@ kernel ``src/repro/kernels/swiglu.py:swiglu``; in the port it carries the
 dense FFN's gate and up products.  ``swiglu_ref`` ports
 ``src/repro/kernels/swiglu.py:swiglu_ref``.  ``plan`` chooses the bf16
 kernel's tile and CTA groups.
+
+Training differentiates through ``SwiGLUFn``: its backward recomputes the
+gate and up products in the kernel of ``csrc/swiglu_bwd.cu`` (on the
+CPU ``swiglu_bwd_ref``), which writes dg and du; the products with the
+weights that follow stay ``torch.matmul``.
 """
 from __future__ import annotations
 
@@ -111,3 +116,81 @@ def swiglu_cuda(x: torch.Tensor, w_gate: torch.Tensor,
 
 
 swiglu_cuda.launches = 0
+
+
+def swiglu_bwd_ref(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                   dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain backward of the epilogue: g = x @ w_gate and u = x @ w_up
+    recomputed in f32, then dg = dh · u · silu'(g) and du = dh · silu(g)
+    in f32, both (M, N) in x's dtype."""
+    g = torch.matmul(x.float(), w_gate.float())
+    u = torch.matmul(x.float(), w_up.float())
+    sig = torch.sigmoid(g)
+    dhf = dh.float()
+    dg = dhf * u * (sig * (1.0 + g * (1.0 - sig)))
+    du = dhf * (g * sig)
+    return dg.to(x.dtype), du.to(x.dtype)
+
+
+def swiglu_bwd_cuda(x: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor,
+                    dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel (same contract as ``swiglu_bwd_ref``) at
+    the forward's tile and CTA groups.  Raises on any input the kernel
+    does not take and on a failed launch; counts launches in
+    ``swiglu_bwd_cuda.launches``."""
+    dev = x.device
+    _check(dev.type == "cuda", "x is not a CUDA tensor")
+    _check(w_gate.device == dev and w_up.device == dev and dh.device == dev,
+           "x, w_gate, w_up and dh must share a device")
+    check_operands(x, w_gate, w_up)
+    m, k = x.shape
+    n = w_gate.shape[1]
+    _check(dh.dtype == x.dtype and tuple(dh.shape) == (m, n)
+           and dh.is_contiguous(),
+           f"dh must be a contiguous {x.dtype} ({m}, {n}) tensor")
+    _check(dh.data_ptr() % 16 == 0, "dh is not 16-byte aligned")
+    dg = torch.empty((m, n), dtype=x.dtype, device=dev)
+    du = torch.empty((m, n), dtype=x.dtype, device=dev)
+    fn = build.build().fn("swiglu_bwd")
+    bm, bn, groups = (plan(m, n, _sms(dev.index))
+                      if x.dtype == torch.bfloat16 else (0, 0, 0))
+    with torch.cuda.device(dev):
+        rc = fn(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+                dh.data_ptr(), dg.data_ptr(), du.data_ptr(), _DTYPES[x.dtype],
+                m, n, k, bm, bn, groups,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"swiglu backward launch failed: {rc}")
+    swiglu_bwd_cuda.launches += 1
+    return dg, du
+
+
+swiglu_bwd_cuda.launches = 0
+
+
+class SwiGLUFn(torch.autograd.Function):
+    """Differentiable ``silu(x @ w_gate) * (x @ w_up)``: ``apply(x, w_gate,
+    w_up)``.  The forward is the kernel on the card (``swiglu_ref`` on the
+    CPU) and saves only its inputs; the backward's dg and du come from the
+    backward kernel (``swiglu_bwd_ref``), then dx = dg w_gate^T +
+    du w_up^T, dw_gate = x^T dg and dw_up = x^T du as plain products."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up):
+        x, w_gate, w_up = x.contiguous(), w_gate.contiguous(), \
+            w_up.contiguous()
+        fn = swiglu_cuda if x.device.type == "cuda" else swiglu_ref
+        ctx.save_for_backward(x, w_gate, w_up)
+        return fn(x, w_gate, w_up)
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, w_gate, w_up = ctx.saved_tensors
+        fn = swiglu_bwd_cuda if x.device.type == "cuda" else swiglu_bwd_ref
+        dg, du = fn(x, w_gate, w_up, dh.contiguous())
+        need_x, need_g, need_u = ctx.needs_input_grad
+        dx = torch.matmul(dg, w_gate.T) + torch.matmul(du, w_up.T) \
+            if need_x else None
+        return (dx, torch.matmul(x.T, dg) if need_g else None,
+                torch.matmul(x.T, du) if need_u else None)

@@ -1,6 +1,6 @@
-"""Shared layer primitives: RMSNorm, SiLU, GELU, softplus, RoPE and the
-causal depthwise convolution of the Mamba and xLSTM mixers (ports of
-``repro.models.layers``)."""
+"""Shared layer primitives: RMSNorm, SiLU, GELU, softplus, RoPE, the
+causal depthwise convolution of the Mamba and xLSTM mixers and the
+token-level cross-entropy (ports of ``repro.models.layers``)."""
 from __future__ import annotations
 
 import torch
@@ -138,3 +138,18 @@ def conv_packed(conv_c: torch.Tensor, xs: torch.Tensor, w: torch.Tensor,
                                                hist))
         out.append(y_t[0])
     return torch.stack(out)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token-level xent.  logits (..., V) upcast to f32; labels (...)
+    int.  With ``mask`` the mean is over the masked-in tokens (at least
+    one)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                dim=-1)[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,7 +1,8 @@
 """Unified LM: embedding or frontend stub -> decoder layers -> head (port of
 ``repro.models.model``'s ``init``, ``init_cache``, the packed step's
 ``forward_packed`` and the legacy step's ``forward_full``,
-``forward_decode``, ``forward_chunk`` and ``prefill``).
+``forward_decode``, ``forward_chunk`` and ``prefill``, and training's
+``loss_fn`` with ``forward_full``'s remat policies).
 
 Parameters are plain dicts of tensors in the JAX layouts, with the
 per-layer leaves unstacked into ``params["layers"]`` (a Python loop over
@@ -24,13 +25,14 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.distributed import tp
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import cross_entropy, rmsnorm
 from repro_torch.models.param import (ParamDef, count_params, init_params,
                                       map_defs)
 
@@ -187,10 +189,37 @@ def forward_packed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return _head(cfg, params, x), cache
 
 
+# JAX's remat policies (``repro.models.model._remat``), applied per layer
+REMAT = ("none", "full", "dots", "dots_no_batch")
+
+
+def _remat_context(policy: str):
+    """``context_fn`` of ``torch.utils.checkpoint`` for a policy: ``full``
+    saves nothing of the layer (None: plain checkpointing); ``dots`` saves
+    every matrix product's output and recomputes the rest, as
+    ``jax.checkpoint_policies.checkpoint_dots``; ``dots_no_batch`` saves
+    the products without a batch axis only (``mm``, ``addmm``, not
+    ``bmm``), as ``checkpoint_dots_with_no_batch_dims``."""
+    if policy == "full":
+        return None
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    aten = torch.ops.aten
+    saved = {aten.mm.default, aten.addmm.default}
+    if policy == "dots":
+        saved |= {aten.bmm.default, aten.baddbmm.default}
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
+
+
 def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                  patches: Optional[torch.Tensor] = None,
                  positions: Optional[torch.Tensor] = None, q_offset=0,
-                 return_states: bool = False, impl: Optional[str] = None):
+                 return_states: bool = False, impl: Optional[str] = None,
+                 remat: str = "none"):
     """Whole-chunk causal forward (prefill; the recompute path).  tokens:
     (B, S) ((B, S, K) for audio); the vision stub's ``patches`` (B, P, D)
     come first in the sequence, so S counts them too below.  ``q_offset``
@@ -202,7 +231,16 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     each (B, S, KV, hd) (MLA: the latent ``(c_kv, k_rope)``), for an
     attention layer and its final recurrent state for the others, for
     handing off to a decode cache.  ``aux`` is the MoE balance loss summed
-    over the layers (0 without experts)."""
+    over the layers (0 without experts).
+
+    ``remat`` (one of ``REMAT``) recomputes each layer's activations in
+    the backward instead of keeping them (``torch.utils.checkpoint``,
+    non-reentrant, per layer; JAX applies its policy to the scanned layer
+    group); it does not combine with ``return_states``."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
+    if remat != "none" and return_states:
+        raise ValueError("remat does not return states")
     x = _embed(cfg, params, tokens, patches)
     b, s = x.shape[0], x.shape[1]
     if positions is None:
@@ -216,14 +254,42 @@ def forward_full(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     states = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in zip(cfg.layer_specs(), params["layers"]):
-        x, a, st = blocks.block_full(cfg, spec, p, x, positions,
-                                     q_offset=q_offset,
-                                     return_state=return_states, impl=impl)
+        if remat == "none":
+            x, a, st = blocks.block_full(cfg, spec, p, x, positions,
+                                         q_offset=q_offset,
+                                         return_state=return_states,
+                                         impl=impl)
+        else:
+            layer = functools.partial(blocks.block_full, cfg, spec, p,
+                                      positions=positions, q_offset=q_offset,
+                                      impl=impl)
+            context = _remat_context(remat)
+            x, a, st = torch.utils.checkpoint.checkpoint(
+                layer, x, use_reentrant=False,
+                **({} if context is None else {"context_fn": context}))
         if a is not None:
             aux = aux + a
         states.append(st)
     logits = _head(cfg, params, x)
     return (logits, aux, states) if return_states else (logits, aux)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
+            remat: str = "none", aux_weight: float = 0.01,
+            impl: Optional[str] = None):
+    """batch: {tokens, labels[, patches]} tensors; labels < 0 are masked
+    out.  With the vision stub's patches the loss is taken on the text
+    positions only (after the patch prefix).  Returns (xent + aux_weight ·
+    aux, {"xent", "aux"})."""
+    patches = batch.get("patches")
+    logits, aux = forward_full(cfg, params, batch["tokens"], patches=patches,
+                               remat=remat, impl=impl)
+    labels = batch["labels"]
+    if cfg.frontend == "vision" and patches is not None:
+        logits = logits[:, patches.shape[1]:]
+    mask = (labels >= 0).to(torch.float32)
+    xent = cross_entropy(logits, torch.clamp(labels, min=0), mask)
+    return xent + aux_weight * aux, {"xent": xent, "aux": aux}
 
 
 def forward_decode(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

@@ -154,11 +154,15 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         dispatch = dispatch[:, :, ctx.rank * e_loc:(ctx.rank + 1) * e_loc]
         combine = combine[:, :, ctx.rank * e_loc:(ctx.rank + 1) * e_loc]
     wdt = torch.promote_types(torch.bfloat16, p["w_gate"].dtype)
-    # one token per (expert, group, row): the dispatch sums are exact
+    # one token per (expert, group, row): the dispatch sums are exact.  The
+    # bf16 expert_in is promoted in each product, as JAX's einsums do, so
+    # that the backward rounds each product's gradient to bf16 before
+    # summing them, as JAX's autodiff does
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch,
-                             grouped.to(torch.bfloat16)).to(wdt)
-    h = silu(torch.einsum("egcd,edf->egcf", expert_in, p["w_gate"])) * \
-        torch.einsum("egcd,edf->egcf", expert_in, p["w_up"])
+                             grouped.to(torch.bfloat16))
+    h = silu(torch.einsum("egcd,edf->egcf", expert_in.to(wdt),
+                          p["w_gate"])) * \
+        torch.einsum("egcd,edf->egcf", expert_in.to(wdt), p["w_up"])
     expert_out = torch.einsum("egcf,efd->egcd", h, p["w_down"])
     y = tp.psum(torch.einsum("gsec,egcd->gsd",
                              combine.to(torch.bfloat16).to(expert_out.dtype),

@@ -142,3 +142,24 @@ def serve_cases(cases: list, wrong_world_cfg=None) -> dict:
         except RuntimeError as e:
             out["wrong_world"] = str(e)
     return out
+
+
+def compressed_steps(g: np.ndarray, steps: int) -> dict:
+    """Rank r of the group holds row r of ``g`` as its gradient and runs
+    ``steps`` int8 all-reduces with error feedback
+    (``distributed.compression``); returns each step's reduced row and the
+    residuals after the last, gathered from every rank, and the plain
+    mean."""
+    from repro_torch.distributed import compression
+    rank = dist.get_rank()
+    grads = {"w": torch.from_numpy(g[rank].copy())}
+    res = compression.compress_state_init(grads)
+    outs = []
+    for _ in range(steps):
+        out, res = compression.compressed_all_reduce(grads, res)
+        outs.append(out["w"].numpy().copy())
+    gathered = [torch.zeros_like(res["w"]) for _ in range(dist.get_world_size())]
+    dist.all_gather(gathered, res["w"])
+    plain = compression.plain_all_reduce(grads)["w"].numpy()
+    return {"outs": outs, "res": [r.numpy() for r in gathered],
+            "plain": plain}

@@ -1702,3 +1702,229 @@ def test_tp_one_rank_nccl_row_parallel_and_async_wait(cuda, tmp_path):
         assert float(buf[0]) == 1.0
     finally:
         dist.destroy_process_group()
+
+
+# ---- training: the backward kernels, the guard, a train step on the card ---
+# the backward kernels' shape grid: groups 1, 4 and 8 at head_dim 64 and
+# 128, group 7 at 128, at Sq 1000 (ragged tiles) and 2048
+BWD_HEADS = [(1, 64), (4, 64), (8, 64), (1, 128), (4, 128), (8, 128),
+             (7, 128)]
+# rel-norm bounds against the plain backward: bf16 rounds P and dS to bf16
+# (2^-9) as the products' inputs and the outputs once; f32 sums in another
+# order
+BWD_REL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def _relnorm(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp(min=1e-30))
+
+
+def _bwd_inputs(cuda, dtype, group, d, s, b=1, kv=2, seed=0):
+    rng = np.random.default_rng(seed)
+    h = kv * group
+    return (_normal(rng, cuda, dtype, b, s, h, d),
+            _normal(rng, cuda, dtype, b, s, kv, d),
+            _normal(rng, cuda, dtype, b, s, kv, d),
+            _normal(rng, cuda, dtype, b, s, h, d))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1000, 2048])
+@pytest.mark.parametrize("group,d", BWD_HEADS)
+def test_flash_attention_bwd_kernel(cuda, group, d, s, dtype):
+    """The forward's row log-sum-exp and dQ, dK, dV of the two backward
+    kernels against the plain versions; each call counts one launch."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs(cuda, dtype, group, d, s, seed=group + s)
+    lse = torch.empty((1, q.shape[2], s), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention_cuda(q, k, v, lse=lse)
+    torch.testing.assert_close(lse, fa.flash_attention_lse_ref(q, k),
+                               rtol=0, atol=1e-4)
+    before = fa.flash_attention_bwd_cuda.launches
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_cuda.launches == before + 1
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _relnorm(g, w) <= BWD_REL[dtype], name
+
+
+def test_flash_attention_bwd_split_forward_lse(cuda):
+    """One query tile over 4096 keys: the forward's plan splits the keys
+    into chunks, and the stored log-sum-exp is the merged row's."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(3)
+    q = _normal(rng, cuda, "bfloat16", 1, 64, 32, 128)
+    k = _normal(rng, cuda, "bfloat16", 1, 4096, 8, 128)
+    lse = torch.empty((1, 32, 64), dtype=torch.float32, device=cuda)
+    fa.flash_attention_cuda(q, k, k, q_offset=4000, lse=lse)
+    assert fa.launch.schedule[2] > 1
+    torch.testing.assert_close(lse, fa.flash_attention_lse_ref(
+        q, k, q_offset=4000), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_are_deterministic(cuda, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import swiglu as sw
+    q, k, v, do = _bwd_inputs(cuda, dtype, 4, 128, 1000, b=2, seed=5)
+    lse = torch.empty((2, 8, 1000), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention_cuda(q, k, v, lse=lse)
+    first = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    second = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    rng = np.random.default_rng(6)
+    x = _normal(rng, cuda, dtype, 300, 512)
+    w = [_normal(rng, cuda, dtype, 512, 1024) / 512 ** 0.5 for _ in range(2)]
+    dh = _normal(rng, cuda, dtype, 300, 1024)
+    a = sw.swiglu_bwd_cuda(x, *w, dh)
+    b = sw.swiglu_bwd_cuda(x, *w, dh)
+    assert all(torch.equal(p, r) for p, r in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype,m", [("bfloat16", 8), ("bfloat16", 64),
+                                     ("bfloat16", 257), ("bfloat16", 4096),
+                                     ("float32", 70), ("float32", 300)])
+def test_swiglu_bwd_kernel(cuda, m, dtype):
+    """dg and du against the plain backward, on the forward's tiles (swap
+    AB up to 64 rows, 128 x 128 above), ragged M and N."""
+    from repro_torch.kernels import swiglu as sw
+    rng = np.random.default_rng(m)
+    x = _normal(rng, cuda, dtype, m, 512)
+    wg = _normal(rng, cuda, dtype, 512, 1000) / 512 ** 0.5
+    wu = _normal(rng, cuda, dtype, 512, 1000) / 512 ** 0.5
+    dh = _normal(rng, cuda, dtype, m, 1000)
+    before = sw.swiglu_bwd_cuda.launches
+    got = sw.swiglu_bwd_cuda(x, wg, wu, dh)
+    torch.cuda.synchronize()
+    assert sw.swiglu_bwd_cuda.launches == before + 1
+    for g, w in zip(got, sw.swiglu_bwd_ref(x, wg, wu, dh)):
+        assert g.dtype == x.dtype
+        assert _relnorm(g, w) <= BWD_REL[dtype]
+
+
+def test_training_through_ops_reaches_every_input(cuda):
+    """Under grad, ``ops.flash_attention`` and ``ops.swiglu`` go through
+    their Functions: the gradients reach q, k, v and x and both weights,
+    and agree with autograd of the plain versions."""
+    rng = np.random.default_rng(8)
+    q, k, v, do = (t.requires_grad_(True) if i < 3 else t for i, t in
+                   enumerate(_bwd_inputs(cuda, "bfloat16", 4, 128, 256,
+                                         seed=8)))
+    got = torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), do)
+    want = torch.autograd.grad(ops.flash_attention(q, k, v, impl="plain"),
+                               (q, k, v), do)
+    for g, w in zip(got, want):
+        assert _relnorm(g, w) <= BWD_REL["bfloat16"]
+    x = _normal(rng, cuda, "bfloat16", 128, 256).requires_grad_(True)
+    wg, wu = (_normal(rng, cuda, "bfloat16", 256, 512).requires_grad_(True)
+              for _ in range(2))
+    dh = _normal(rng, cuda, "bfloat16", 128, 512)
+    got = torch.autograd.grad(ops.swiglu(x, wg, wu), (x, wg, wu), dh)
+    want = torch.autograd.grad(ops.swiglu(x, wg, wu, impl="plain"),
+                               (x, wg, wu), dh)
+    for g, w in zip(got, want):
+        assert _relnorm(g, w) <= BWD_REL["bfloat16"]
+
+
+GUARDED = ["packed_attention", "mla_attention", "decode_attention",
+           "paged_decode_attention", "fused_overlap", "ssm_scan"]
+
+
+def _guarded_call(cuda, name):
+    """(ops entry, args, kwargs) of a kernel without a backward on small
+    valid bf16 inputs."""
+    dt = "bfloat16"
+    rng = np.random.default_rng(9)
+    if name in ("packed_attention", "decode_attention"):
+        q = _normal(rng, cuda, dt, 5, 8, 128)
+        kc, vc = (_normal(rng, cuda, dt, 5, 64, 2, 128) for _ in range(2))
+        lens = torch.tensor([1, 10, 33, 64, 50], dtype=torch.int32,
+                            device=cuda)
+        if name == "decode_attention":
+            return ops.decode_attention, (q, kc, vc, lens), {}
+        slot = torch.arange(5, dtype=torch.int32, device=cuda)
+        return ops.packed_attention, (q, kc, vc, slot, lens), {}
+    if name == "mla_attention":
+        slot, lens, bucket, n, s = _mla_stream("decode")
+        q, c_kv, k_rope = _mla_operands(cuda, dt, len(slot), 64, n, s)
+        return ops.mla_attention, (q, c_kv, k_rope,
+                                   *_mla_call(cuda, slot, lens)), \
+            dict(logit_scale=MLA_SCALE)
+    if name == "paged_decode_attention":
+        return ops.paged_decode_attention, _paged_args(cuda, dt, 4, 128, 6), {}
+    if name == "fused_overlap":
+        return ops.fused_overlap, _overlap_args(cuda, dt, 70, 136, 200), {}
+    return ops.ssm_scan, _scan_args(cuda, dt, 2, 8, 70), {}
+
+
+@pytest.mark.parametrize("name", GUARDED)
+def test_kernels_without_a_backward_raise_under_grad(cuda, name):
+    """An input that requires grad stops the launch with a RuntimeError
+    naming the kernel (the output would carry no gradient); under
+    ``torch.no_grad()`` the same call launches."""
+    fn, args, kw = _guarded_call(cuda, name)
+    args = [args[0].detach().requires_grad_(True), *args[1:]]
+    before = ops.launch_counts()[name]
+    with pytest.raises(RuntimeError, match=name):
+        fn(*args, **kw)
+    assert ops.launch_counts()[name] == before
+    with torch.no_grad():
+        fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+
+
+def test_tiny_toy_train_on_the_card_matches_the_cpu(cuda):
+    """Three bf16 AdamW steps of tiny-toy from the same weights and
+    batches on the card (the kernels and their backward kernels) and on
+    the CPU (the plain versions): each step's loss within bf16 tolerance,
+    the first step's gradients with cosine >= 0.99 on every leaf, and the
+    weights within the updates' own size (an AdamW step moves a weight by
+    at most about lr, so a near-zero gradient that the two devices round
+    to opposite signs moves it by 2 lr)."""
+    from repro_torch.training import optimizer
+    from repro_torch.training.data import DataConfig, synthetic_stream
+    from repro_torch.training.trainer import (TrainConfig, batch_to_device,
+                                              make_train_step)
+    cfg = get_config("tiny-toy")
+    tc = TrainConfig(opt=optimizer.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                               total_steps=3))
+    host = model.init(cfg, seed=0, device="cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = optimizer.tree_map(lambda p: p.to(dev), host)
+        state = optimizer.adamw_init(params)
+        step = make_train_step(cfg, tc)
+        stream = synthetic_stream(DataConfig(batch=2, seq_len=128,
+                                             vocab_size=cfg.vocab_size))
+        losses = []
+        for _ in range(3):
+            params, state, m = step(params, state,
+                                    batch_to_device(next(stream), dev))
+            losses.append(float(m["loss"]))
+        runs[dev] = (losses, params)
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert abs(a - b) <= 2e-2 * abs(b)
+    batch = next(synthetic_stream(DataConfig(batch=2, seq_len=128,
+                                             vocab_size=cfg.vocab_size)))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = {path: p.detach().clone().to(dev).requires_grad_(True)
+                  for path, p in optimizer.tree_leaves(host)}
+        loss, _ = model.loss_fn(cfg, optimizer.rebuild(host, leaves),
+                                batch_to_device(batch, dev))
+        grads[dev] = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+    for path, b in grads["cpu"].items():
+        a = grads["cuda"][path].cpu().float().flatten()
+        cos = torch.nn.functional.cosine_similarity(a, b.float().flatten(),
+                                                    dim=0)
+        assert float(cos) >= 0.99, path
+    lr_sum = 3 * 1e-3
+    for (path, a), (_, b) in zip(optimizer.tree_leaves(runs["cuda"][1]),
+                                 optimizer.tree_leaves(runs["cpu"][1])):
+        diff = (a.cpu().float() - b.float()).abs().max()
+        assert float(diff) <= 2 * lr_sum + 1e-2 * float(b.abs().max()), path

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.launch import plan, serve
+from repro_torch.launch import plan, serve, train
 from repro_torch.models import model
 from repro_torch.models.convert import from_jax_params
 from repro_torch.serving.engine import ServeEngine
@@ -42,7 +42,9 @@ def test_the_scan_sees_the_port():
     names = {p.name for p in FILES}
     assert {"engine.py", "attention.py", "ops.py", "build.py", "pool.py",
             "router.py", "serve.py", "elastic.py", "chip_smoke.py",
-            "costmodel.py", "pipeline.py", "autosearch.py", "plan.py"} <= names
+            "costmodel.py", "pipeline.py", "autosearch.py", "plan.py",
+            "trainer.py", "optimizer.py", "data.py", "checkpoint.py",
+            "compression.py", "train.py"} <= names
 
 
 def _no_card(monkeypatch):
@@ -65,6 +67,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError):       # before any weight is drawn
         serve.main(["--arch", "tiny-toy", "--requests", "1"])
+    with pytest.raises(RuntimeError):       # the train CLI, on cuda by default
+        train.main(["--arch", "tiny-toy", "--steps", "1"])
     assert resolve_device("cpu").type == "cpu"
 
 
