@@ -320,8 +320,10 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -421,8 +423,8 @@ TP_LAYERS = 2           # the phase's share of the 1200 s limit kept small
 TRAIN_LAYERS = 2
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_BWD_GRID = [(1, 64), (4, 64), (8, 64), (1, 128), (4, 128), (8, 128),
-                  (7, 128)]
-TRAIN_BWD_SQ = (1000, 2048)
+                  (7, 128), (3, 128), (9, 128)]
+TRAIN_BWD_SQ = (256, 1000, 2048)
 TRAIN_BWD_REL = {"bfloat16": 2e-2, "float32": 1e-4}
 LSE_ATOL = 1e-4
 TRAIN_GRAD_COS_MIN = 0.995
@@ -435,6 +437,7 @@ TRAIN_LR = 1e-5         # AdamW's first steps move every weight by ~lr
 # keep the crash at step 3 after the step-2 checkpoint and a save after
 # the restart, with two saves and one restore
 TRAIN_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 4, 3, 2
+TRAIN_TOP = 12          # device kernels listed from the profiled step
 # the kernels a train step launches, and the two backward kernels: source
 # and the TPU kernel whose gradient each computes (JAX differentiates
 # through XLA: no backward Pallas kernel)
@@ -3989,8 +3992,8 @@ def phase_train_kernels(torch, timer, bw, peak) -> dict:
                 *args)
             worst[dtype] = max(worst.get(dtype, 0.0), max(errs))
             del args
-        log(f"train: flash backward grid (G 1/4/8 x head_dim 64/128, G 7 "
-            f"at 128, x Sq {TRAIN_BWD_SQ}, 2 KV heads) in {dtype}: worst "
+        log(f"train: flash backward grid (G 1/4/8 x head_dim 64/128, G "
+            f"3/7/9 at 128, x Sq {TRAIN_BWD_SQ}, 2 KV heads) in {dtype}: worst "
             f"dq/dk/dv rel-norm {worst[dtype]:.3e} (bound "
             f"{bwd_rel(dtype)}); each forward's log-sum-exp within "
             f"{LSE_ATOL}")
@@ -4005,7 +4008,19 @@ def phase_train_kernels(torch, timer, bw, peak) -> dict:
     second = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
     if not all(torch.equal(a, c) for a, c in zip(first, second)):
         raise AssertionError("train: two flash backward calls differ")
-    del first, second
+    # the same call as a new host thread's first CUDA work, as autograd's
+    # device thread makes it: no context is current there yet
+    fresh = {}
+    thread = threading.Thread(target=lambda: fresh.update(
+        grads=fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)))
+    thread.start()
+    thread.join()
+    torch.cuda.synchronize()
+    if "grads" not in fresh or not all(
+            torch.equal(a, c) for a, c in zip(first, fresh["grads"])):
+        raise AssertionError("train: the flash backward from a fresh thread "
+                             "failed or differs")
+    del first, second, fresh
     ms = timer(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, do))
     plain_ms = timer(lambda: fa.flash_attention_bwd_ref(q, k, v, out, lse,
                                                         do))
@@ -4021,6 +4036,9 @@ def phase_train_kernels(torch, timer, bw, peak) -> dict:
         torch.autograd.grad(lib_out, (qs, ks, vs), dos, retain_graph=True),
         fa.flash_attention_bwd_ref(q, k, v, out, lse, do)))
     del lib_out, qs, ks, vs, dos
+    log(f"train: flash backward kernel_ms {ms:.4f} vs SDPA's backward "
+        f"library_ms {ms / lib_ms:.3f}x ({lib_ms:.4f}): "
+        f"{'at or under' if ms <= lib_ms else 'over'} the library's time")
     # the least time: the five causal products the function needs (S
     # recomputed from L, dP, dV, dQ, dK; 2 d flops per visible pair each)
     # at the bf16 peak, or q, O, dO, dQ (the query heads' width), k, v, dK,
@@ -4039,8 +4057,9 @@ def phase_train_kernels(torch, timer, bw, peak) -> dict:
                 "backward")}
     log(f"train: flash backward ({b},{s},{h}/{kv},{d}) bf16: dq/dk/dv "
         f"rel-norm {[f'{e:.3e}' for e in errs]} max_abs_err {max_abs:.3e}, "
-        f"two calls bitwise equal; kernel_ms {ms:.3f}  plain_ms "
-        f"{plain_ms:.3f}  library_ms {lib_ms:.3f} (SDPA backward; its "
+        f"two calls and a fresh thread's call bitwise equal; kernel_ms "
+        f"{ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {lib_ms:.4f} (SDPA "
+        f"backward; its "
         f"rel-norm vs plain {lib_err:.2e})  bound_ms "
         f"{max(t_ops, t_bytes):.3f} ({flops / 1e9:.1f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB; {flops / ms / 1e9:.1f} TFLOP/s) "
@@ -4108,8 +4127,9 @@ def phase_train_kernels(torch, timer, bw, peak) -> dict:
 
 def step_profile(torch, step_fn, params, state, batch) -> tuple:
     """One train step timed on the host (ending in a synchronize) and once
-    more under torch.profiler: (wall ms, device busy ms, new params, new
-    state)."""
+    more under torch.profiler: (wall ms, device busy ms, device ms by
+    kernel name, new params, new state), the busy time summed from the
+    trace's device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -4120,9 +4140,21 @@ def step_profile(torch, step_fn, params, state, batch) -> tuple:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         params, state, _ = step_fn(params, state, batch)
         torch.cuda.synchronize()
-    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA) / 1e6
-    return wall, busy, params, state
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + \
+                e.duration_ns() / 1e6
+    return wall, sum(by_name.values()), by_name, params, state
+
+
+def kernel_label(name: str) -> str:
+    """A device event's name without its return type, namespaces and
+    argument list, cut to 80 characters (the template arguments that tell
+    PyTorch's elementwise kernels apart kept where they fit)."""
+    for cut in ("void ", "(anonymous namespace)::", "at::native::"):
+        name = name.replace(cut, "")
+    return name.split("(", 1)[0][:80]
 
 
 def phase_train(torch, timer, bw, peak) -> tuple[dict, dict]:
@@ -4206,11 +4238,25 @@ def phase_train(torch, timer, bw, peak) -> tuple[dict, dict]:
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError("train: the loss did not fall on a repeated "
                              "batch, or was not finite")
-    wall, busy, p, st = step_profile(torch, step_fn, p, st, batch)
+    wall, busy, by_name, p, st = step_profile(torch, step_fn, p, st, batch)
     log(f"train: one step wall {wall:.1f} ms, device busy {busy:.1f} ms "
         f"(profiled step), idle share {max(0.0, 1 - busy / wall):.3f}; peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
         f"({card_line()})")
+    by_kernel = {}
+    for name, ms in by_name.items():
+        label = kernel_label(name)
+        by_kernel[label] = by_kernel.get(label, 0.0) + ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:TRAIN_TOP]
+    flash_bwd = sum(ms for label, ms in by_kernel.items()
+                    if label.startswith("flash_bwd_bf16")
+                    or label.startswith("flash_bwd_p"))
+    log(f"train: the profiled step's top {len(top)} device kernels by share "
+        f"of its {busy:.1f} ms busy (trace events summed by name): " +
+        "; ".join(f"{label} {ms:.2f} ms {ms / busy:.3f}"
+                  for label, ms in top) +
+        f"; flash backward (its 3 launches x {TRAIN_LAYERS} layers) "
+        f"{flash_bwd:.2f} ms {flash_bwd / busy:.3f}")
     del p, st, m
     torch.cuda.empty_cache()
 

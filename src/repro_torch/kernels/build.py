@@ -63,7 +63,7 @@ SIGNATURES = {
                         [_void_p] * 8 + [_int] * 10 + [_ll] * 4
                         + [_float, _void_p]),
     "flash_attention_bwd": ("repro_flash_attention_bwd",
-                            [_void_p] * 10 + [_int] * 7 + [_float, _void_p]),
+                            [_void_p] * 12 + [_int] * 7 + [_float, _void_p]),
     "swiglu": ("repro_swiglu", [_void_p] * 4 + [_int] * 7 + [_void_p]),
     "swiglu_bwd": ("repro_swiglu_bwd", [_void_p] * 6 + [_int] * 7 + [_void_p]),
     "ssm_scan": ("repro_ssm_scan",

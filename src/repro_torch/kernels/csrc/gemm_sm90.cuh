@@ -555,7 +555,18 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
+// cuTensorMapEncodeTiled, and the device's primary context made current on
+// the calling thread first: the encoder is a driver call and refuses a map
+// (CUDA_ERROR_INVALID_CONTEXT) on a thread with no current context, such
+// as autograd's device thread before anything has launched from it.  The
+// runtime's cudaSetDevice binds the context; once a thread.
 static inline EncodeTiled encoder() {
+  static thread_local bool bound = false;
+  if (!bound) {
+    int dev = 0;
+    bound = cudaGetDevice(&dev) == cudaSuccess &&
+            cudaSetDevice(dev) == cudaSuccess;
+  }
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

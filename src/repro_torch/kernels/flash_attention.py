@@ -14,10 +14,11 @@ what the card's kernel is held against.
 
 Training differentiates through ``FlashAttentionFn``: on the card its
 forward launches the kernel with the rows' log-sum-exp as a second output
-and its backward the two kernels of ``csrc/flash_attention_bwd.cu`` (dQ,
-then dK/dV); on the CPU it runs ``flash_attention_ref``,
-``flash_attention_lse_ref`` and ``flash_attention_bwd_ref``, the plain
-versions the card's kernels are held against.
+and its backward ``csrc/flash_attention_bwd.cu`` (in bf16 one key-major
+pass with dQ summed in a fixed order); on the CPU it runs
+``flash_attention_ref``, ``flash_attention_lse_ref`` and
+``flash_attention_bwd_ref``, the plain versions the card's kernels are
+held against.
 """
 from __future__ import annotations
 
@@ -294,6 +295,17 @@ launch.schedule = None
 BWD_HEAD_DIMS = (64, 128)
 
 
+def bwd_scratch(b: int, s: int, n_kv: int, group: int,
+                d: int) -> tuple[int, int, int]:
+    """The bf16 backward's scratch, in elements: L log2(e) and D per packed
+    query row (f32), the dQ sums (f32), and the order counters (int32: one
+    per query tile, then the work counter).  A query tile is the forward's
+    64 packed rows, 64 // group positions x the group's heads, of one
+    (batch row, KV head)."""
+    tiles = b * n_kv * -(-s // (BLOCK_M // group))
+    return tiles * 2 * BLOCK_M, tiles * BLOCK_M * d, tiles + 1
+
+
 def check_backward(q: torch.Tensor, k: torch.Tensor,
                    q_offset: Offset) -> None:
     """What the backward kernels take beyond the forward's contract:
@@ -313,9 +325,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              q_offset: Offset = 0,
                              logit_scale: Optional[float] = None):
     """Launch the backward kernels (same contract as
-    ``flash_attention_bwd_ref``): dQ, which also stores rowsum(dO O), then
-    dK/dV, on the current stream.  Every tensor contiguous on one card:
-    q, out, dout (B, S, H, D), k, v (B, S, KV, D), lse (B, H, S) f32.
+    ``flash_attention_bwd_ref``) on the current stream: in bf16 the
+    preprocess (rowsum(dO O) and L per packed row), the key-major kernel
+    (dK, dV and dQ's f32 sums), then the postprocess that writes dQ
+    (``bwd_scratch`` sizes their scratch; the order counters are
+    ``split_kv_tickets``, left zero); in f32 dQ, which also stores
+    rowsum(dO O), then dK/dV.  Every tensor contiguous on one card: q,
+    out, dout (B, S, H, D), k, v (B, S, KV, D), lse (B, H, S) f32.
     Deterministic: two calls are bitwise equal.  Raises on any input the
     kernels do not take and on a failed launch; counts launches in
     ``flash_attention_bwd_cuda.launches``."""
@@ -340,18 +356,30 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                     ("dout", dout), ("lse", lse)):
         _check(x.is_contiguous(), f"{name} must be contiguous")
         _check(x.data_ptr() % 16 == 0, f"{name} is not 16-byte aligned")
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    acc, counters = None, None
+    if q.dtype == torch.bfloat16:
+        ld_n, acc_n, ctr_n = bwd_scratch(b, s, kvh, h // kvh, d)
+        # held until the launches are enqueued: freed earlier, a block
+        # could come back as an output
+        scratch = torch.empty(ld_n, dtype=torch.float32, device=dev)
+        acc = torch.empty(acc_n, dtype=torch.float32, device=dev)
+        counters = split_kv_tickets(dev, stream, ctr_n)
+    else:
+        scratch = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     fn = build.build().fn("flash_attention_bwd")
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                None if acc is None else acc.data_ptr(),
+                None if counters is None else counters.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype],
                 b, s, h, kvh, d, int(q_offset),
                 float(d ** -0.5 if logit_scale is None else logit_scale),
-                torch.cuda.current_stream(dev).cuda_stream)
+                stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward launch failed: {rc}")
     flash_attention_bwd_cuda.launches += 1
@@ -364,7 +392,7 @@ flash_attention_bwd_cuda.launches = 0
 class FlashAttentionFn(torch.autograd.Function):
     """Differentiable causal GQA attention: ``apply(q, k, v, q_offset,
     logit_scale)``.  On the card the forward kernel also stores the rows'
-    log-sum-exp and the backward runs the two backward kernels; on the CPU
+    log-sum-exp and the backward runs the backward kernels; on the CPU
     the plain versions.  q, k and v are made contiguous here (they may come
     from RoPE or a transposed view), as is the incoming dO."""
 

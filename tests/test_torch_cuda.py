@@ -17,6 +17,7 @@ on the engine-shaped streams in bf16 at one output rounding (1e-3 +
 import _torch_threads  # noqa: F401  (first: one torch thread)
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -1706,9 +1707,10 @@ def test_tp_one_rank_nccl_row_parallel_and_async_wait(cuda, tmp_path):
 
 # ---- training: the backward kernels, the guard, a train step on the card ---
 # the backward kernels' shape grid: groups 1, 4 and 8 at head_dim 64 and
-# 128, group 7 at 128, at Sq 1000 (ragged tiles) and 2048
+# 128, groups 7, 3 and 9 (63-row query tiles) at 128, at Sq 256 (two key
+# tiles), 1000 (ragged tiles) and 2048
 BWD_HEADS = [(1, 64), (4, 64), (8, 64), (1, 128), (4, 128), (8, 128),
-             (7, 128)]
+             (7, 128), (3, 128), (9, 128)]
 # rel-norm bounds against the plain backward: bf16 rounds P and dS to bf16
 # (2^-9) as the products' inputs and the outputs once; f32 sums in another
 # order
@@ -1730,7 +1732,7 @@ def _bwd_inputs(cuda, dtype, group, d, s, b=1, kv=2, seed=0):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s", [1000, 2048])
+@pytest.mark.parametrize("s", [256, 1000, 2048])
 @pytest.mark.parametrize("group,d", BWD_HEADS)
 def test_flash_attention_bwd_kernel(cuda, group, d, s, dtype):
     """The forward's row log-sum-exp and dQ, dK, dV of the two backward
@@ -1749,6 +1751,115 @@ def test_flash_attention_bwd_kernel(cuda, group, d, s, dtype):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert _relnorm(g, w) <= BWD_REL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q_offset", [64, 700])
+@pytest.mark.parametrize("group,d", [(4, 128), (3, 128), (9, 128), (1, 64)])
+def test_flash_attention_bwd_kernel_offsets(cuda, group, d, q_offset, dtype):
+    """A positive offset at Sq 1000: the key tiles' first query tiles and
+    the query tiles' last key tiles move, and key tiles past a row's
+    reach are never visited."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs(cuda, dtype, group, d, 1000,
+                              seed=group + q_offset)
+    lse = torch.empty((1, q.shape[2], 1000), dtype=torch.float32,
+                      device=cuda)
+    out = fa.flash_attention_cuda(q, k, v, q_offset=q_offset, lse=lse)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                      q_offset=q_offset)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                      q_offset=q_offset)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _relnorm(g, w) <= BWD_REL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_train_shape(cuda, dtype):
+    """chip_smoke's train shape: batch 2, Qwen3-8B's 32 / 8 heads of 128,
+    2048 positions."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs(cuda, dtype, 4, 128, 2048, b=2, kv=8, seed=2)
+    lse = torch.empty((2, 32, 2048), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention_cuda(q, k, v, lse=lse)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _relnorm(g, w) <= BWD_REL[dtype], name
+
+
+def test_flash_attention_bwd_two_streams(cuda):
+    """Two calls on two streams, one after the other: bitwise equal, each
+    within the bound, and each stream's order counters left at 0."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs(cuda, "bfloat16", 4, 128, 1000, b=2, seed=12)
+    lse = torch.empty((2, 8, 1000), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention_cuda(q, k, v, lse=lse)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            got.append(fa.flash_attention_bwd_cuda(q, k, v, out, lse, do))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, do)
+    for g, w in zip(got[0], want):
+        assert _relnorm(g, w) <= BWD_REL["bfloat16"]
+    n = fa.bwd_scratch(2, 1000, 2, 4, 128)[2]
+    for st in streams:
+        counters = pa.split_kv_tickets(cuda, st.cuda_stream, n)
+        assert int(counters[:n].abs().sum()) == 0
+
+
+def _current_context() -> int:
+    """The calling host thread's current CUDA context (0 for none), from
+    the driver."""
+    import ctypes
+    ctx = ctypes.c_void_p()
+    assert ctypes.CDLL("libcuda.so.1").cuCtxGetCurrent(ctypes.byref(ctx)) == 0
+    return ctx.value or 0
+
+
+def test_backward_kernels_from_a_fresh_thread(cuda):
+    """The flash and SwiGLU backwards as the first CUDA work of a new host
+    thread, as autograd's device thread runs them: the thread starts with
+    no current context and, the allocator's cache warm, reaches the tensor
+    maps before any runtime call binds one (the driver then refused every
+    map).  Each result equals the same call's from this thread bitwise."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import swiglu as sw
+    q, k, v, do = _bwd_inputs(cuda, "bfloat16", 4, 128, 256, seed=5)
+    lse = torch.empty((1, 8, 256), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention_cuda(q, k, v, lse=lse)
+    rng = np.random.default_rng(5)
+    x = _normal(rng, cuda, "bfloat16", 128, 256)
+    wg, wu = (_normal(rng, cuda, "bfloat16", 256, 512) for _ in range(2))
+    dh = _normal(rng, cuda, "bfloat16", 128, 512)
+    calls = [lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, do),
+             lambda: sw.swiglu_bwd_cuda(x, wg, wu, dh)]
+    for call in calls:
+        want = call()
+        torch.cuda.synchronize()
+        # cached blocks for every allocation the thread's call makes
+        warm = [torch.empty(1 << 20, dtype=torch.uint8, device=cuda)
+                for _ in range(16)]
+        del warm
+        got = {}
+
+        def run():
+            got["context"] = _current_context()
+            try:
+                got["grads"] = call()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                got["error"] = e
+        thread = threading.Thread(target=run)
+        thread.start()
+        thread.join()
+        assert got["context"] == 0
+        assert "error" not in got, got.get("error")
+        assert all(torch.equal(a, b) for a, b in zip(got["grads"], want))
 
 
 def test_flash_attention_bwd_split_forward_lse(cuda):

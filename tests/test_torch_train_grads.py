@@ -194,8 +194,11 @@ def test_remat_rejects_an_unknown_policy_and_states():
                            return_states=True)
 
 
-# (B, S, H, KV, D, q_offset)
-FLASH = [(2, 13, 4, 2, 16, 0), (1, 9, 6, 2, 8, 3), (2, 7, 3, 3, 16, 0)]
+# (B, S, H, KV, D, q_offset): groups 2, 3, 1, 9, 7 (the packed rows of
+# groups 3, 7 and 9 leave a row of every 64 unused), offsets, two positions
+FLASH = [(2, 13, 4, 2, 16, 0), (1, 9, 6, 2, 8, 3), (2, 7, 3, 3, 16, 0),
+         (1, 15, 9, 1, 16, 0), (2, 10, 14, 2, 8, 5), (1, 12, 6, 2, 16, 7),
+         (1, 2, 8, 1, 16, 0)]
 
 
 def _flash_inputs(b, s, h, kv, d, seed=1):
